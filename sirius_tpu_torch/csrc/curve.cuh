@@ -1,0 +1,122 @@
+// Jacobian point arithmetic for a = 0 short Weierstrass curves.
+//
+// Device counterparts of `sirius_tpu/ops/limb_kernels.py`: `k_dbl`
+// (dbl-2009-l), `k_add_complete` (general formula + selects over identity
+// operands, doubling and inverse pairs), `k_madd_incomplete` (madd-2007-bl),
+// `k_is_zero` and `k_select`.  The formulas are the same step for step, so
+// results equal the JAX package's and the plain torch twin's word for word.
+// The identity is (0, one, 0); z == 0 marks it everywhere.
+
+#pragma once
+
+#include "field.cuh"
+
+struct Pt {
+  Fe x, y, z;
+};
+
+__device__ __forceinline__ Pt pt_identity(const FieldConst& fc) {
+  Pt r;
+  r.x = fe_zero();
+  r.y = fe_one(fc);
+  r.z = fe_zero();
+  return r;
+}
+
+__device__ __forceinline__ Pt pt_load(const long long* x, const long long* y, const long long* z, long long row) {
+  Pt r;
+  r.x = fe_load(x, row);
+  r.y = fe_load(y, row);
+  r.z = fe_load(z, row);
+  return r;
+}
+
+__device__ __forceinline__ void pt_store(long long* x, long long* y, long long* z, long long row, const Pt& p) {
+  fe_store(x, row, p.x);
+  fe_store(y, row, p.y);
+  fe_store(z, row, p.z);
+}
+
+__device__ __forceinline__ Pt pt_select(bool c, const Pt& a, const Pt& b) {
+  Pt r;
+  r.x = fe_select(c, a.x, b.x);
+  r.y = fe_select(c, a.y, b.y);
+  r.z = fe_select(c, a.z, b.z);
+  return r;
+}
+
+// k_dbl: identity-safe (z3 = 2*y*z).
+__device__ __forceinline__ Pt pt_dbl(const Pt& P, const FieldConst& fc) {
+  Fe A = fe_square(P.x, fc);
+  Fe B = fe_square(P.y, fc);
+  Fe C = fe_square(B, fc);
+  Fe T = fe_square(fe_add(P.x, B, fc), fc);
+  Fe D = fe_double(fe_sub(fe_sub(T, A, fc), C, fc), fc);
+  Fe E = fe_add(fe_double(A, fc), A, fc);
+  Fe F = fe_square(E, fc);
+  Pt r;
+  r.x = fe_sub(F, fe_double(D, fc), fc);
+  Fe C8 = fe_double(fe_double(fe_double(C, fc), fc), fc);
+  r.y = fe_sub(fe_mul(E, fe_sub(D, r.x, fc), fc), C8, fc);
+  r.z = fe_double(fe_mul(P.y, P.z, fc), fc);
+  return r;
+}
+
+// k_add_complete.
+__device__ __forceinline__ Pt pt_add(const Pt& P, const Pt& Q, const FieldConst& fc) {
+  Fe z1z1 = fe_square(P.z, fc);
+  Fe z2z2 = fe_square(Q.z, fc);
+  Fe u1 = fe_mul(P.x, z2z2, fc);
+  Fe u2 = fe_mul(Q.x, z1z1, fc);
+  Fe s1 = fe_mul(fe_mul(P.y, Q.z, fc), z2z2, fc);
+  Fe s2 = fe_mul(fe_mul(Q.y, P.z, fc), z1z1, fc);
+  Fe h = fe_sub(u2, u1, fc);
+  Fe r = fe_sub(s2, s1, fc);
+  Fe hh = fe_square(h, fc);
+  Fe r2 = fe_square(r, fc);
+  Fe hhh = fe_mul(h, hh, fc);
+  Fe v = fe_mul(u1, hh, fc);
+  Pt out;
+  out.x = fe_sub(fe_sub(r2, hhh, fc), fe_double(v, fc), fc);
+  out.y = fe_sub(fe_mul(r, fe_sub(v, out.x, fc), fc), fe_mul(s1, hhh, fc), fc);
+  out.z = fe_mul(fe_mul(P.z, Q.z, fc), h, fc);
+
+  bool p_inf = fe_is_zero(P.z);
+  bool q_inf = fe_is_zero(Q.z);
+  bool h_zero = fe_is_zero(h);
+  bool r_zero = fe_is_zero(r);
+  if (h_zero && r_zero && !p_inf && !q_inf) out = pt_dbl(P, fc);
+  if (h_zero && !r_zero && !p_inf && !q_inf) out = pt_identity(fc);
+  if (q_inf) out = P;
+  if (p_inf) out = Q;
+  return out;
+}
+
+// k_madd_incomplete: Q = (qx, qy) affine, not the identity, Q != +-P;
+// P may be the identity, which gives Q.
+__device__ __forceinline__ Pt pt_madd(const Pt& P, const Fe& qx, const Fe& qy, const FieldConst& fc) {
+  Fe z1z1 = fe_square(P.z, fc);
+  Fe u2 = fe_mul(qx, z1z1, fc);
+  Fe t = fe_mul(qy, P.z, fc);
+  Fe s2 = fe_mul(t, z1z1, fc);
+  Fe h = fe_sub(u2, P.x, fc);
+  Fe rr = fe_double(fe_sub(s2, P.y, fc), fc);
+  Fe hh = fe_square(h, fc);
+  Fe zh2 = fe_square(fe_add(P.z, h, fc), fc);
+  Fe r2 = fe_square(rr, fc);
+  Fe i4 = fe_double(fe_double(hh, fc), fc);
+  Fe j = fe_mul(h, i4, fc);
+  Fe v = fe_mul(P.x, i4, fc);
+  Pt out;
+  out.x = fe_sub(fe_sub(r2, j, fc), fe_double(v, fc), fc);
+  Fe a = fe_mul(rr, fe_sub(v, out.x, fc), fc);
+  Fe b = fe_mul(P.y, j, fc);
+  out.y = fe_sub(a, fe_double(b, fc), fc);
+  out.z = fe_sub(fe_sub(zh2, z1z1, fc), hh, fc);
+  if (fe_is_zero(P.z)) {
+    out.x = qx;
+    out.y = qy;
+    out.z = fe_one(fc);
+  }
+  return out;
+}

@@ -1,0 +1,120 @@
+"""The Cyclefold support-fold chain.
+
+Counterpart of the support half of `sirius_tpu/ivc/cyclefold_ivc.py`
+(`CyclefoldPublicParams` support structure, `CyclefoldIVC.next`'s loop of
+support folds and `verify`'s support `is_sat`): every fold synthesizes the
+EC co-processor circuit `SupportCircuit` (p_out = l0 p0 + l1 p1 over
+bn256 points, native on grumpkin's scalar field), runs the 0-challenge SPS
+on the grumpkin key and folds the trace into a Sangria accumulator.  The
+public-parameter digest is supplied by the caller (the IVC digest comes
+with the IVC port).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from sirius_tpu.fields import gold
+from sirius_tpu.fields.constants import bn256_fq, bn256_fr, bn256_g1, grumpkin
+from sirius_tpu.ivc.support_circuit import InstanceInput, SupportCircuit
+from sirius_tpu.util.profiling import span
+
+from ..frontend.runner import CircuitRunner
+from ..nifs.sangria import RelaxedPlonkInstance, RelaxedPlonkTrace, RelaxedPlonkWitness, VanillaFS
+from ..ops.poseidon import PoseidonHash
+from ..plonk.sps import run_sps_protocol
+from ..plonk.structure import PlonkStructure
+from ..util.ro import default_ro_spec
+
+SUPPORT_K = 14
+SUPPORT_IO = 8
+
+
+def support_structure(k: int = SUPPORT_K) -> PlonkStructure:
+    """The support circuit's structure (shape-stable across inputs)."""
+    inp = InstanceInput(gold.identity(bn256_g1), gold.identity(bn256_g1), 0, 0)
+    circuit = SupportCircuit(inp, num_bits=bn256_fr.num_bits)
+    S = CircuitRunner(k, bn256_fq, circuit, [inp.into_instance(bn256_fq.modulus)]).collect_plonk_structure()
+    if S.num_challenges != 0:
+        raise ValueError("support circuit must take the 0-challenge SPS path")
+    return S
+
+
+def random_input(rng: np.random.Generator) -> InstanceInput:
+    """A support-circuit input drawn from `rng`: p0, p1 = s * G on bn256
+    (s < 2^62) and 254-bit scalars l0, l1 < r."""
+    G = gold.generator(bn256_g1)
+    s0, s1 = (int(v) for v in rng.integers(1, 1 << 62, size=2))
+    l0, l1 = (int.from_bytes(rng.bytes(32), "little") % bn256_fr.modulus for _ in range(2))
+    return InstanceInput(G.mul(s0), G.mul(s1), l0, l1)
+
+
+def support_ro() -> PoseidonHash:
+    return PoseidonHash(default_ro_spec(bn256_fr))
+
+
+class SupportFoldChain:
+    """A Sangria accumulator over support-circuit traces on key `ck`
+    (a grumpkin `CommitmentKey`, or a test double)."""
+
+    def __init__(self, ck, S: PlonkStructure, pp_digest=None, k: int = SUPPORT_K):
+        self.ck = ck
+        self.S = S
+        self.k = k
+        self.pp, self.vp = VanillaFS.setup_params(pp_digest or gold.identity(grumpkin), S)
+        f, dev = S.field, ck.device
+        self.acc = RelaxedPlonkTrace(
+            U=RelaxedPlonkInstance.new(grumpkin, 0, 1, 0, markers_len=SUPPORT_IO),
+            W=RelaxedPlonkWitness([f.zeros((sz,), dev) for sz in S.round_sizes], f.zeros((S.n,), dev)),
+        )
+        self.initial_U = self.acc.U
+        self.incoming = []  # PlonkInstance per fold
+        self.cross = []  # cross-term commitments per fold
+        self.pub_instances = []
+
+    def witness(self, inp: InstanceInput):
+        """(instances, advice columns) of one support circuit."""
+        instances = [inp.into_instance(bn256_fq.modulus)]
+        circuit = SupportCircuit(inp, num_bits=bn256_fr.num_bits)
+        return instances, CircuitRunner(self.k, bn256_fq, circuit, instances).collect_witness()
+
+    def fold(self, inp: InstanceInput) -> dict[str, float]:
+        """Fold one support circuit; returns seconds per phase (witness,
+        sps, prove), each closed by a device synchronize."""
+        secs = {}
+        t0 = time.perf_counter()
+        with span("support_witness"):
+            instances, advice = self.witness(inp)
+        t1 = time.perf_counter()
+        with span("support_sps"):
+            trace = run_sps_protocol(self.S, self.ck, instances, advice, support_ro())
+        t2 = _synced(self.ck.device)
+        with span("support_sangria_prove"):
+            self.acc, cross = VanillaFS.prove(self.ck, self.pp, support_ro(), self.acc, trace)
+        t3 = _synced(self.ck.device)
+        self.incoming.append(trace.u)
+        self.cross.append(cross)
+        self.pub_instances.append(trace.u.instances)
+        secs["witness"], secs["sps"], secs["prove"] = t1 - t0, t2 - t1, t3 - t2
+        return secs
+
+    def verify(self) -> RelaxedPlonkInstance:
+        """Replay every fold on the instance side; returns the verifier's
+        accumulator instance (equal to the prover's for an honest chain)."""
+        U = self.initial_U
+        for U2, cross in zip(self.incoming, self.cross):
+            U = VanillaFS.verify(self.vp, grumpkin, support_ro(), support_ro(), U, U2, cross)
+        return U
+
+    def is_sat(self, acc: RelaxedPlonkTrace | None = None) -> list:
+        """Errors of the accumulator (or of `acc`, e.g. a corrupted copy)."""
+        return VanillaFS.is_sat(self.ck, self.S, acc or self.acc, self.pub_instances)
+
+
+def _synced(device) -> float:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()

@@ -1,0 +1,107 @@
+"""Build and load the CUDA kernels of `csrc/`.
+
+The sources compile with `nvcc` for sm_90a into one shared library with a
+plain C interface, loaded with ctypes.  Nothing happens at import: the first
+CUDA launch calls `library()`, which builds into `sirius_tpu_torch/_build/`
+(git-ignored) under a name keyed by a hash of the sources and flags, so a
+fresh checkout builds once and an unchanged tree never rebuilds.
+
+Each C entry point takes the 17-word field constant block (p, R mod p,
+-p^-1 mod 2^32) as a host pointer, device pointers as `c_void_p`, sizes as
+64-bit ints, and the CUDA stream last; it returns the `cudaError_t` of the
+launch, which `check` raises on.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from functools import lru_cache
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+SRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "sirius_madd": [P] * 9 + [LL, P],
+    "sirius_msm_accumulate": [P] * 9 + [LL, P],
+    "sirius_msm_reduce": [P] * 8 + [LL, P],
+    "sirius_msm_combine": [P] * 10 + [I, I, I, I, P],
+}
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+                 shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _sources() -> list[Path]:
+    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+
+
+@lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    so = BUILD_DIR / f"libsirius_kernels_{h.hexdigest()[:16]}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(SRC_DIR.glob("*.cu")))]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        (BUILD_DIR / "ptxas.log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, args in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def field_consts(field) -> ctypes.Array:
+    """The 17-word constant block of a port `Field` (host memory)."""
+    words = [*field.p_words, *field.one_mont_words, field.n0inv32]
+    return (ctypes.c_uint32 * 17)(*words)
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+
+
+def require_cuda(*tensors: torch.Tensor) -> None:
+    """Validate kernel operands: one CUDA device, int64, contiguous."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"operands on {t.device} and {dev}")
+        if t.device.type != "cuda":
+            raise ValueError(f"kernel operand on {t.device}, not a CUDA device")
+        if t.dtype != torch.int64:
+            raise TypeError(f"kernel operand dtype {t.dtype}, expected int64")
+        if not t.is_contiguous():
+            raise ValueError("kernel operands must be contiguous")

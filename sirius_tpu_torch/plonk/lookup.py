@@ -1,0 +1,56 @@
+"""Protostar log-derivative lookup arguments: the structure-time part.
+
+Counterpart of the host half of `sirius_tpu/plonk/lookup.py`: compression of
+lookup/table expressions and the constraint expressions they add to the
+gates, which the runner and structure need.  The prover passes (multiplicity
+count, h/g vectors) belong to the 2/3-challenge SPS rounds, not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+from sirius_tpu.poly.expression import Challenge, Constant, Expression, Poly, Query, compress_expression
+
+
+@dataclass
+class LookupArguments:
+    lookup_polys: list[Expression]
+    table_polys: list[Expression]
+    has_vector_lookup: bool
+
+    @staticmethod
+    def compress_from(lookups: Sequence[tuple[Sequence[Expression], Sequence[Expression]]]) -> Optional["LookupArguments"]:
+        """lookups: (input_exprs, table_exprs) pairs in the global index
+        space; vector lookups compress with Challenge(0)."""
+        if not lookups:
+            return None
+        max_len = max(len(inp) for inp, _ in lookups)
+        if max_len == 0:
+            return None
+        return LookupArguments(
+            [compress_expression(list(inp), 0) for inp, _ in lookups],
+            [compress_expression(list(tbl), 0) for _, tbl in lookups],
+            max_len > 1,
+        )
+
+    def num_lookups(self) -> int:
+        return len(self.lookup_polys)
+
+    def vanishing_lookup_polys(self, lookup_offset: int) -> list[Expression]:
+        ls = [L - Poly(Query(lookup_offset + i * 5, 0)) for i, L in enumerate(self.lookup_polys)]
+        ts = [T - Poly(Query(lookup_offset + i * 5 + 1, 0)) for i, T in enumerate(self.table_polys)]
+        return ls + ts
+
+    def log_derivative_lhs_and_rhs(self, lookup_offset: int) -> list[Expression]:
+        r = Challenge(1 if self.has_vector_lookup else 0)
+        out = []
+        for i in range(self.num_lookups()):
+            l, t, m, h, g = (Poly(Query(lookup_offset + i * 5 + j, 0)) for j in range(5))
+            out.append(h * (l + r) - Constant(1))
+            out.append(g * (t + r) - m)
+        return out
+
+    def to_expressions(self, lookup_offset: int) -> list[Expression]:
+        return self.vanishing_lookup_polys(lookup_offset) + self.log_derivative_lhs_and_rhs(lookup_offset)

@@ -1,0 +1,44 @@
+"""Test doubles and references.
+
+MockCommitmentKey: a homomorphic but non-binding commitment,
+commit(w) = (sum_i w_i) * G, the same double as
+`sirius_tpu/util/testing.py`.  Linear like a Pedersen commitment, so every
+folding identity holds bit for bit without MSM cost.  Tests only.
+
+reference_msm: the big-integer model MSM (`sirius_tpu/fields/gold.py`), the
+reference the MSM kernels are held to.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from sirius_tpu.fields import gold
+
+from ..curves.jpoint import Curve
+
+
+@dataclass
+class MockCommitmentKey:
+    curve: Curve
+    device: torch.device | str = "cpu"
+    max_len: int = 1 << 40
+
+    def __len__(self):
+        return self.max_len
+
+    def commit_device(self, w_mont):
+        f = self.curve.fs
+        s = f.decode_one(f.sum_reduce(w_mont)) if w_mont.shape[0] else 0
+        return gold.generator(self.curve.spec).mul(s)
+
+    def commit(self, v_ints):
+        s = sum(v % self.curve.fs.p for v in v_ints) % self.curve.fs.p
+        return gold.generator(self.curve.spec).mul(s)
+
+
+def reference_msm(scalars: list[int], points: list[gold.AffinePoint]) -> gold.AffinePoint:
+    """sum_i s_i * P_i on host integers (slow: ~20 ms per 254-bit scalar)."""
+    return gold.msm(scalars, points)

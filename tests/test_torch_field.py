@@ -1,0 +1,78 @@
+"""Port field arithmetic vs the JAX package's `Field` and Python ints
+(exact: integer results, canonical encodings compared word for word)."""
+
+import numpy as np
+import pytest
+import torch
+
+from sirius_tpu.fields import jfield as jf
+from sirius_tpu_torch.fields import jfield as tf
+from sirius_tpu_torch.util.interop import to_numpy, to_torch
+
+torch.set_num_threads(1)  # small ops: more threads only contend with the other test workers
+
+NAMES = ["bn256_fq", "bn256_fr", "pasta_fp", "pasta_fq"]
+
+
+def _pair(name):
+    return jf._FIELDS[name], tf._FIELDS[name]
+
+
+def _inputs(J, seed, n=48):
+    rng = np.random.default_rng(seed)
+    a = np.asarray(J.random((n,), rng))
+    b = np.asarray(J.random((n,), rng))
+    # edge values: 0, 1, p-1
+    edge = np.asarray(J.encode([0, 1, J.p - 1]))
+    return np.concatenate([a, edge]), np.concatenate([b, edge[::-1]])
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_encode_decode_and_random_match_jax(name):
+    J, T = _pair(name)
+    xs = [0, 1, J.p - 1, 2**200 + 12345, J.p // 3]
+    assert np.array_equal(to_numpy(T.encode(xs)), np.asarray(J.encode(xs)))
+    assert T.decode(T.encode(xs)) == [x % J.p for x in xs]
+    rng_a, rng_b = np.random.default_rng(5), np.random.default_rng(5)
+    assert np.array_equal(to_numpy(T.random((7,), rng_a)), np.asarray(J.random((7,), rng_b)))
+
+
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("op", ["add", "sub", "mul"])
+def test_binary_ops_match_jax(name, op):
+    J, T = _pair(name)
+    a, b = _inputs(J, 10 * NAMES.index(name) + len(op))
+    got = getattr(T, op)(to_torch(a), to_torch(b))
+    want = getattr(J, op)(a, b)
+    assert np.array_equal(to_numpy(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("name", ["bn256_fq", "bn256_fr"])
+def test_unary_ops_match_jax(name):
+    J, T = _pair(name)
+    a, _ = _inputs(J, 11)
+    ta = to_torch(a)
+    for t_out, j_out in (
+        (T.neg(ta), J.neg(a)),
+        (T.square(ta), J.square(a)),
+        (T.from_mont(ta), J.from_mont(a)),
+        (T.to_mont(ta), J.to_mont(a)),
+        (T.pow_int(ta[:8], 12345), J.pow_int(a[:8], 12345)),
+        (T.inv(ta[:4]), J.inv(a[:4])),
+        (T.batch_inv(ta), J.batch_inv(a)),
+        (T.sum_reduce(ta), J.sum_reduce(a)),
+    ):
+        assert np.array_equal(to_numpy(t_out), np.asarray(j_out))
+    assert bool(T.eq(ta, ta).all()) and not bool(T.eq(ta[:3], ta[1:4]).any())
+    assert T.is_zero(to_torch(np.asarray(J.zeros((2,))))).all()
+
+
+def test_ops_against_python_ints_with_broadcast():
+    T = tf.FR
+    p = T.p
+    rng = np.random.default_rng(3)
+    xs = [int(v) % p for v in rng.integers(0, 2**62, 20)] + [0, p - 1]
+    ys = [5, p - 2, 0]
+    got = T.decode(T.mul(T.encode(xs)[:, None], T.encode(ys)[None, :]))
+    assert got == [x * y % p for x in xs for y in ys]
+    assert T.decode(T.sub(T.encode(xs), T.encode(xs[::-1]))) == [(x - y) % p for x, y in zip(xs, xs[::-1])]
