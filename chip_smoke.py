@@ -3,8 +3,13 @@
 
     python3 chip_smoke.py
 
-1. Prints the card, its power limit and the torch version; builds the CUDA
-   kernels from `sirius_tpu_torch/csrc/` (nvcc, sm_90a).
+1. Prints the card, its power limit, SM clock and the torch version;
+   builds the CUDA kernels from `sirius_tpu_torch/csrc/` (nvcc, sm_90a) into
+   one cached library.  S4: x + 1 on an (8, 128) tile, and a second Python
+   process must load the cached library without running nvcc.
+   S2/S3: the Montgomery-multiply rate (K = 8 chains on 2^17 bn256 Fr and Fq
+   elements, bit-exact against the twin) and the raw u32 multiply/add rates
+   (2^22 values x 64), each beside its paper rate for the card's SM clock.
 2. Keys: the bn256 2^20 key (b"bench-primary") and the grumpkin 2^17 key
    (b"bench-support"), derived on the device.
 3. Holds every kernel against its plain torch twin on the card, on the same
@@ -17,37 +22,57 @@
 4. Commits 2^20 bn256 scalars (drawn as bench.py draws them): reference
    check on a 64-point prefix, every stage against its twin at 2^20, the
    result against best_msm's, then the points/s of one warm MSM.
-5. Drives the Cyclefold support-fold chain: 3 Sangria folds of the EC
+5. The NTT at 2^20 on bn256 Fr (bench.py's inputs): B4 at both pass
+   shapes (1024 x 1024, forward and inverse tables) and the mid-twiddle
+   multiply bit-exact against their twins and timed beside their bounds;
+   then the NTT path (launch counts from here): mid-twiddle set-up timed
+   apart, forward, inverse and coset transforms, round trips exact, spot
+   values equal to the direct sums, k = 3 equal to the reference vector
+   (the R = 1 route), k = 12 equal to `gold.fft`, the warm forward
+   transform in elements/s; col_ntt and mul_chain must have launched.
+6. Drives the Cyclefold support-fold chain: 3 Sangria folds of the EC
    co-processor circuit at k = 14 on the grumpkin key; verify must replay
    the prover's accumulator, is_sat must be clean and must catch a flipped
    witness cell; every kernel must have launched on this path.  Then one
    more fold runs under torch.profiler: its device events and the device's
    busy share of its wall time.
 
-Ends with a JSON line of kernel results, the nvidia-smi line, and the
-device JSON line.  Fails (non-zero exit, no result) without CUDA or on any
-failed check.
+Ends with a JSON line of kernel results (time, plain twin's time, bound
+and what sets it, launches on the path that runs the kernel; S3 and S4
+run on no path but their own timed runs, which are counted), the
+nvidia-smi line, and the device JSON line.  Bounds: the larger of the
+canonical bytes moved (32 B per field element, each input read once and
+each output written once) over 3.35 TB/s and the Montgomery products times
+FE_MUL_IMADS integer multiply-adds over 64 per clock per SM x the SMs x the
+SM clock nvidia-smi reads.  Fails (non-zero exit, no result) without CUDA
+or on any failed check.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from sirius_tpu_torch.curves.hash_to_curve import hash_bytes_to_point
 from sirius_tpu_torch.curves.jpoint import BN256_G1, GRUMPKIN, Points
+from sirius_tpu_torch.fields import gold
+from sirius_tpu_torch.fields.constants import bn256_fr
+from sirius_tpu_torch.fields.jfield import FQ, FR
 from sirius_tpu_torch.ivc.support_fold import SupportFoldChain, random_input, support_structure
 from sirius_tpu_torch.nifs.sangria import RelaxedPlonkTrace, RelaxedPlonkWitness
-from sirius_tpu_torch.ops import _build, madd as madd_mod, msm_kernels as mk
+from sirius_tpu_torch.ops import _build, madd as madd_mod, microbench as mb, msm_kernels as mk, ntt_kernels
 from sirius_tpu_torch.ops.commitment import CommitmentKey
 from sirius_tpu_torch.ops.msm import FAN_IN, MANY_GROUPS, MANY_WINDOW_BITS, best_msm, bucket_plan, msm_many
 from sirius_tpu_torch.ops.msm import split_segments
+from sirius_tpu_torch.ops.ntt import NTT
 from sirius_tpu_torch.util.interop import limbs_to_words
 from sirius_tpu_torch.util.testing import reference_msm
 
@@ -61,6 +86,27 @@ SUPPORT_KEY_LOG = 17
 CROSS_TERMS = 5  # gate degree of the support circuit
 CROSS_N = 1 << 14  # cross-term length (rows)
 W_COMMIT_N = 7 << 14  # support W commit length (7 advice columns x 2^14 rows)
+NTT_LOG = 20  # bench.py's ntt_elems_per_sec_2^20
+S2_N, S2_K = 1 << 17, 8  # scripts/tpu_microbench.py: (1024, 128) elements, K = 8
+S3_N, S3_REPS = 1 << 22, 64  # 2^22 values: the TPU's (512, 128) would not fill 132 SMs
+LONG_K, LONG_REPS = 256, 4096  # chains long enough that the rate, not the memory traffic, sets the time
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+IMADS_PER_CLK_SM = 64  # 32-bit integer multiply-adds per clock per SM, compute capability 9.0
+FE_MUL_IMADS = 136  # csrc/field.cuh:141-177: 8 rounds x (8 + 1 + 8) 32x32-bit products
+FE = 32  # bytes of one canonical field element
+ROOT = Path(__file__).resolve().parent
+# reference src/fft.rs:241-252: fft([0..8]) over bn256 Fr
+GOLDEN_FFT8 = [
+    28,
+    68918385373930674424918168212551896122229959265833979749191472831399925654,
+    17631683881184975370165255887551781615748388533673675138856,
+    68918385373930639161550405842601155791718184162270748252414405484049647934,
+    21888242871839275222246405745257275088548364400416034343698204186575808495613,
+    21819324486465344583084855339414673932756646216253763595445789781091758847675,
+    21888242871839275204614721864072299718383108512864252727949815652902133356753,
+    21819324486465344547821487577044723192426134441150200363949012713744408569955,
+]
+MADD_MULS, ADD_MULS, DBL_MULS = 11, 16, 7  # Montgomery products: csrc/curve.cuh pt_madd, pt_add, pt_dbl
 
 
 def log(msg: str) -> None:
@@ -83,6 +129,37 @@ def gpu_ms(fn, reps: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(muls: float, nbytes: float, imad_rate: float, per_mul: int = FE_MUL_IMADS) -> tuple[float, str]:
+    """(least ms, "operations" or "bytes"): the larger of muls * per_mul
+    integer multiply-adds at the card's rate and nbytes at HBM bandwidth."""
+    ops_ms = muls * per_mul / imad_rate * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def sass_loop_imads(so: Path, kernel: str) -> int | None:
+    """Integer multiply instructions (IMAD family, moves excluded) in the
+    innermost loop of `kernel` in the built library's SASS; for
+    mul_chain_kernel (K loop not unrolled) that is one fe_mul.  None when
+    cuobjdump or the loop is not found."""
+    try:
+        sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(so)], capture_output=True,
+                              text=True, timeout=120).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    sections = [s for s in sass.split("Function : ")[1:] if s.split("\n", 1)[0].find(kernel) >= 0]
+    if not sections:
+        return None
+    ins = [(int(a, 16), op) for a, op in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", sections[0])]
+    loops = [(int(m.group(1), 16), a) for a, op in ins if (m := re.search(r"BRA[.\w]*\s+0x([0-9a-f]+)", op))
+             and int(m.group(1), 16) < a]
+    if not loops:
+        return None
+    lo, hi = min(loops, key=lambda l: l[1] - l[0])
+    ops = [op.split()[1] if op.startswith("@") else op.split()[0] for a, op in ins if lo <= a <= hi]
+    return sum(1 for o in ops if o.startswith("IMAD") and not o.startswith("IMAD.MOV"))
 
 
 def word_err(a, b) -> float:
@@ -108,17 +185,20 @@ def msm_stages(curve, S, pts, timed: bool = False):
     """best_msm's stages at the shapes it gives them: B2 accumulate, every
     B3 reduce level, B3 combine.  Each kernel is held against its plain twin
     on the same inputs, and the kernel's output feeds the next stage.
-    Returns (the (1, 8) Jacobian result, {kernel: (max_abs_err, ms,
-    plain_ms)}); times only when `timed` (the reduce time is its first
-    level's)."""
+    Returns (the (1, 8) Jacobian result, {kernel: [max_abs_err, ms,
+    plain_ms, Montgomery products, canonical bytes]}, the plan); times only
+    when `timed` (the reduce time and work are its first level's)."""
     plan = bucket_plan(S)
     out = {}
     acc = (curve, plan.entries, plan.chunk_start, plan.chunk_len, pts.x.contiguous(), pts.y.contiguous())
     parts = mk.msm_accumulate(*acc)
     err = word_err(parts, mk.msm_accumulate_plain(*acc))
     check(err == 0, f"B2 msm_accumulate is not bit-exact against its twin at {S.shape[0]} points")
+    n_entries, n_chunks = plan.entries.shape[0], plan.chunk_start.shape[0]
     out["msm_accumulate"] = [err, gpu_ms(lambda: mk.msm_accumulate(*acc)) if timed else None,
-                             gpu_ms(lambda: mk.msm_accumulate_plain(*acc), reps=1) if timed else None]
+                             gpu_ms(lambda: mk.msm_accumulate_plain(*acc), reps=1) if timed else None,
+                             MADD_MULS * n_entries,
+                             4 * n_entries + 8 * n_chunks + 2 * FE * pts.x.shape[0] + 3 * FE * n_chunks]
 
     seg_off, level, red_err = plan.seg_off, 0, 0.0
     while True:
@@ -130,8 +210,10 @@ def msm_stages(curve, S, pts, timed: bool = False):
         red_err = max(red_err, err)
         if level == 0:
             args = (curve, sub_off, parts)
+            n_parts, n_seg = parts.x.shape[0], sub_off.shape[0] - 1
             out["msm_reduce"] = [None, gpu_ms(lambda: mk.msm_reduce(*args)) if timed else None,
-                                 gpu_ms(lambda: mk.msm_reduce_plain(*args), reps=1) if timed else None]
+                                 gpu_ms(lambda: mk.msm_reduce_plain(*args), reps=1) if timed else None,
+                                 ADD_MULS * n_parts, 3 * FE * n_parts + 4 * (n_seg + 1) + 3 * FE * n_seg]
         parts, level = red, level + 1
         if nxt is None:
             break
@@ -143,7 +225,9 @@ def msm_stages(curve, S, pts, timed: bool = False):
     err = point_err(curve, res, mk.msm_combine_plain(curve, shaped, plan.c))
     check(err == 0, f"B3 msm_combine disagrees with its twin at {S.shape[0]} points")
     out["msm_combine"] = [err, gpu_ms(lambda: mk.msm_combine(curve, shaped, plan.c)) if timed else None,
-                          gpu_ms(lambda: mk.msm_combine_plain(curve, shaped, plan.c), reps=1) if timed else None]
+                          gpu_ms(lambda: mk.msm_combine_plain(curve, shaped, plan.c), reps=1) if timed else None,
+                          ADD_MULS * 2 * plan.W * plan.B + (plan.W - 1) * (DBL_MULS * plan.c + ADD_MULS),
+                          3 * FE * plan.W * plan.B + 3 * FE]
     return res, out, plan
 
 
@@ -180,10 +264,95 @@ def main() -> int:
     card = f"{torch.cuda.get_device_name(0)} ({smi})"
     log(f"card: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    clock_mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                                     capture_output=True, text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    imad_rate = IMADS_PER_CLK_SM * sms * clock_mhz * 1e6
+    log(f"{sms} SMs, max SM clock {clock_mhz:.0f} MHz: paper rate {imad_rate:.6e} 32-bit integer multiply-adds/s")
     t0 = time.perf_counter()
-    _build.library()
-    log(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    so = Path(_build.library()._name)
+    log(f"kernel build: {time.perf_counter() - t0:.1f} s (nvcc ran in this process: {_build.built_here()})")
     rng = np.random.default_rng(SEED)
+    kernels = {}
+
+    def record(name, source, replaces, err, ms, plain_ms, muls, nbytes, per_mul=FE_MUL_IMADS):
+        """One entry of the kernels line; `muls`/`nbytes` are the work of
+        the timed call, for its bound."""
+        bound_ms, bound_by = bound(muls, nbytes, imad_rate, per_mul)
+        kernels[name] = {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": 0,
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": None}
+
+    # ---- S4: the build probe ----------------------------------------------------------------
+    x = torch.from_numpy(rng.integers(0, 1 << 32, size=(8, 128), dtype=np.int64)).to(dev)
+    x[0, 0] = 0xFFFFFFFF  # wraps to 0
+    err = word_err([mb.probe_add_one(x)], [mb.probe_add_one_plain(x)])
+    check(err == 0, "S4 probe_add_one disagrees with x + 1")
+    second = subprocess.run([sys.executable, "-c", "from sirius_tpu_torch.ops import _build\n"
+                             "_build.library()\nprint('nvcc ran:', _build.built_here())"],
+                            cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(second.returncode == 0 and second.stdout.strip() == "nvcc ran: False",
+          f"S4: a second process did not load the cached library: {second.stdout[-500:]} {second.stderr[-2000:]}")
+    probe_launches = {}  # S3/S4 have no path but their own timed runs: counted there, after the twin checks
+    mb.probe_add_one.launches = 0
+    ms = gpu_ms(lambda: mb.probe_add_one(x), reps=200)
+    probe_launches["probe_add_one"] = mb.probe_add_one.launches
+    plain = gpu_ms(lambda: mb.probe_add_one_plain(x), reps=200)
+    record("probe_add_one", "sirius_tpu_torch/csrc/microbench.cu", "scripts/lower_dump.py:14", err, ms, plain,
+           x.numel(), 8 * x.numel(), per_mul=1)
+    log(f"S4 probe_add_one (8, 128): equals x + 1 mod 2^32; a second process loaded the cached library without "
+        f"nvcc; kernel {ms:.6f} ms, plain {plain:.6f} ms  [{card}]")
+
+    # ---- S2/S3: field and integer rates against the paper rate --------------------------------
+    def random_elements(gen, n):
+        """n canonical Montgomery words below 2^252 (< p for both bn256 fields)."""
+        w = gen.integers(0, 1 << 32, size=(n, 8), dtype=np.int64)
+        w[:, 7] &= 0x0FFFFFFF
+        return torch.from_numpy(w).to(dev)
+
+    per_mul = sass_loop_imads(so, "mul_chain_kernel")
+    log(f"SASS: {per_mul} integer multiply instructions in the mul_chain loop (one fe_mul); "
+        f"the bounds use the hand count {FE_MUL_IMADS}")
+    for field in (FR, FQ):
+        a2, b2 = random_elements(rng, S2_N), random_elements(rng, S2_N)
+        err = word_err([mb.mul_chain(field, a2, b2, S2_K)], [mb.mul_chain_plain(field, a2, b2, S2_K)])
+        check(err == 0, f"S2 mul_chain on {field} is not bit-exact")
+        ms = gpu_ms(lambda: mb.mul_chain(field, a2, b2, S2_K), reps=50)
+        plain = gpu_ms(lambda: mb.mul_chain_plain(field, a2, b2, S2_K), reps=3)
+        rate, paper = S2_N * S2_K / (ms / 1e3), imad_rate / FE_MUL_IMADS
+        log(f"S2 mul_chain {field.spec.name} 2^17 x K={S2_K}: bit-exact; kernel {ms:.6f} ms = {rate:.6e} "
+            f"Montgomery mul/s = {100 * rate / paper:.2f}% of the paper rate {paper:.6e} "
+            f"({FE_MUL_IMADS} multiply-adds per mul); plain {plain:.4f} ms  [{card}]")
+        ms_long = gpu_ms(lambda: mb.mul_chain(field, a2, b2, LONG_K), reps=10)
+        rate = S2_N * LONG_K / (ms_long / 1e3)
+        log(f"S2 mul_chain {field.spec.name} 2^17 x K={LONG_K}: {ms_long:.6f} ms = {rate:.6e} Montgomery mul/s = "
+            f"{100 * rate / paper:.2f}% of the paper rate  [{card}]")
+        if field is FR:
+            record("mul_chain", "sirius_tpu_torch/csrc/microbench.cu", "scripts/tpu_microbench.py:74", err, ms,
+                   plain, S2_N * S2_K, 3 * FE * S2_N)
+    a3 = torch.from_numpy(rng.integers(0, 1 << 32, size=S3_N, dtype=np.int64)).to(dev)
+    errs = {}
+    for op in ("mul", "add"):
+        errs[op] = word_err([mb.raw_u32(a3, op, S3_REPS)], [mb.raw_u32_plain(a3, op, S3_REPS)])
+        check(errs[op] == 0, f"S3 raw_u32 {op} disagrees with its twin")
+    mb.raw_u32.launches = 0
+    for op, err in errs.items():
+        ms = gpu_ms(lambda: mb.raw_u32(a3, op, S3_REPS), reps=50)
+        plain = gpu_ms(lambda: mb.raw_u32_plain(a3, op, S3_REPS), reps=3)
+        rate = S3_N * S3_REPS / (ms / 1e3)
+        log(f"S3 raw_u32 {op} 2^22 x {S3_REPS}: exact; kernel {ms:.6f} ms = {rate:.6e} u32 {op}/s = "
+            f"{100 * rate / imad_rate:.2f}% of the paper rate {imad_rate:.6e}; plain {plain:.4f} ms  [{card}]")
+        ms_long = gpu_ms(lambda: mb.raw_u32(a3, op, LONG_REPS), reps=10)
+        rate = S3_N * LONG_REPS / (ms_long / 1e3)
+        log(f"S3 raw_u32 {op} 2^22 x {LONG_REPS}: {ms_long:.6f} ms = {rate:.6e} u32 {op}/s = "
+            f"{100 * rate / imad_rate:.2f}% of the paper rate  [{card}]")
+        if op == "mul":
+            record("raw_u32", "sirius_tpu_torch/csrc/microbench.cu", "scripts/tpu_microbench.py:102", err, ms,
+                   plain, S3_N * S3_REPS, 8 * S3_N, per_mul=1)
+    probe_launches["raw_u32"] = mb.raw_u32.launches
+    log(f"launch counts of the probes' timed runs: {probe_launches}")
+    for name, count in probe_launches.items():
+        check(count > 0, f"probe {name} never launched in its timed runs")
 
     def random_scalars(gen, shape):
         """Standard-form word tensor of 252-bit scalars (bench.py's draw)."""
@@ -209,12 +378,6 @@ def main() -> int:
         want = [hash_bytes_to_point(curve.spec, stream[64 * i : 64 * (i + 1)]) for i in range(4)]
         check(curve.decode(Points(*(c[:4] for c in ck.points))) == want, f"{curve} key prefix vs host map")
 
-    kernels = {}
-
-    def record(name, source, replaces, err, ms, plain_ms):
-        kernels[name] = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                         "max_abs_err": err, "ms": round(ms, 4), "plain_ms": round(plain_ms, 4)}
-
     # ---- B1: madd, bit-exact on 2^16 pairs per curve ------------------------------------
     for ck, curve in ((ck1, BN256_G1), (ck2, GRUMPKIN)):
         n = B1_PAIRS
@@ -238,7 +401,8 @@ def main() -> int:
     check(err == 0, "B1 madd at the step shape is not bit-exact")
     ms = gpu_ms(lambda: madd_mod.madd_batch(GRUMPKIN, P, qx, qy), reps=20)
     plain = gpu_ms(lambda: madd_mod.madd_plain(GRUMPKIN, P, qx, qy), reps=3)
-    record("madd", "sirius_tpu_torch/csrc/madd.cu", "sirius_tpu/ops/pallas_madd.py:136", err, ms, plain)
+    record("madd", "sirius_tpu_torch/csrc/madd.cu", "sirius_tpu/ops/pallas_madd.py:136", err, ms, plain,
+           MADD_MULS * lanes, 8 * FE * lanes)
     log(f"B1 madd {lanes} lanes: bit-exact; kernel {ms:.4f} ms, plain {plain:.4f} ms  [{card}]")
 
     # ---- B2 + B3 at the support W-commit shape (7 x 2^14 grumpkin scalars) ----------------
@@ -246,10 +410,10 @@ def main() -> int:
     pw = Points(*(c[:W_COMMIT_N] for c in ck2.points))
     res, stage, plan = msm_stages(GRUMPKIN, Sw, pw, timed=True)
     check(GRUMPKIN.decode(res)[0] == best_msm(GRUMPKIN, Sw, pw), "W-commit stages disagree with best_msm")
-    for name, (err, ms, plain) in stage.items():
+    for name, (err, ms, plain, muls, nbytes) in stage.items():
         record(name, "sirius_tpu_torch/csrc/msm.cu",
                "sirius_tpu/ops/pallas_msm.py:50" if name == "msm_accumulate" else "sirius_tpu/ops/pallas_msm.py:173",
-               err, ms, plain)
+               err, ms, plain, muls, nbytes)
     log(f"B2/B3 at {W_COMMIT_N} grumpkin points (c={plan.c}, W={plan.W}, B={plan.B}): every stage agrees "
         "with its twin; " + ", ".join(f"{k} {v[1]:.4f} ms (plain {v[2]:.4f} ms)" for k, v in stage.items())
         + f"  [{card}]")
@@ -289,6 +453,86 @@ def main() -> int:
     dt = time.perf_counter() - t0
     log(f"2^20 bn256 MSM (c={plan.c}): prefix equals the reference, every stage agrees with its twin; "
         f"warm {dt:.4f} s = {n / dt:.0f} pts/s  [{card}]")
+
+    # ---- the NTT at 2^20 on bn256 Fr (bench.py's inputs) ---------------------------------------
+    n = 1 << NTT_LOG
+    xs = [int(v) for v in np.random.default_rng(7).integers(0, 2**62, size=n)]
+    a = FR.encode(xs, dev)
+    chk = NTT(FR, NTT_LOG, dev)  # a context of its own: the path below builds its mid twiddles itself
+    n1, n2 = chk.n1, chk.n2
+    half = n1 // 2
+    for inverse in (False, True):
+        M = a.reshape(n1, n2, 8)
+        A = ntt_kernels.col_ntt(FR, M, chk.rev_n1, chk.inner[inverse])
+        err1 = word_err([A], [ntt_kernels.col_ntt_plain(FR, M, chk.rev_n1, chk.inner[inverse])])
+        T = chk.mid_twiddle(inverse)
+        B = mb.mul_chain(FR, A.reshape(n, 8), T, 1)
+        errm = word_err([B], [mb.mul_chain_plain(FR, A.reshape(n, 8), T, 1)])
+        D = B.reshape(n1, n2, 8).transpose(0, 1).contiguous()
+        E = ntt_kernels.col_ntt(FR, D, chk.rev_n2, chk.outer[inverse])
+        err2 = word_err([E], [ntt_kernels.col_ntt_plain(FR, D, chk.rev_n2, chk.outer[inverse])])
+        check(err1 == err2 == errm == 0, f"B4 col_ntt / the mid multiply not bit-exact at ({n1}, {n2}), "
+              f"inverse={inverse}: {err1}, {errm}, {err2}")
+        check(torch.equal(E.reshape(n, 8), chk.fft(a, inverse)), "the checked stages disagree with NTT.fft")
+        if not inverse:
+            args = (FR, M, chk.rev_n1, chk.inner[False])
+            ms = gpu_ms(lambda: ntt_kernels.col_ntt(*args), reps=20)
+            plain = gpu_ms(lambda: ntt_kernels.col_ntt_plain(*args), reps=1)
+            ms_mid = gpu_ms(lambda: mb.mul_chain(FR, A.reshape(n, 8), T, 1), reps=20)
+            muls = (n1.bit_length() - 2) * half * n2  # every stage but m = 1 multiplies
+            record("col_ntt", "sirius_tpu_torch/csrc/ntt.cu", "sirius_tpu/ops/pallas_ntt.py:82", err1, ms, plain,
+                   muls, 2 * FE * n + FE * half + 4 * n1)
+            b4 = kernels["col_ntt"]
+            log(f"B4 col_ntt ({n1}, {n2}): kernel {ms:.6f} ms, plain {plain:.4f} ms, bound {b4['bound_ms']:.6f} ms "
+                f"({b4['bound_by']}); mid-twiddle multiply (mul_chain K=1, 2^20) {ms_mid:.6f} ms  [{card}]")
+    log(f"B4 col_ntt at both pass shapes ({n1} x {n2}, {n2} x {n1}), forward and inverse tables, and the "
+        "mid-twiddle multiply: bit-exact against their twins")
+
+    # the NTT path (launch counts from here)
+    ntt_counters = (ntt_kernels.col_ntt, mb.mul_chain)
+    for fn in ntt_counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    ctx = NTT(FR, NTT_LOG, dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ctx.mid_twiddle(False)
+    ctx.mid_twiddle(True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out = ctx.fft(a)
+    check(torch.equal(ctx.ifft(out), a), "2^20 ifft(fft(a)) != a")
+    coset = ctx.coset_fft(a)
+    check(torch.equal(ctx.coset_ifft(coset), a), "2^20 coset_ifft(coset_fft(a)) != a")
+    p, w = FR.p, gold.omega_for_k(bn256_fr, NTT_LOG)
+    zpow = [pow(bn256_fr.zeta, i, p) for i in range(3)]
+    for j in (0, 1, 123457):
+        wj, cur, acc, cacc = pow(w, j, p), 1, 0, 0
+        for i, v in enumerate(xs):
+            acc += v * cur
+            cacc += v * zpow[i % 3] * cur
+            cur = cur * wj % p
+        check(FR.decode(out[j : j + 1]) == [acc % p] and FR.decode(coset[j : j + 1]) == [cacc % p],
+              f"2^20 fft / coset_fft at {j} differ from the direct sums")
+    got8 = FR.decode(NTT(FR, 3, dev).fft(FR.encode(list(range(8)), dev)))
+    check(got8 == GOLDEN_FFT8, "NTT k = 3 (R = 1 route) differs from the reference vector")
+    x12 = [int(v) for v in np.random.default_rng(12).integers(0, 2**62, size=1 << 12)]
+    check(FR.decode(NTT(FR, 12, dev).fft(FR.encode(x12, dev))) == gold.fft(x12, bn256_fr),
+          "NTT k = 12 differs from gold.fft")
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    ctx.fft(a)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t3
+    fwd_ms = gpu_ms(lambda: ctx.fft(a), reps=10)
+    ntt_launches = {fn.__name__: fn.launches for fn in ntt_counters}
+    log(f"NTT 2^20 bn256 Fr: context {t1 - t0:.4f} s, mid-twiddle set-up (both directions) {t2 - t1:.4f} s; "
+        f"fft/ifft and coset round trips exact, spot values equal the direct sums, k = 3 equals the reference "
+        f"vector, k = 12 equals gold.fft; warm forward {dt:.6f} s = {n / dt:.6e} elements/s "
+        f"(CUDA events {fwd_ms:.6f} ms = {n / (fwd_ms / 1e3):.6e} elements/s)  [{card}]")
+    log(f"launch counts on the NTT path: {ntt_launches}")
+    for name, count in ntt_launches.items():
+        check(count > 0, f"kernel {name} never launched on the NTT path")
 
     # ---- the support-fold chain (main path; launch counts from here) --------------------------
     S_sup = support_structure()
@@ -330,6 +574,10 @@ def main() -> int:
 
     for key, fn in zip(("madd", "msm_accumulate", "msm_reduce", "msm_combine"), counters):
         kernels[key]["launches"] = launches[fn.__name__]
+    kernels["col_ntt"]["launches"] = ntt_launches["col_ntt"]
+    kernels["mul_chain"]["launches"] = ntt_launches["mul_chain"]
+    for name, count in probe_launches.items():
+        kernels[name]["launches"] = count
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

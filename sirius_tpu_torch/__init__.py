@@ -5,18 +5,22 @@ sub-layout and module names so each counterpart is easy to find:
 
   fields/   limbed Montgomery field arithmetic over (..., 8) int64 word tensors
   curves/   Jacobian point arithmetic, hash-to-curve
-  ops/      MSM (hand-written CUDA kernels + plain torch twins), commitments,
-            Poseidon transcript, kernel build
+  ops/      MSM and NTT (hand-written CUDA kernels + plain torch twins),
+            field-rate probes, commitments, Poseidon transcript, kernel build
   csrc/     CUDA C++ sources (sm_90a), built with nvcc at first use
-  poly/     row-parallel gate-expression evaluator
+  poly/     gate-expression IR and its row-parallel evaluator
   plonk/    structure, SPS protocol, evaluation domains, satisfaction checks
-  frontend/ circuit runner (synthesis itself is the shared host code)
+  frontend/ constraint-system builder and circuit runner
+  gadgets/  MainGate and the EC chip
+  ivc/      the Cyclefold support circuit and support-fold chain
   nifs/     Sangria folding
-  util/     numpy/torch interop, transcript RO, test doubles
+  util/     numpy/torch interop, device default, transcript RO, test doubles
 
-It imports `torch` and never `jax`; host-only modules of `sirius_tpu` that do
-not import jax (constants, gold model, expression IR, circuit builder,
-gadgets, support circuit) are shared as they are.
+It imports `torch` and nothing of `jax` or `sirius_tpu`: the host-only
+modules it shares with the JAX package (constants, gold model, expression
+IR, circuit builder, gadgets, support circuit) are its own copies.  Every
+entry point that takes a `device` runs on the CUDA device when none is
+given, and raises where there is no CUDA.
 """
 
 __version__ = "0.1.0"

@@ -17,9 +17,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from sirius_tpu.fields.constants import CurveSpec
-from sirius_tpu.fields.gold import AffinePoint
-
+from ..fields.constants import CurveSpec
+from ..fields.gold import AffinePoint
+from ..util.device import resolve
 from .jpoint import Curve, Points
 
 
@@ -200,10 +200,11 @@ def svdw_map_device(curve: Curve, u_std: torch.Tensor) -> Points:
     return Points(x, y, f.ones((n,), dev))
 
 
-def hash_bytes_to_points_device(curve: Curve, uniform: bytes, device="cpu") -> Points:
+def hash_bytes_to_points_device(curve: Curve, uniform: bytes, device=None) -> Points:
     """len(uniform) = 64 n bytes -> n affine Points (z = 1), bit-identical to
     `hash_bytes_to_point`."""
     f = curve.fb
+    device = resolve(device)
     n = len(uniform) // 64
     raw = np.frombuffer(uniform, dtype="<u4").astype(np.int64).reshape(n, 16)
     u = torch.from_numpy(np.concatenate([raw[:, :8], raw[:, 8:]])).to(device)

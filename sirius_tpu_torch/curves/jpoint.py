@@ -17,10 +17,10 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from sirius_tpu.fields import gold
-from sirius_tpu.fields.constants import CurveSpec
-
+from ..fields import gold
+from ..fields.constants import CurveSpec
 from ..fields.jfield import WORDS, Field, field_for
+from ..util.device import resolve
 
 
 class Points(NamedTuple):
@@ -63,12 +63,14 @@ class Curve:
         return f"Curve({self.spec.name})"
 
     # -- constructors / host conversion -------------------------------------------
-    def identity(self, shape=(), device="cpu") -> Points:
+    def identity(self, shape=(), device=None) -> Points:
         f = self.fb
+        device = resolve(device)
         return Points(f.zeros(shape, device), f.ones(shape, device), f.zeros(shape, device))
 
-    def encode(self, pts: Sequence[gold.AffinePoint], device="cpu") -> Points:
+    def encode(self, pts: Sequence[gold.AffinePoint], device=None) -> Points:
         f = self.fb
+        device = resolve(device)
         xs = [0 if p.is_identity else p.x for p in pts]
         ys = [1 if p.is_identity else p.y for p in pts]
         zs = [0 if p.is_identity else 1 for p in pts]
@@ -190,7 +192,7 @@ class Curve:
         return Points(*(c[0] for c in P))
 
 
-from sirius_tpu.fields.constants import bn256_g1, grumpkin, pallas, vesta  # noqa: E402
+from ..fields.constants import bn256_g1, grumpkin, pallas, vesta  # noqa: E402
 
 BN256_G1 = Curve(bn256_g1)
 GRUMPKIN = Curve(grumpkin)

@@ -29,7 +29,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from sirius_tpu.fields.constants import FieldSpec
+from ..util.device import resolve
+from .constants import FieldSpec
 
 WORDS = 8
 M32 = 0xFFFFFFFF
@@ -116,9 +117,10 @@ class Field:
         return t
 
     # -- host conversions --------------------------------------------------------
-    def encode(self, xs: Sequence[int] | int, device="cpu") -> torch.Tensor:
+    def encode(self, xs: Sequence[int] | int, device=None) -> torch.Tensor:
         """Host ints -> Montgomery words; an int gives shape (8,), a sequence
-        (n, 8)."""
+        (n, 8).  `device` None means the CUDA device (util/device.py)."""
+        device = resolve(device)
         if isinstance(xs, int):
             return torch.from_numpy(ints_to_words([(xs % self.p) * (1 << R_BITS) % self.p])[0]).to(device)
         arr = ints_to_words([(x % self.p) * (1 << R_BITS) % self.p for x in xs])
@@ -131,13 +133,13 @@ class Field:
     def decode_one(self, t: torch.Tensor) -> int:
         return self.decode(t.reshape(-1, WORDS))[0]
 
-    def zeros(self, shape=(), device="cpu") -> torch.Tensor:
-        return torch.zeros(tuple(shape) + (WORDS,), dtype=torch.int64, device=device)
+    def zeros(self, shape=(), device=None) -> torch.Tensor:
+        return torch.zeros(tuple(shape) + (WORDS,), dtype=torch.int64, device=resolve(device))
 
-    def ones(self, shape=(), device="cpu") -> torch.Tensor:
-        return self._c("one_mont", device).expand(tuple(shape) + (WORDS,)).clone()
+    def ones(self, shape=(), device=None) -> torch.Tensor:
+        return self._c("one_mont", resolve(device)).expand(tuple(shape) + (WORDS,)).clone()
 
-    def const(self, x: int, shape=(), device="cpu") -> torch.Tensor:
+    def const(self, x: int, shape=(), device=None) -> torch.Tensor:
         """Constant int -> Montgomery words broadcast to shape (a view)."""
         return self.encode(x % self.p, device).expand(tuple(shape) + (WORDS,))
 
@@ -272,7 +274,7 @@ class Field:
             a = torch.cat([s, a[2 * half :]], 0) if n % 2 else s
         return a[0]
 
-    def random(self, shape, rng: np.random.Generator | None = None, device="cpu") -> torch.Tensor:
+    def random(self, shape, rng: np.random.Generator | None = None, device=None) -> torch.Tensor:
         """Uniform elements from a numpy generator (the same draws as the JAX
         package's `Field.random`, so both give the same values)."""
         rng = rng or np.random.default_rng()
@@ -285,7 +287,7 @@ class Field:
         return self.encode([v % self.p for v in vals], device).reshape(tuple(shape) + (WORDS,))
 
 
-from sirius_tpu.fields.constants import bn256_fq, bn256_fr, pasta_fp, pasta_fq  # noqa: E402
+from .constants import bn256_fq, bn256_fr, pasta_fp, pasta_fq  # noqa: E402
 
 FQ = Field(bn256_fq)
 FR = Field(bn256_fr)

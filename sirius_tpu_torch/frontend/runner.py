@@ -1,8 +1,8 @@
 """CircuitRunner: synthesize a circuit into PlonkStructure + witness.
 
-Counterpart of `sirius_tpu/frontend/runner.py`.  Synthesis itself is the
-JAX package's jax-free host code (`frontend/circuit.py`); this module builds
-the port's structure from it.
+Counterpart of `sirius_tpu/frontend/runner.py`.  Synthesis itself is host
+code on Python ints (`frontend/circuit.py`); this module builds the port's
+structure from it.
 """
 
 from __future__ import annotations
@@ -12,13 +12,12 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from sirius_tpu.fields.constants import FieldSpec
-from sirius_tpu.frontend.circuit import Assignment, Circuit, ConstraintSystemBuilder
-from sirius_tpu.poly.expression import QueryIndexContext
-
+from ..fields.constants import FieldSpec
 from ..plonk.lookup import LookupArguments
 from ..plonk.permutation import Assembly, PermutationData
 from ..plonk.structure import CompressedGates, PlonkStructure
+from ..poly.expression import QueryIndexContext
+from .circuit import Assignment, Circuit, ConstraintSystemBuilder
 
 
 @dataclass

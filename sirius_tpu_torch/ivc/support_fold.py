@@ -17,17 +17,16 @@ import time
 import numpy as np
 import torch
 
-from sirius_tpu.fields import gold
-from sirius_tpu.fields.constants import bn256_fq, bn256_fr, bn256_g1, grumpkin
-from sirius_tpu.ivc.support_circuit import InstanceInput, SupportCircuit
-from sirius_tpu.util.profiling import span
-
+from ..fields import gold
+from ..fields.constants import bn256_fq, bn256_fr, bn256_g1, grumpkin
 from ..frontend.runner import CircuitRunner
 from ..nifs.sangria import RelaxedPlonkInstance, RelaxedPlonkTrace, RelaxedPlonkWitness, VanillaFS
 from ..ops.poseidon import PoseidonHash
 from ..plonk.sps import run_sps_protocol
 from ..plonk.structure import PlonkStructure
+from ..util.profiling import span
 from ..util.ro import default_ro_spec
+from .support_circuit import InstanceInput, SupportCircuit
 
 SUPPORT_K = 14
 SUPPORT_IO = 8

@@ -15,16 +15,15 @@ from typing import Optional, Sequence
 
 import torch
 
-from sirius_tpu.fields import gold
-from sirius_tpu.fields.constants import CurveSpec
-from sirius_tpu.util.profiling import span
-
+from ..fields import gold
+from ..fields.constants import CurveSpec
 from ..ops.poseidon import PoseidonHash, poseidon_spec
 from ..plonk.eval import PlonkEvalDomain
 from ..plonk.permutation import device_perm_mismatches, perm_index_vector
 from ..plonk.satisfy import is_sat_log_derivative
 from ..plonk.sps import sps_verify
 from ..plonk.structure import PlonkInstance, PlonkStructure, PlonkTrace, PlonkWitness
+from ..util.profiling import span
 from ..util.ro import DEFAULT_R_F, DEFAULT_R_P, DEFAULT_RATE, DEFAULT_T, NUM_CHALLENGE_BITS
 
 CONSISTENCY_MARKERS_COUNT = 2

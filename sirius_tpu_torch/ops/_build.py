@@ -4,7 +4,9 @@ The sources compile with `nvcc` for sm_90a into one shared library with a
 plain C interface, loaded with ctypes.  Nothing happens at import: the first
 CUDA launch calls `library()`, which builds into `sirius_tpu_torch/_build/`
 (git-ignored) under a name keyed by a hash of the sources and flags, so a
-fresh checkout builds once and an unchanged tree never rebuilds.
+fresh checkout builds once and an unchanged tree never rebuilds: a second
+process finds the library of the first and loads it without running nvcc
+(`built_here()` says whether this process ran it).
 
 Each C entry point takes the 17-word field constant block (p, R mod p,
 -p^-1 mod 2^32) as a host pointer, device pointers as `c_void_p`, sizes as
@@ -38,7 +40,12 @@ _SIGNATURES = {
     "sirius_msm_accumulate": [P] * 9 + [LL, P],
     "sirius_msm_reduce": [P] * 8 + [LL, P],
     "sirius_msm_combine": [P] * 10 + [I, I, I, I, P],
+    "sirius_col_ntt": [P] * 5 + [LL, LL, P],
+    "sirius_mul_chain": [P] * 4 + [LL, LL, I, P],
+    "sirius_raw_u32": [P] * 2 + [LL, I, I, P],
+    "sirius_add_one": [P] * 2 + [LL, P],
 }
+_BUILT_HERE = False
 
 
 def _nvcc() -> str:
@@ -56,6 +63,7 @@ def _sources() -> list[Path]:
 @lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library."""
+    global _BUILT_HERE
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
@@ -70,12 +78,18 @@ def library() -> ctypes.CDLL:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
         os.replace(tmp, so)
+        _BUILT_HERE = True
     lib = ctypes.CDLL(str(so))
     for name, args in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
     return lib
+
+
+def built_here() -> bool:
+    """True when this process ran nvcc (not when it loaded a cached build)."""
+    return _BUILT_HERE
 
 
 def field_consts(field) -> ctypes.Array:

@@ -17,14 +17,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from sirius_tpu.fields import gold
-
+from . import msm as msm_ops
 from ..curves.hash_to_curve import hash_bytes_to_point, hash_bytes_to_points_device
 from ..curves.jpoint import Curve, Points
+from ..fields import gold
 from ..fields.jfield import field_for, ints_to_words
-from ..ops import msm as msm_ops
-from ..ops.poseidon import PoseidonHash, poseidon_spec
+from ..util.device import resolve
 from ..util.ro import NUM_CHALLENGE_BITS
+from .poseidon import PoseidonHash, poseidon_spec
 
 CACHE_DIR = os.environ.get("SIRIUS_TPU_CACHE", os.path.expanduser("~/.cache/sirius_tpu"))
 
@@ -62,8 +62,9 @@ class CommitmentKey:
         return os.path.join(CACHE_DIR, f"{curve.spec.name}-{label.decode(errors='ignore')}-{k}.npz")
 
     @staticmethod
-    def setup(curve: Curve, k: int, label: bytes, use_cache: bool = True, device="cpu") -> "CommitmentKey":
+    def setup(curve: Curve, k: int, label: bytes, use_cache: bool = True, device=None) -> "CommitmentKey":
         n = 1 << k
+        device = resolve(device)
         path = CommitmentKey.cache_file(curve, k, label)
         if use_cache and os.path.exists(path):
             with np.load(path) as data:

@@ -22,9 +22,8 @@ from dataclasses import dataclass
 
 import torch
 
-from sirius_tpu.fields import gold
-
 from ..curves.jpoint import Curve, Points
+from ..fields import gold
 from ..fields.jfield import WORDS
 from .madd import madd_batch
 from .msm_kernels import msm_accumulate, msm_combine, msm_reduce

@@ -14,7 +14,7 @@ from dataclasses import dataclass
 from functools import lru_cache
 from typing import Sequence
 
-from sirius_tpu.fields.constants import FieldSpec
+from ..fields.constants import FieldSpec
 
 STATE_BITS = 80
 

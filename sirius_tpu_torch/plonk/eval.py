@@ -12,9 +12,8 @@ from typing import Sequence
 
 import torch
 
-from sirius_tpu.poly.expression import Expression, Query
-
 from ..poly.evaluator import evaluate_expressions, rotate_rows
+from ..poly.expression import Expression, Query
 from .structure import PlonkStructure
 
 

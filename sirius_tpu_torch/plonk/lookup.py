@@ -11,7 +11,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
-from sirius_tpu.poly.expression import Challenge, Constant, Expression, Poly, Query, compress_expression
+from ..poly.expression import Challenge, Constant, Expression, Poly, Query, compress_expression
 
 
 @dataclass

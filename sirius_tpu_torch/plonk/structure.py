@@ -14,13 +14,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from sirius_tpu.fields.constants import FieldSpec
-from sirius_tpu.plonk.permutation import PermutationData
-from sirius_tpu.poly.expression import Expression, QueryIndexContext, compress_expression
-from sirius_tpu.poly.grouped import GroupedPoly
-
+from ..fields.constants import FieldSpec
 from ..fields.jfield import WORDS, Field, field_for, ints_to_words
+from ..poly.expression import Expression, QueryIndexContext, compress_expression
+from ..poly.grouped import GroupedPoly
 from .lookup import LookupArguments
+from .permutation import PermutationData
 
 
 @dataclass
@@ -117,7 +116,7 @@ class PlonkWitness:
     W: list[torch.Tensor]
 
     @staticmethod
-    def zeros(f: Field, round_sizes: Sequence[int], device="cpu") -> "PlonkWitness":
+    def zeros(f: Field, round_sizes: Sequence[int], device=None) -> "PlonkWitness":
         return PlonkWitness([f.zeros((sz,), device) for sz in round_sizes])
 
 

@@ -12,9 +12,8 @@ from typing import Callable, Sequence
 
 import torch
 
-from sirius_tpu.poly.expression import Challenge, Constant, Expression, Neg, Poly, Product, Query, Scaled, Sum
-
 from ..fields.jfield import Field
+from .expression import Challenge, Constant, Expression, Neg, Poly, Product, Query, Scaled, Sum
 
 
 def evaluate_expressions(

@@ -7,8 +7,7 @@ T=5, RATE=4, R_F=R_P=10; challenges are 128-bit squeezes.
 
 from __future__ import annotations
 
-from sirius_tpu.fields.constants import FieldSpec
-
+from ..fields.constants import FieldSpec
 from ..ops.poseidon import PoseidonHash, PoseidonSpec, poseidon_spec
 
 MAX_BITS = 255

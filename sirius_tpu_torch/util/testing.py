@@ -15,16 +15,19 @@ from dataclasses import dataclass
 
 import torch
 
-from sirius_tpu.fields import gold
-
 from ..curves.jpoint import Curve
+from ..fields import gold
+from .device import resolve
 
 
 @dataclass
 class MockCommitmentKey:
     curve: Curve
-    device: torch.device | str = "cpu"
+    device: torch.device | str | None = None  # None: the CUDA device
     max_len: int = 1 << 40
+
+    def __post_init__(self):
+        self.device = resolve(self.device)
 
     def __len__(self):
         return self.max_len

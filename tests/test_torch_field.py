@@ -31,10 +31,10 @@ def _inputs(J, seed, n=48):
 def test_encode_decode_and_random_match_jax(name):
     J, T = _pair(name)
     xs = [0, 1, J.p - 1, 2**200 + 12345, J.p // 3]
-    assert np.array_equal(to_numpy(T.encode(xs)), np.asarray(J.encode(xs)))
-    assert T.decode(T.encode(xs)) == [x % J.p for x in xs]
+    assert np.array_equal(to_numpy(T.encode(xs, "cpu")), np.asarray(J.encode(xs)))
+    assert T.decode(T.encode(xs, "cpu")) == [x % J.p for x in xs]
     rng_a, rng_b = np.random.default_rng(5), np.random.default_rng(5)
-    assert np.array_equal(to_numpy(T.random((7,), rng_a)), np.asarray(J.random((7,), rng_b)))
+    assert np.array_equal(to_numpy(T.random((7,), rng_a, "cpu")), np.asarray(J.random((7,), rng_b)))
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -42,7 +42,7 @@ def test_encode_decode_and_random_match_jax(name):
 def test_binary_ops_match_jax(name, op):
     J, T = _pair(name)
     a, b = _inputs(J, 10 * NAMES.index(name) + len(op))
-    got = getattr(T, op)(to_torch(a), to_torch(b))
+    got = getattr(T, op)(to_torch(a, "cpu"), to_torch(b, "cpu"))
     want = getattr(J, op)(a, b)
     assert np.array_equal(to_numpy(got), np.asarray(want))
 
@@ -51,7 +51,7 @@ def test_binary_ops_match_jax(name, op):
 def test_unary_ops_match_jax(name):
     J, T = _pair(name)
     a, _ = _inputs(J, 11)
-    ta = to_torch(a)
+    ta = to_torch(a, "cpu")
     for t_out, j_out in (
         (T.neg(ta), J.neg(a)),
         (T.square(ta), J.square(a)),
@@ -64,7 +64,7 @@ def test_unary_ops_match_jax(name):
     ):
         assert np.array_equal(to_numpy(t_out), np.asarray(j_out))
     assert bool(T.eq(ta, ta).all()) and not bool(T.eq(ta[:3], ta[1:4]).any())
-    assert T.is_zero(to_torch(np.asarray(J.zeros((2,))))).all()
+    assert T.is_zero(to_torch(np.asarray(J.zeros((2,))), "cpu")).all()
 
 
 def test_ops_against_python_ints_with_broadcast():
@@ -73,6 +73,6 @@ def test_ops_against_python_ints_with_broadcast():
     rng = np.random.default_rng(3)
     xs = [int(v) % p for v in rng.integers(0, 2**62, 20)] + [0, p - 1]
     ys = [5, p - 2, 0]
-    got = T.decode(T.mul(T.encode(xs)[:, None], T.encode(ys)[None, :]))
+    got = T.decode(T.mul(T.encode(xs, "cpu")[:, None], T.encode(ys, "cpu")[None, :]))
     assert got == [x * y % p for x in xs for y in ys]
-    assert T.decode(T.sub(T.encode(xs), T.encode(xs[::-1]))) == [(x - y) % p for x, y in zip(xs, xs[::-1])]
+    assert T.decode(T.sub(T.encode(xs, "cpu"), T.encode(xs[::-1], "cpu"))) == [(x - y) % p for x, y in zip(xs, xs[::-1])]

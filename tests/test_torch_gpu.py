@@ -10,13 +10,17 @@ import numpy as np
 import pytest
 import torch
 
-from sirius_tpu.fields import gold
 from sirius_tpu_torch.curves.jpoint import BN256_G1, GRUMPKIN, Points
-from sirius_tpu_torch.fields.jfield import ints_to_words
+from sirius_tpu_torch.fields import gold
+from sirius_tpu_torch.fields.constants import bn256_fr
+from sirius_tpu_torch.fields.jfield import FQ, FR, ints_to_words
+from sirius_tpu_torch.ops import microbench as mb
 from sirius_tpu_torch.ops import msm_kernels as mk
+from sirius_tpu_torch.ops import ntt_kernels
 from sirius_tpu_torch.ops.commitment import CommitmentKey
 from sirius_tpu_torch.ops.madd import madd_batch, madd_plain
 from sirius_tpu_torch.ops.msm import best_msm, bucket_plan, msm_many
+from sirius_tpu_torch.ops.ntt import NTT, _bit_reverse_indices
 
 CURVES = [BN256_G1, GRUMPKIN]
 IDS = ["bn256_g1", "grumpkin"]
@@ -72,3 +76,53 @@ def test_msm_kernels_match_twins_and_gold(cuda_device, curve):
     assert curve.decode(out)[0] == want
     assert best_msm(curve, S, ck.points) == want
     assert msm_many(curve, S[None], ck.points) == [want]
+
+
+@pytest.mark.gpu
+def test_col_ntt_kernel_bit_exact(cuda_device):
+    """B4 at (size 1024, R 64) against its plain twin, both directions."""
+    size, R = 1024, 64
+    rng = np.random.default_rng(4)
+    a = FR.random((size, R), rng, cuda_device)
+    rev = torch.from_numpy(_bit_reverse_indices(10)).to(cuda_device)
+    ctx = NTT(FR, 20, cuda_device)  # its pass-1 tables are of order 1024
+    for table in (ctx.inner[False], ctx.inner[True]):
+        before = ntt_kernels.col_ntt.launches
+        got = ntt_kernels.col_ntt(FR, a, rev, table)
+        assert ntt_kernels.col_ntt.launches == before + 1
+        assert torch.equal(got, ntt_kernels.col_ntt_plain(FR, a, rev, table))
+
+
+@pytest.mark.gpu
+def test_ntt_k12_matches_gold(cuda_device):
+    xs = [int(x) for x in np.random.default_rng(12).integers(0, 2**62, size=1 << 12)]
+    ctx = NTT(FR, 12, cuda_device)
+    a = FR.encode(xs, cuda_device)
+    before = ntt_kernels.col_ntt.launches
+    out = ctx.fft(a)
+    assert ntt_kernels.col_ntt.launches == before + 2  # the two four-step passes
+    assert FR.decode(out) == gold.fft(xs, bn256_fr)
+    assert FR.decode(ctx.ifft(out)) == xs
+    assert FR.decode(ctx.coset_ifft(ctx.coset_fft(a))) == xs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("field", [FR, FQ], ids=["bn256_fr", "bn256_fq"])
+def test_mul_chain_kernel_bit_exact(cuda_device, field):
+    rng = np.random.default_rng(2)
+    a = field.random((4096,), rng, cuda_device)
+    for nb in (4096, 3):
+        b = field.random((nb,), rng, cuda_device)
+        before = mb.mul_chain.launches
+        got = mb.mul_chain(field, a, b, K=8)
+        assert mb.mul_chain.launches == before + 1
+        assert torch.equal(got, mb.mul_chain_plain(field, a, b, K=8))
+
+
+@pytest.mark.gpu
+def test_raw_u32_and_probe_kernels_match_twins(cuda_device):
+    a = torch.from_numpy(np.random.default_rng(3).integers(0, 1 << 32, size=1 << 16, dtype=np.int64)).to(cuda_device)
+    for op in ("mul", "add"):
+        assert torch.equal(mb.raw_u32(a, op), mb.raw_u32_plain(a, op))
+    x = a[:1024].reshape(8, 128)
+    assert torch.equal(mb.probe_add_one(x), mb.probe_add_one_plain(x))

@@ -1,12 +1,28 @@
-"""The port imports without jax: a subprocess with `sys.modules['jax'] = None`
-imports every module of `sirius_tpu_torch`, and no source line imports jax."""
+"""The port stands alone: a subprocess with `sys.modules['jax'] = None` and
+`sys.modules['sirius_tpu'] = None` imports every module of
+`sirius_tpu_torch`, no source line of the port or of `chip_smoke.py`
+imports jax or `sirius_tpu`, and an entry point called without a device
+asks for the CUDA device (and raises where there is none)."""
 
 import pathlib
+import re
 import subprocess
 import sys
 
+import pytest
+import torch
+
+from sirius_tpu_torch.curves.jpoint import BN256_G1
+from sirius_tpu_torch.fields.constants import bn256_fr
+from sirius_tpu_torch.fields.jfield import FR
+from sirius_tpu_torch.ops.commitment import CommitmentKey
+from sirius_tpu_torch.ops.ntt import NTT, ntt_ctx
+from sirius_tpu_torch.util.interop import to_torch
+from sirius_tpu_torch.util.testing import MockCommitmentKey
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "sirius_tpu_torch"
+BLOCKED = ("jax", "sirius_tpu")
 
 
 def _modules():
@@ -20,19 +36,44 @@ def _modules():
 
 def test_every_port_module_imports_without_jax():
     mods = list(_modules())
-    assert len(mods) > 20
-    code = "import sys\nsys.modules['jax'] = None\n" + "".join(f"import {m}\n" for m in mods) + \
-        "assert 'jax' not in {k.split('.')[0] for k, v in sys.modules.items() if v is not None}\nprint('ok')\n"
+    assert len(mods) > 30
+    code = ("import sys\n" + "".join(f"sys.modules[{b!r}] = None\n" for b in BLOCKED)
+            + "".join(f"import {m}\n" for m in mods)
+            + f"loaded = {{k.split('.')[0] for k, v in sys.modules.items() if v is not None}}\n"
+            + f"assert not loaded & set({BLOCKED!r}), loaded\nprint('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
 
 
 def test_no_source_line_imports_jax():
+    bad = re.compile(r"^\s*(import|from)\s+(jax|sirius_tpu)(\s|\.|$)")
     offenders = [
         f"{p.relative_to(ROOT)}:{i}"
-        for p in PKG.rglob("*.py")
+        for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]
         for i, line in enumerate(p.read_text().splitlines(), 1)
-        if line.strip().startswith(("import jax", "from jax"))
+        if bad.match(line)
     ]
     assert offenders == []
+
+
+@pytest.mark.parametrize("call", [
+    lambda: FR.encode([1, 2]),
+    lambda: FR.zeros((2,)),
+    lambda: FR.ones((2,)),
+    lambda: FR.const(3, (2,)),
+    lambda: BN256_G1.identity((2,)),
+    lambda: CommitmentKey.setup(BN256_G1, 2, b"no-device", use_cache=False),
+    lambda: to_torch([[0] * 16]),
+    lambda: MockCommitmentKey(BN256_G1),
+    lambda: NTT(FR, 3),
+    lambda: ntt_ctx(bn256_fr, 3),
+], ids=["encode", "zeros", "ones", "const", "identity", "key_setup", "to_torch", "mock_key", "ntt", "ntt_ctx"])
+def test_entry_points_default_to_cuda(call):
+    """Without a device the port asks for the card: where there is no CUDA
+    it raises instead of running on the CPU; with one it lands there."""
+    if torch.cuda.is_available():
+        assert torch.device(call().device).type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()

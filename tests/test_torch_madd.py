@@ -13,7 +13,7 @@ from sirius_tpu.fields import gold
 from sirius_tpu.ops.limb_kernels import KF, k_madd_incomplete
 from sirius_tpu_torch.curves import jpoint as tp
 from sirius_tpu_torch.ops.madd import madd_batch, madd_plain
-from sirius_tpu_torch.util.interop import to_numpy, to_torch
+from sirius_tpu_torch.util.interop import affine_from, to_numpy, to_torch
 
 torch.set_num_threads(1)  # small ops: more threads only contend with the other test workers
 
@@ -42,22 +42,22 @@ def test_plain_twin_matches_k_madd_incomplete(jcurve):
     f = KF(jcurve.fb)
     want = k_madd_incomplete(f, *(_lf(c) for c in P), _lf(qx), _lf(qy))
     tcurve = tp.curve_for(jcurve.spec)
-    got = madd_plain(tcurve, tp.Points(*(to_torch(c) for c in P)), to_torch(qx), to_torch(qy))
+    got = madd_plain(tcurve, tp.Points(*(to_torch(c, "cpu") for c in P)), to_torch(qx, "cpu"), to_torch(qy, "cpu"))
     for g_, w_ in zip(got, want):
         assert np.array_equal(to_numpy(g_), np.asarray(jnp.transpose(w_, (1, 0))))
     # affine: 2A + B, and Q itself on the identity rows
     expect = [a.double().add(b) for a, b in zip(A, B)]
     expect[0], expect[5] = B[0], B[5]
-    assert tcurve.decode(got) == expect
+    assert tcurve.decode(got) == [affine_from(e) for e in expect]
 
 
 def test_wrapper_takes_the_twin_only_on_cpu():
     A, B, P, (qx, qy) = _case(BN256_G1, 9, n=8)
     curve = tp.BN256_G1
-    Pt = tp.Points(*(to_torch(c) for c in P))
+    Pt = tp.Points(*(to_torch(c, "cpu") for c in P))
     before = madd_batch.launches
-    out = madd_batch(curve, Pt, to_torch(qx), to_torch(qy))
+    out = madd_batch(curve, Pt, to_torch(qx, "cpu"), to_torch(qy, "cpu"))
     assert madd_batch.launches == before  # CPU tensors: no launch
-    assert all(torch.equal(a, b) for a, b in zip(out, madd_plain(curve, Pt, to_torch(qx), to_torch(qy))))
+    assert all(torch.equal(a, b) for a, b in zip(out, madd_plain(curve, Pt, to_torch(qx, "cpu"), to_torch(qy, "cpu"))))
     with pytest.raises(ValueError):
-        madd_batch(curve, Pt, to_torch(qx)[:3], to_torch(qy))
+        madd_batch(curve, Pt, to_torch(qx, "cpu")[:3], to_torch(qy, "cpu"))

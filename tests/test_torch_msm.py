@@ -9,8 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from sirius_tpu.fields import gold
 from sirius_tpu_torch.curves.jpoint import BN256_G1, GRUMPKIN, Points
+from sirius_tpu_torch.fields import gold
 from sirius_tpu_torch.fields.jfield import ints_to_words
 from sirius_tpu_torch.ops.commitment import CommitmentKey
 from sirius_tpu_torch.ops.msm import best_msm, msm_many
@@ -28,7 +28,7 @@ MANY_SIZES = [1, 7, 37]
 @lru_cache(maxsize=None)
 def _key(name):
     curve = {"bn256_g1": BN256_G1, "grumpkin": GRUMPKIN}[name]
-    ck = CommitmentKey.setup(curve, 10, b"torch-msm-test", use_cache=False)
+    ck = CommitmentKey.setup(curve, 10, b"torch-msm-test", use_cache=False, device="cpu")
     return curve, ck, ck.host_points()
 
 

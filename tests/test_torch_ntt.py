@@ -1,0 +1,112 @@
+"""The port's NTT (`sirius_tpu_torch/ops/ntt.py`) against the JAX package's
+`sirius_tpu/ops/ntt.py` on the same inputs, bit for bit: the reference
+vector, the flat route (k < 10), the coset transforms, the four-step route
+at k = 10 against the JAX `fft_lf`, and the plain B4 twin against
+`col_ntt_pallas` in interpret mode.  The CUDA kernel against its twin is in
+`test_torch_gpu.py`."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sirius_tpu.fields.constants import bn256_fr as J_FR_SPEC
+from sirius_tpu.fields.constants import pasta_fp as J_FP_SPEC
+from sirius_tpu.fields.jfield import FR as J_FR
+from sirius_tpu.fields.jfield import PASTA_FP as J_FP
+from sirius_tpu.fields.jfield_lf import from_lf, to_lf
+from sirius_tpu.ops import ntt as jntt
+from sirius_tpu.ops.pallas_ntt import col_ntt_pallas
+from sirius_tpu_torch.fields.constants import bn256_fr, pasta_fp
+from sirius_tpu_torch.fields.jfield import FR, PASTA_FP
+from sirius_tpu_torch.ops import ntt_kernels
+from sirius_tpu_torch.ops.ntt import NTT, _bit_reverse_indices, ntt_ctx
+from sirius_tpu_torch.util.interop import limbs_to_words, to_numpy, to_torch
+
+torch.set_num_threads(1)  # small ops: more threads only contend with the other test workers
+
+# reference src/fft.rs:241-252 (tests/test_ntt.py): fft([0..8]) over bn256 Fr
+GOLDEN_FFT8 = [
+    28,
+    68918385373930674424918168212551896122229959265833979749191472831399925654,
+    17631683881184975370165255887551781615748388533673675138856,
+    68918385373930639161550405842601155791718184162270748252414405484049647934,
+    21888242871839275222246405745257275088548364400416034343698204186575808495613,
+    21819324486465344583084855339414673932756646216253763595445789781091758847675,
+    21888242871839275204614721864072299718383108512864252727949815652902133356753,
+    21819324486465344547821487577044723192426134441150200363949012713744408569955,
+]
+
+
+def _inputs(J, k, seed):
+    """2^k Montgomery elements below 2^62 (bench.py's draw): the JAX (n, 16)
+    limbs and the port's (n, 8) words of the same values."""
+    xs = [int(x) for x in np.random.default_rng(seed).integers(0, 2**62, size=1 << k)]
+    limbs = np.asarray(J.encode(xs))
+    return xs, limbs, to_torch(limbs, "cpu")
+
+
+def _same(t, j):
+    return np.array_equal(to_numpy(t), np.asarray(j))
+
+
+def test_reference_vector_k3():
+    ctx = ntt_ctx(bn256_fr, 3, "cpu")
+    assert FR.decode(ctx.fft(FR.encode(list(range(8)), "cpu"))) == GOLDEN_FFT8
+
+
+@pytest.mark.parametrize("jspec,J,tspec,T,k", [
+    (J_FR_SPEC, J_FR, bn256_fr, FR, 4),
+    (J_FR_SPEC, J_FR, bn256_fr, FR, 6),
+    (J_FP_SPEC, J_FP, pasta_fp, PASTA_FP, 4),
+], ids=["bn256_fr-k4", "bn256_fr-k6", "pasta_fp-k4"])
+def test_flat_route_matches_jax(jspec, J, tspec, T, k):
+    xs, limbs, words = _inputs(J, k, 10 + k)
+    jctx, tctx = jntt.ntt_ctx(jspec, k), ntt_ctx(tspec, k, "cpu")
+    assert not tctx.use_four_step
+    out = tctx.fft(words)
+    assert _same(out, jctx.fft(limbs))
+    assert _same(tctx.ifft(out), jctx.ifft(jctx.fft(limbs)))
+    assert T.decode(tctx.ifft(out)) == xs
+
+
+def test_coset_matches_jax_k5():
+    xs, limbs, words = _inputs(J_FR, 5, 5)
+    jctx, tctx = jntt.ntt_ctx(J_FR_SPEC, 5), ntt_ctx(bn256_fr, 5, "cpu")
+    out = tctx.coset_fft(words)
+    assert _same(out, jctx.coset_fft(limbs))
+    assert _same(tctx.coset_ifft(out), jctx.coset_ifft(jctx.coset_fft(limbs)))
+    assert FR.decode(tctx.coset_ifft(out)) == xs
+
+
+def test_four_step_k10_matches_jax_fft_lf():
+    xs, limbs, words = _inputs(J_FR, 10, 10)
+    tctx = NTT(FR, 10, "cpu")
+    assert tctx.use_four_step and (tctx.n1, tctx.n2) == (32, 32)
+    jctx = jntt.NTT(J_FR, 10)
+    want = from_lf(jctx.fft_lf(jnp.asarray(to_lf(limbs))))
+    out = tctx.fft(words)
+    assert _same(out, want)
+    assert FR.decode(tctx.ifft(out)) == xs
+    assert FR.decode(tctx.coset_ifft(tctx.coset_fft(words))) == xs
+
+
+def test_col_ntt_twin_matches_pallas_interpret():
+    """The (size 16, R 16) block of `tests/test_ntt.py:130-171`: the plain B4
+    twin against `col_ntt_pallas(..., interpret=True)`."""
+    k, size, R = 8, 16, 16
+    p = J_FR_SPEC.modulus
+    xs = [int(x) for x in np.random.default_rng(8).integers(0, 2**62, size=size * R)]
+    a = jnp.asarray(to_lf(J_FR.encode(xs))).reshape(16, size, R)
+    w = pow(jntt.gold.omega_for_k(J_FR_SPEC, k), R, p)  # order-`size` root
+    table = np.asarray(J_FR.encode([pow(w, j, p) for j in range(size // 2)])).T.copy()  # (L, size/2)
+    rev = _bit_reverse_indices(4)
+    want = col_ntt_pallas(jntt.lf_for(J_FR), a, rev.astype(np.int32), table, interpret=True)
+
+    def words(lf):  # (16, ...) limb-first -> (..., 8) words
+        return torch.from_numpy(limbs_to_words(np.moveaxis(np.asarray(lf), 0, -1)))
+
+    before = ntt_kernels.col_ntt.launches
+    got = ntt_kernels.col_ntt(FR, words(a), torch.from_numpy(rev), words(table))
+    assert ntt_kernels.col_ntt.launches == before  # CPU tensors: the plain twin, no launch
+    assert torch.equal(got, words(want))

@@ -7,10 +7,10 @@ import pytest
 import torch
 
 from fixtures import FiboCircuit
-from sirius_tpu.fields import gold
-from sirius_tpu.fields.constants import bn256_fq, bn256_fr, bn256_g1
 from sirius_tpu.util.golden import sangria_acc_digest
 from sirius_tpu_torch.curves.jpoint import BN256_G1
+from sirius_tpu_torch.fields import gold
+from sirius_tpu_torch.fields.constants import bn256_fq, bn256_fr, bn256_g1
 from sirius_tpu_torch.frontend.runner import CircuitRunner
 from sirius_tpu_torch.nifs.sangria import RelaxedPlonkInstance, RelaxedPlonkTrace, RelaxedPlonkWitness, VanillaFS
 from sirius_tpu_torch.ops.commitment import CommitmentKey
@@ -29,7 +29,7 @@ def _ro():
 @pytest.fixture(scope="module")
 def fibo():
     """Two fibo traces folded into the zero accumulator on a real key."""
-    ck = CommitmentKey.setup(BN256_G1, 7, b"sangria-test", use_cache=False)
+    ck = CommitmentKey.setup(BN256_G1, 7, b"sangria-test", use_cache=False, device="cpu")
     p = bn256_fr.modulus
     c1, c2 = FiboCircuit(1, 1, 10), FiboCircuit(2, 3, 10)
     inst1, inst2 = c1.instances(p), c2.instances(p)
@@ -43,7 +43,7 @@ def fibo():
     f = S.field
     acc0 = RelaxedPlonkTrace(
         RelaxedPlonkInstance.new(bn256_g1, S.num_challenges, len(S.round_sizes), len(S.num_io) - 1),
-        RelaxedPlonkWitness([f.zeros((sz,)) for sz in S.round_sizes], f.zeros((S.n,))),
+        RelaxedPlonkWitness([f.zeros((sz,), "cpu") for sz in S.round_sizes], f.zeros((S.n,), "cpu")),
     )
     ro_acc = _ro()
     acc, x1 = VanillaFS.prove(ck, pp, ro_acc, acc0, tr1)
