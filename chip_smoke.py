@@ -24,12 +24,13 @@
    result against best_msm's, then the points/s of one warm MSM.
 5. The NTT at 2^20 on bn256 Fr (bench.py's inputs): B4 at both pass
    shapes (1024 x 1024, forward and inverse tables) and the mid-twiddle
-   multiply bit-exact against their twins and timed beside their bounds;
-   then the NTT path (launch counts from here): mid-twiddle set-up timed
-   apart, forward, inverse and coset transforms, round trips exact, spot
-   values equal to the direct sums, k = 3 equal to the reference vector
-   (the R = 1 route), k = 12 equal to `gold.fft`, the warm forward
-   transform in elements/s; col_ntt and mul_chain must have launched.
+   multiply (`mul_rows`, K = 1) bit-exact against their twins and timed
+   beside their bounds; then the NTT path (launch counts from here):
+   mid-twiddle set-up timed apart, forward, inverse and coset transforms,
+   round trips exact, spot values equal to the direct sums, k = 3 equal to
+   the reference vector (the R = 1 route), k = 12 equal to `gold.fft`, the
+   warm forward transform in elements/s; col_ntt and mul_rows must have
+   launched.
 6. Drives the Cyclefold support-fold chain: 3 Sangria folds of the EC
    co-processor circuit at k = 14 on the grumpkin key; verify must replay
    the prover's accumulator, is_sat must be clean and must catch a flipped
@@ -38,21 +39,22 @@
    busy share of its wall time.
 
 Ends with a JSON line of kernel results (time, plain twin's time, bound
-and what sets it, launches on the path that runs the kernel; S3 and S4
-run on no path but their own timed runs, which are counted), the
+and what sets it, launches on the path that runs the kernel; the probes
+S2-S4 run on no path but their own timed runs, which are counted; S2's
+kernel `mul_rows` has a second entry at the NTT's K = 1 shape), the
 nvidia-smi line, and the device JSON line.  Bounds: the larger of the
 canonical bytes moved (32 B per field element, each input read once and
-each output written once) over 3.35 TB/s and the Montgomery products times
-FE_MUL_IMADS integer multiply-adds over 64 per clock per SM x the SMs x the
-SM clock nvidia-smi reads.  Fails (non-zero exit, no result) without CUDA
-or on any failed check.
+each output written once) over 3.35 TB/s and the Montgomery products the
+function needs (none for a twiddle of 1 or an add onto the identity that
+seeds an accumulator) times FE_MUL_IMADS integer multiply-adds over 64 per
+clock per SM x the SMs x the SM clock nvidia-smi reads.  Fails (non-zero
+exit, no result) without CUDA or on any failed check.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
-import re
 import subprocess
 import sys
 import time
@@ -68,7 +70,8 @@ from sirius_tpu_torch.fields.constants import bn256_fr
 from sirius_tpu_torch.fields.jfield import FQ, FR
 from sirius_tpu_torch.ivc.support_fold import SupportFoldChain, random_input, support_structure
 from sirius_tpu_torch.nifs.sangria import RelaxedPlonkTrace, RelaxedPlonkWitness
-from sirius_tpu_torch.ops import _build, madd as madd_mod, microbench as mb, msm_kernels as mk, ntt_kernels
+from sirius_tpu_torch.ops import _build, field_kernels as fk, madd as madd_mod, microbench as mb, msm_kernels as mk
+from sirius_tpu_torch.ops import ntt_kernels
 from sirius_tpu_torch.ops.commitment import CommitmentKey
 from sirius_tpu_torch.ops.msm import FAN_IN, MANY_GROUPS, MANY_WINDOW_BITS, best_msm, bucket_plan, msm_many
 from sirius_tpu_torch.ops.msm import split_segments
@@ -139,29 +142,6 @@ def bound(muls: float, nbytes: float, imad_rate: float, per_mul: int = FE_MUL_IM
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def sass_loop_imads(so: Path, kernel: str) -> int | None:
-    """Integer multiply instructions (IMAD family, moves excluded) in the
-    innermost loop of `kernel` in the built library's SASS; for
-    mul_chain_kernel (K loop not unrolled) that is one fe_mul.  None when
-    cuobjdump or the loop is not found."""
-    try:
-        sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(so)], capture_output=True,
-                              text=True, timeout=120).stdout
-    except (OSError, subprocess.SubprocessError):
-        return None
-    sections = [s for s in sass.split("Function : ")[1:] if s.split("\n", 1)[0].find(kernel) >= 0]
-    if not sections:
-        return None
-    ins = [(int(a, 16), op) for a, op in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", sections[0])]
-    loops = [(int(m.group(1), 16), a) for a, op in ins if (m := re.search(r"BRA[.\w]*\s+0x([0-9a-f]+)", op))
-             and int(m.group(1), 16) < a]
-    if not loops:
-        return None
-    lo, hi = min(loops, key=lambda l: l[1] - l[0])
-    ops = [op.split()[1] if op.startswith("@") else op.split()[0] for a, op in ins if lo <= a <= hi]
-    return sum(1 for o in ops if o.startswith("IMAD") and not o.startswith("IMAD.MOV"))
-
-
 def word_err(a, b) -> float:
     """Largest absolute difference between two batches of word tensors
     (bit-exact: 0)."""
@@ -181,6 +161,12 @@ def point_err(curve, P, Q) -> float:
     return max(word_err([lhs], [rhs]), float(flags))
 
 
+def seeded_adds(lengths) -> int:
+    """Curve adds an accumulator seeded with the identity needs over runs
+    of these lengths: L - 1 for a run of L points (the first is a copy)."""
+    return int((lengths - 1).clamp(min=0).sum())
+
+
 def msm_stages(curve, S, pts, timed: bool = False):
     """best_msm's stages at the shapes it gives them: B2 accumulate, every
     B3 reduce level, B3 combine.  Each kernel is held against its plain twin
@@ -197,7 +183,7 @@ def msm_stages(curve, S, pts, timed: bool = False):
     n_entries, n_chunks = plan.entries.shape[0], plan.chunk_start.shape[0]
     out["msm_accumulate"] = [err, gpu_ms(lambda: mk.msm_accumulate(*acc)) if timed else None,
                              gpu_ms(lambda: mk.msm_accumulate_plain(*acc), reps=1) if timed else None,
-                             MADD_MULS * n_entries,
+                             MADD_MULS * seeded_adds(plan.chunk_len),
                              4 * n_entries + 8 * n_chunks + 2 * FE * pts.x.shape[0] + 3 * FE * n_chunks]
 
     seg_off, level, red_err = plan.seg_off, 0, 0.0
@@ -213,7 +199,8 @@ def msm_stages(curve, S, pts, timed: bool = False):
             n_parts, n_seg = parts.x.shape[0], sub_off.shape[0] - 1
             out["msm_reduce"] = [None, gpu_ms(lambda: mk.msm_reduce(*args)) if timed else None,
                                  gpu_ms(lambda: mk.msm_reduce_plain(*args), reps=1) if timed else None,
-                                 ADD_MULS * n_parts, 3 * FE * n_parts + 4 * (n_seg + 1) + 3 * FE * n_seg]
+                                 ADD_MULS * seeded_adds(sub_off[1:] - sub_off[:-1]),
+                                 3 * FE * n_parts + 4 * (n_seg + 1) + 3 * FE * n_seg]
         parts, level = red, level + 1
         if nxt is None:
             break
@@ -226,7 +213,7 @@ def msm_stages(curve, S, pts, timed: bool = False):
     check(err == 0, f"B3 msm_combine disagrees with its twin at {S.shape[0]} points")
     out["msm_combine"] = [err, gpu_ms(lambda: mk.msm_combine(curve, shaped, plan.c)) if timed else None,
                           gpu_ms(lambda: mk.msm_combine_plain(curve, shaped, plan.c), reps=1) if timed else None,
-                          ADD_MULS * 2 * plan.W * plan.B + (plan.W - 1) * (DBL_MULS * plan.c + ADD_MULS),
+                          ADD_MULS * 2 * plan.W * (plan.B - 1) + (plan.W - 1) * (DBL_MULS * plan.c + ADD_MULS),
                           3 * FE * plan.W * plan.B + 3 * FE]
     return res, out, plan
 
@@ -270,7 +257,7 @@ def main() -> int:
     imad_rate = IMADS_PER_CLK_SM * sms * clock_mhz * 1e6
     log(f"{sms} SMs, max SM clock {clock_mhz:.0f} MHz: paper rate {imad_rate:.6e} 32-bit integer multiply-adds/s")
     t0 = time.perf_counter()
-    so = Path(_build.library()._name)
+    _build.library()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s (nvcc ran in this process: {_build.built_here()})")
     rng = np.random.default_rng(SEED)
     kernels = {}
@@ -293,7 +280,7 @@ def main() -> int:
                             cwd=ROOT, capture_output=True, text=True, timeout=600)
     check(second.returncode == 0 and second.stdout.strip() == "nvcc ran: False",
           f"S4: a second process did not load the cached library: {second.stdout[-500:]} {second.stderr[-2000:]}")
-    probe_launches = {}  # S3/S4 have no path but their own timed runs: counted there, after the twin checks
+    probe_launches = {}  # S2-S4 have no path but their own timed runs: counted there, after the twin checks
     mb.probe_add_one.launches = 0
     ms = gpu_ms(lambda: mb.probe_add_one(x), reps=200)
     probe_launches["probe_add_one"] = mb.probe_add_one.launches
@@ -310,14 +297,14 @@ def main() -> int:
         w[:, 7] &= 0x0FFFFFFF
         return torch.from_numpy(w).to(dev)
 
-    per_mul = sass_loop_imads(so, "mul_chain_kernel")
-    log(f"SASS: {per_mul} integer multiply instructions in the mul_chain loop (one fe_mul); "
-        f"the bounds use the hand count {FE_MUL_IMADS}")
     for field in (FR, FQ):
         a2, b2 = random_elements(rng, S2_N), random_elements(rng, S2_N)
         err = word_err([mb.mul_chain(field, a2, b2, S2_K)], [mb.mul_chain_plain(field, a2, b2, S2_K)])
         check(err == 0, f"S2 mul_chain on {field} is not bit-exact")
+        fk.mul_rows.launches = 0
         ms = gpu_ms(lambda: mb.mul_chain(field, a2, b2, S2_K), reps=50)
+        if field is FR:
+            probe_launches["mul_chain"] = fk.mul_rows.launches
         plain = gpu_ms(lambda: mb.mul_chain_plain(field, a2, b2, S2_K), reps=3)
         rate, paper = S2_N * S2_K / (ms / 1e3), imad_rate / FE_MUL_IMADS
         log(f"S2 mul_chain {field.spec.name} 2^17 x K={S2_K}: bit-exact; kernel {ms:.6f} ms = {rate:.6e} "
@@ -328,7 +315,7 @@ def main() -> int:
         log(f"S2 mul_chain {field.spec.name} 2^17 x K={LONG_K}: {ms_long:.6f} ms = {rate:.6e} Montgomery mul/s = "
             f"{100 * rate / paper:.2f}% of the paper rate  [{card}]")
         if field is FR:
-            record("mul_chain", "sirius_tpu_torch/csrc/microbench.cu", "scripts/tpu_microbench.py:74", err, ms,
+            record("mul_chain", "sirius_tpu_torch/csrc/field_ops.cu", "scripts/tpu_microbench.py:74", err, ms,
                    plain, S2_N * S2_K, 3 * FE * S2_N)
     a3 = torch.from_numpy(rng.integers(0, 1 << 32, size=S3_N, dtype=np.int64)).to(dev)
     errs = {}
@@ -466,8 +453,8 @@ def main() -> int:
         A = ntt_kernels.col_ntt(FR, M, chk.rev_n1, chk.inner[inverse])
         err1 = word_err([A], [ntt_kernels.col_ntt_plain(FR, M, chk.rev_n1, chk.inner[inverse])])
         T = chk.mid_twiddle(inverse)
-        B = mb.mul_chain(FR, A.reshape(n, 8), T, 1)
-        errm = word_err([B], [mb.mul_chain_plain(FR, A.reshape(n, 8), T, 1)])
+        B = fk.mul_rows(FR, A.reshape(n, 8), T)
+        errm = word_err([B], [fk.mul_rows_plain(FR, A.reshape(n, 8), T)])
         D = B.reshape(n1, n2, 8).transpose(0, 1).contiguous()
         E = ntt_kernels.col_ntt(FR, D, chk.rev_n2, chk.outer[inverse])
         err2 = word_err([E], [ntt_kernels.col_ntt_plain(FR, D, chk.rev_n2, chk.outer[inverse])])
@@ -478,18 +465,24 @@ def main() -> int:
             args = (FR, M, chk.rev_n1, chk.inner[False])
             ms = gpu_ms(lambda: ntt_kernels.col_ntt(*args), reps=20)
             plain = gpu_ms(lambda: ntt_kernels.col_ntt_plain(*args), reps=1)
-            ms_mid = gpu_ms(lambda: mb.mul_chain(FR, A.reshape(n, 8), T, 1), reps=20)
-            muls = (n1.bit_length() - 2) * half * n2  # every stage but m = 1 multiplies
+            # every butterfly multiplies but those with twiddle w^0 = 1: n1 - 1 of them per column
+            muls = (half * (n1.bit_length() - 1) - (n1 - 1)) * n2
             record("col_ntt", "sirius_tpu_torch/csrc/ntt.cu", "sirius_tpu/ops/pallas_ntt.py:82", err1, ms, plain,
                    muls, 2 * FE * n + FE * half + 4 * n1)
-            b4 = kernels["col_ntt"]
+            mid = (FR, A.reshape(n, 8), T)
+            ms_mid = gpu_ms(lambda: fk.mul_rows(*mid), reps=20)
+            plain_mid = gpu_ms(lambda: fk.mul_rows_plain(*mid), reps=1)
+            record("mul_rows", "sirius_tpu_torch/csrc/field_ops.cu", "scripts/tpu_microbench.py:74", errm, ms_mid,
+                   plain_mid, n, 3 * FE * n)
+            b4, bm = kernels["col_ntt"], kernels["mul_rows"]
             log(f"B4 col_ntt ({n1}, {n2}): kernel {ms:.6f} ms, plain {plain:.4f} ms, bound {b4['bound_ms']:.6f} ms "
-                f"({b4['bound_by']}); mid-twiddle multiply (mul_chain K=1, 2^20) {ms_mid:.6f} ms  [{card}]")
+                f"({b4['bound_by']}); mid-twiddle multiply (mul_rows K=1, 2^20) {ms_mid:.6f} ms, plain "
+                f"{plain_mid:.4f} ms, bound {bm['bound_ms']:.6f} ms ({bm['bound_by']})  [{card}]")
     log(f"B4 col_ntt at both pass shapes ({n1} x {n2}, {n2} x {n1}), forward and inverse tables, and the "
         "mid-twiddle multiply: bit-exact against their twins")
 
     # the NTT path (launch counts from here)
-    ntt_counters = (ntt_kernels.col_ntt, mb.mul_chain)
+    ntt_counters = (ntt_kernels.col_ntt, fk.mul_rows)
     for fn in ntt_counters:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -575,7 +568,7 @@ def main() -> int:
     for key, fn in zip(("madd", "msm_accumulate", "msm_reduce", "msm_combine"), counters):
         kernels[key]["launches"] = launches[fn.__name__]
     kernels["col_ntt"]["launches"] = ntt_launches["col_ntt"]
-    kernels["mul_chain"]["launches"] = ntt_launches["mul_chain"]
+    kernels["mul_rows"]["launches"] = ntt_launches["mul_rows"]
     for name, count in probe_launches.items():
         kernels[name]["launches"] = count
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -1,13 +1,6 @@
-// S2, S3, S4: the field-rate and build probes.
+// S3, S4: the integer-rate and build probes.  (S2, the Montgomery-multiply
+// rate, is the field product `mul_rows` of `field_ops.cu` at K = 8.)
 //
-// S2 `mul_chain` replaces `scripts/tpu_microbench.py:mul_kernel`: K chained
-//    Montgomery products a <- a * b per element, one thread per element.
-//    b holds nb rows and element i takes row i mod nb, so the same kernel is
-//    also the port's elementwise product with a broadcast factor (the NTT's
-//    mid twiddle, its coset powers zeta^(i mod 3) and its 1/n, K = 1).
-//    Bound: K * ~136 wide integer multiply-adds per element against 96 bytes
-//    of canonical elements, integer-multiply bound for every K; at K = 8 it
-//    measures the card's Montgomery-multiply rate.
 // S3 `raw_u32` replaces `scripts/tpu_microbench.py:raw_kernel`: reps chained
 //    32-bit multiplies or adds b = op(b, a) mod 2^32 per value, the raw
 //    integer rate.  Each op is an inline PTX instruction so that the
@@ -18,16 +11,7 @@
 //    stably across processes; here the question goes to the library cache of
 //    `ops/_build.py`, and the kernel only shows that the library loaded.
 
-#include "field.cuh"
-
-__device__ __forceinline__ void mul_chain_row(const FieldConst& fc, const long long* a, const long long* b,
-                                              long long* out, long long nb, int K, long long i) {
-  Fe x = fe_load(a, i);
-  const Fe y = fe_load(b, i % nb);
-#pragma unroll 1
-  for (int k = 0; k < K; ++k) x = fe_mul(x, y, fc);
-  fe_store(out, i, x);
-}
+#include <stdint.h>
 
 __device__ __forceinline__ uint32_t raw_op(int op, uint32_t b, uint32_t a) {
 #ifdef __CUDA_ARCH__
@@ -52,12 +36,6 @@ __device__ __forceinline__ void raw_u32_row(const long long* a, long long* out, 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 
-__global__ void mul_chain_kernel(FieldConst fc, const long long* a, const long long* b, long long* out, long long n,
-                                 long long nb, int K) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) mul_chain_row(fc, a, b, out, nb, K, i);
-}
-
 __global__ void raw_u32_kernel(const long long* a, long long* out, long long n, int op, int reps) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) raw_u32_row(a, out, op, reps, i);
@@ -66,15 +44,6 @@ __global__ void raw_u32_kernel(const long long* a, long long* out, long long n, 
 __global__ void add_one_kernel(const long long* x, long long* out, long long n) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) out[i] = (long long)((uint32_t)x[i] + 1u);
-}
-
-extern "C" int sirius_mul_chain(const uint32_t* consts, const void* a, const void* b, void* out, long long n,
-                                long long nb, int K, void* stream) {
-  const int threads = 128;
-  long long blocks = (n + threads - 1) / threads;
-  mul_chain_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      make_field_const(consts), (const long long*)a, (const long long*)b, (long long*)out, n, nb, K);
-  return (int)cudaGetLastError();
 }
 
 extern "C" int sirius_raw_u32(const void* a, void* out, long long n, int op, int reps, void* stream) {

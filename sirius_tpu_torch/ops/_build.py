@@ -41,7 +41,7 @@ _SIGNATURES = {
     "sirius_msm_reduce": [P] * 8 + [LL, P],
     "sirius_msm_combine": [P] * 10 + [I, I, I, I, P],
     "sirius_col_ntt": [P] * 5 + [LL, LL, P],
-    "sirius_mul_chain": [P] * 4 + [LL, LL, I, P],
+    "sirius_mul_rows": [P] * 4 + [LL, LL, I, P],
     "sirius_raw_u32": [P] * 2 + [LL, I, I, P],
     "sirius_add_one": [P] * 2 + [LL, P],
 }

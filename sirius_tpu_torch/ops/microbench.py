@@ -1,46 +1,37 @@
 """S2, S3, S4: the field-rate and build probes, CUDA wrappers + plain torch twins.
 
-  mul_chain      (S2)  K chained Montgomery products a <- a * b per element
-                       (`scripts/tpu_microbench.py:mul_kernel`); with K = 1
-                       it is the port's elementwise product with a factor
-                       broadcast over rows (b row i mod len(b)), which the
-                       NTT uses for its mid twiddle, coset powers and 1/n
+  mul_chain      (S2)  K = 8 chained Montgomery products a <- a * b per
+                       element (`scripts/tpu_microbench.py:mul_kernel`):
+                       the port's field product `field_kernels.mul_rows` at
+                       K = 8, so its launches count on `mul_rows.launches`
   raw_u32        (S3)  reps chained 32-bit multiplies or adds b = op(b, a)
                        mod 2^32 (`scripts/tpu_microbench.py:raw_kernel`)
   probe_add_one  (S4)  x + 1 mod 2^32 on an (8, 128) tile
                        (`scripts/lower_dump.py:tiny`)
 
-Kernels: `csrc/microbench.cu` (what bounds each is noted there).  Each
-wrapper takes its plain twin for CPU tensors only; for CUDA tensors it
-launches its kernel or raises.  `<wrapper>.launches` counts kernel launches.
-32-bit values live in int64 tensors (torch has no uint32 arithmetic on the
-CPU).
+Kernels: `csrc/field_ops.cu` (S2) and `csrc/microbench.cu` (S3, S4); what
+bounds each is noted there.  Each wrapper takes its plain twin for CPU
+tensors only; for CUDA tensors it launches its kernel or raises.
+`<wrapper>.launches` counts kernel launches.  32-bit values live in int64
+tensors (torch has no uint32 arithmetic on the CPU).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..fields.jfield import WORDS, Field
+from ..fields.jfield import Field
+from .field_kernels import mul_rows, mul_rows_plain
 
 M32 = 0xFFFFFFFF
 RAW_OPS = ("mul", "add")
-
-
-def _check_words(t: torch.Tensor, what: str) -> None:
-    if t.dim() != 2 or t.shape[1] != WORDS:
-        raise ValueError(f"{what}: expected (n, {WORDS}) words, got {tuple(t.shape)}")
 
 
 # -- plain twins -------------------------------------------------------------------
 
 
 def mul_chain_plain(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 8) -> torch.Tensor:
-    n, nb = a.shape[0], b.shape[0]
-    y = b.repeat(-(-n // nb), 1)[:n] if nb != n else b
-    for _ in range(K):
-        a = field.mul(a, y)
-    return a
+    return mul_rows_plain(field, a, b, K)
 
 
 def _mul32(b: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -66,23 +57,7 @@ def probe_add_one_plain(x: torch.Tensor) -> torch.Tensor:
 def mul_chain(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 8) -> torch.Tensor:
     """(n, 8) a and (nb, 8) b in Montgomery form -> a_i * b_(i mod nb)^K,
     by K chained Montgomery products."""
-    _check_words(a, "mul_chain a")
-    _check_words(b, "mul_chain b")
-    if b.shape[0] == 0 or K < 0:
-        raise ValueError("mul_chain needs at least one row of b and K >= 0")
-    if a.device.type == "cpu":
-        return mul_chain_plain(field, a, b, K)
-    from . import _build
-
-    a, b = a.contiguous(), b.contiguous()
-    _build.require_cuda(a, b)
-    out = torch.empty_like(a)
-    if a.shape[0]:
-        err = _build.library().sirius_mul_chain(_build.field_consts(field), a.data_ptr(), b.data_ptr(),
-                                                out.data_ptr(), a.shape[0], b.shape[0], K, _build.stream_of(a))
-        _build.check(err, "mul_chain")
-        mul_chain.launches += 1
-    return out
+    return mul_rows(field, a, b, K)
 
 
 def raw_u32(a: torch.Tensor, op: str = "mul", reps: int = 64) -> torch.Tensor:
@@ -122,6 +97,5 @@ def probe_add_one(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-mul_chain.launches = 0
 raw_u32.launches = 0
 probe_add_one.launches = 0

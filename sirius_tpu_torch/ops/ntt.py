@@ -17,10 +17,11 @@ Routes (no switches):
       X[o2*n1 + o1] = sum_i2 w^(n1*i2*o2) T[o1,i2] sum_i1 x[i1*n2 + i2] w^(n2*i1*o1)
 - k < 10, the flat transform: one column (R = 1) of size n through the same
   kernel, then 1/n for the inverse.
-Every elementwise product (mid twiddle, coset powers, 1/n) is the S2 kernel
-`mul_chain` with K = 1 and its factor broadcast over rows, so on a CUDA
-tensor no plain torch arithmetic runs; on the CPU every step takes the
-plain twin.
+Every elementwise product (mid twiddle, coset powers, 1/n) is the field
+product `field_kernels.mul_rows` with its factor broadcast over rows, so on
+a CUDA tensor no plain torch arithmetic runs; on the CPU every step takes
+the plain twin.  On a CUDA device a column holds at most
+`ntt_kernels.MAX_SIZE` elements, so k <= 2 * log2(MAX_SIZE) = 24 there.
 
 The mid twiddle is built on the device once per direction, by doubling
 (rows o1 < s times w^(s*i2) give rows s..2s-1), and cached: that is set-up,
@@ -38,8 +39,8 @@ from ..fields import gold
 from ..fields.constants import FieldSpec
 from ..fields.jfield import WORDS, Field, field_for
 from ..util.device import resolve
-from .microbench import mul_chain
-from .ntt_kernels import col_ntt
+from .field_kernels import mul_rows
+from .ntt_kernels import MAX_SIZE, col_ntt
 
 FOUR_STEP_MIN_K = 10
 
@@ -64,6 +65,10 @@ class NTT:
         self.k = k
         self.n = 1 << k
         self.device = dev = resolve(device)
+        self.use_four_step = k >= FOUR_STEP_MIN_K
+        column = 1 << ((k + 1) // 2) if self.use_four_step else self.n
+        if dev.type == "cuda" and column > MAX_SIZE:
+            raise ValueError(f"k = {k}: a column of {column} elements exceeds the kernel's {MAX_SIZE} on {dev}")
         p = field.p
         omega = gold.omega_for_k(field.spec, k)
         omega_inv = pow(omega, -1, p)
@@ -79,7 +84,6 @@ class NTT:
         self.n_inv = field.encode([pow(self.n, -1, p)], dev)  # (1, 8)
         self.zeta_pows = powers(zeta, 3)  # row i mod 3: zeta^(i mod 3)
         self.zeta_inv_pows = powers(pow(zeta, -1, p), 3)
-        self.use_four_step = k >= FOUR_STEP_MIN_K
         if self.use_four_step:
             self.n1 = 1 << ((k + 1) // 2)
             self.n2 = 1 << (k // 2)
@@ -107,17 +111,17 @@ class NTT:
             step = self.base[inverse]  # w^(+-s*i2) for the current s
             s = 1
             while s < self.n1:
-                rows = torch.cat([rows, mul_chain(f, rows, step, 1)])
+                rows = torch.cat([rows, mul_rows(f, rows, step)])
                 s *= 2
                 if s < self.n1:
-                    step = mul_chain(f, step, step, 1)
+                    step = mul_rows(f, step, step)
             T = self._mid[inverse] = rows
         return T
 
     def _four_step(self, a: torch.Tensor, inverse: bool) -> torch.Tensor:
         f, n1, n2 = self.f, self.n1, self.n2
         A = col_ntt(f, a.reshape(n1, n2, WORDS), self.rev_n1, self.inner[inverse])  # (o1, i2)
-        B = mul_chain(f, A.reshape(self.n, WORDS), self.mid_twiddle(inverse), 1)
+        B = mul_rows(f, A.reshape(self.n, WORDS), self.mid_twiddle(inverse))
         D = B.reshape(n1, n2, WORDS).transpose(0, 1).contiguous()  # (i2, o1)
         E = col_ntt(f, D, self.rev_n2, self.outer[inverse])  # (o2, o1)
         return E.reshape(self.n, WORDS)
@@ -132,16 +136,16 @@ class NTT:
         if self.use_four_step:
             return self._four_step(a, inverse)
         out = col_ntt(self.f, a.reshape(self.n, 1, WORDS), self.rev, self.table[inverse]).reshape(self.n, WORDS)
-        return mul_chain(self.f, out, self.n_inv, 1) if inverse else out
+        return mul_rows(self.f, out, self.n_inv) if inverse else out
 
     def ifft(self, a: torch.Tensor) -> torch.Tensor:
         return self.fft(a, inverse=True)
 
     def coset_fft(self, a: torch.Tensor) -> torch.Tensor:
-        return self.fft(mul_chain(self.f, a, self.zeta_pows, 1))
+        return self.fft(mul_rows(self.f, a, self.zeta_pows))
 
     def coset_ifft(self, a: torch.Tensor) -> torch.Tensor:
-        return mul_chain(self.f, self.fft(a, inverse=True), self.zeta_inv_pows, 1)
+        return mul_rows(self.f, self.fft(a, inverse=True), self.zeta_inv_pows)
 
 
 @lru_cache(maxsize=None)

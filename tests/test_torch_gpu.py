@@ -14,6 +14,7 @@ from sirius_tpu_torch.curves.jpoint import BN256_G1, GRUMPKIN, Points
 from sirius_tpu_torch.fields import gold
 from sirius_tpu_torch.fields.constants import bn256_fr
 from sirius_tpu_torch.fields.jfield import FQ, FR, ints_to_words
+from sirius_tpu_torch.ops import field_kernels as fk
 from sirius_tpu_torch.ops import microbench as mb
 from sirius_tpu_torch.ops import msm_kernels as mk
 from sirius_tpu_torch.ops import ntt_kernels
@@ -94,6 +95,46 @@ def test_col_ntt_kernel_bit_exact(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k", [21, 23], ids=["size2048", "size4096"])
+def test_col_ntt_kernel_above_48kb_shared_memory(cuda_device, k):
+    """B4 at the pass-1 column sizes of k = 21 and 23 (64 KB and 128 KB
+    columns: dynamic shared memory above 48 KB) against its plain twin."""
+    ctx = NTT(FR, k, cuda_device)
+    a = FR.random((ctx.n1, 8), np.random.default_rng(k), cuda_device)
+    for table in (ctx.inner[False], ctx.inner[True]):
+        before = ntt_kernels.col_ntt.launches
+        got = ntt_kernels.col_ntt(FR, a, ctx.rev_n1, table)
+        assert ntt_kernels.col_ntt.launches == before + 1
+        assert torch.equal(got, ntt_kernels.col_ntt_plain(FR, a, ctx.rev_n1, table))
+
+
+@pytest.mark.gpu
+def test_ntt_k21_round_trip_and_direct_sums(cuda_device):
+    """The 2^21 transform (n1 = 2048) against direct sums at a few points."""
+    k = 21
+    xs = [int(x) for x in np.random.default_rng(21).integers(0, 2**62, size=1 << k)]
+    ctx = NTT(FR, k, cuda_device)
+    a = FR.encode(xs, cuda_device)
+    out = ctx.fft(a)
+    assert torch.equal(ctx.ifft(out), a)
+    p, w = FR.p, gold.omega_for_k(bn256_fr, k)
+    for j in (1, 654321):
+        wj, cur, acc = pow(w, j, p), 1, 0
+        for v in xs:
+            acc += v * cur
+            cur = cur * wj % p
+        assert FR.decode(out[j : j + 1]) == [acc % p]
+
+
+@pytest.mark.gpu
+def test_ntt_refuses_columns_beyond_the_kernel(cuda_device):
+    """k = 24 (columns of 4096) builds; k = 25 (8192) is refused at once."""
+    assert NTT(FR, 24, cuda_device).n1 == ntt_kernels.MAX_SIZE
+    with pytest.raises(ValueError, match="exceeds"):
+        NTT(FR, 25, cuda_device)
+
+
+@pytest.mark.gpu
 def test_ntt_k12_matches_gold(cuda_device):
     xs = [int(x) for x in np.random.default_rng(12).integers(0, 2**62, size=1 << 12)]
     ctx = NTT(FR, 12, cuda_device)
@@ -113,9 +154,9 @@ def test_mul_chain_kernel_bit_exact(cuda_device, field):
     a = field.random((4096,), rng, cuda_device)
     for nb in (4096, 3):
         b = field.random((nb,), rng, cuda_device)
-        before = mb.mul_chain.launches
+        before = fk.mul_rows.launches
         got = mb.mul_chain(field, a, b, K=8)
-        assert mb.mul_chain.launches == before + 1
+        assert fk.mul_rows.launches == before + 1
         assert torch.equal(got, mb.mul_chain_plain(field, a, b, K=8))
 
 

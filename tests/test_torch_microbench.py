@@ -9,6 +9,7 @@ import torch
 
 from sirius_tpu.fields import jfield as jf
 from sirius_tpu_torch.fields import jfield as tf
+from sirius_tpu_torch.ops import field_kernels as fk
 from sirius_tpu_torch.ops import microbench as mb
 from sirius_tpu_torch.util.interop import to_numpy, to_torch
 
@@ -26,9 +27,9 @@ def test_mul_chain_twin_matches_jax_mul_chain(name, nb):
     want = a
     for _ in range(8):
         want = J.mul(want, np.tile(b, (40 // nb + 1, 1))[:40])
-    before = mb.mul_chain.launches
+    before = fk.mul_rows.launches
     got = mb.mul_chain(T, to_torch(a, "cpu"), to_torch(b, "cpu"), K=8)
-    assert mb.mul_chain.launches == before  # CPU tensors: the plain twin
+    assert fk.mul_rows.launches == before  # CPU tensors: the plain twin
     assert np.array_equal(to_numpy(got), np.asarray(want))
 
 
