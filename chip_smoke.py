@@ -31,18 +31,31 @@
    the reference vector (the R = 1 route), k = 12 equal to `gold.fft`, the
    warm forward transform in elements/s; col_ntt and mul_rows must have
    launched.
-6. Drives the Cyclefold support-fold chain: 3 Sangria folds of the EC
+6. Drives the Cyclefold support-fold chain: 2 Sangria folds of the EC
    co-processor circuit at k = 14 on the grumpkin key; verify must replay
    the prover's accumulator, is_sat must be clean and must catch a flipped
    witness cell; every kernel must have launched on this path.  Then one
    more fold runs under torch.profiler: its device events and the device's
    busy share of its wall time.
+7. The main path, `bench.py:166-210`'s headline: `CyclefoldIVC` on the
+   trivial step circuit at k = 17 with the two keys above: public
+   parameters, new, two next (the second folds a non-base-case step),
+   verify() == [] and z_i unchanged; seconds of each and the spans of
+   `util/profiling` per step; both accumulators' digests; B1-B3 must have
+   launched on this path.  A flipped cell of the ProtoGalaxy accumulator's
+   witness must make verify() report it; then one more next under
+   torch.profiler (device events, busy share) and a clean verify().
+8. S1, the rolled-product reduce (on no path): on the level-0 partials of
+   the primary trace's 917,504-point commit it must equal B3 msm_reduce
+   word for word and its plain twin in affine form; both timed in turns,
+   with each variant's registers and local (spill) bytes per thread.
 
 Ends with a JSON line of kernel results (time, plain twin's time, bound
-and what sets it, launches on the path that runs the kernel; the probes
-S2-S4 run on no path but their own timed runs, which are counted; S2's
-kernel `mul_rows` has a second entry at the NTT's K = 1 shape), the
-nvidia-smi line, and the device JSON line.  Bounds: the larger of the
+and what sets it, launches on the path that runs the kernel: B1-B3 on the
+IVC path, B4 and the K = 1 product on the NTT path; the probes S1-S4 run on
+no path but their own timed runs, which are counted; S2's kernel
+`mul_rows` has a second entry at the NTT's K = 1 shape), the nvidia-smi
+line, and the device JSON line.  Bounds: the larger of the
 canonical bytes moved (32 B per field element, each input read once and
 each output written once) over 3.35 TB/s and the Montgomery products the
 function needs (none for a twiddle of 1 or an add onto the identity that
@@ -68,7 +81,10 @@ from sirius_tpu_torch.curves.jpoint import BN256_G1, GRUMPKIN, Points
 from sirius_tpu_torch.fields import gold
 from sirius_tpu_torch.fields.constants import bn256_fr
 from sirius_tpu_torch.fields.jfield import FQ, FR
+from sirius_tpu_torch.ivc.cyclefold_ivc import CyclefoldIVC, CyclefoldPublicParams
+from sirius_tpu_torch.ivc.step_circuit import TrivialStepCircuit
 from sirius_tpu_torch.ivc.support_fold import SupportFoldChain, random_input, support_structure
+from sirius_tpu_torch.nifs.protogalaxy import AccumulatorInstance
 from sirius_tpu_torch.nifs.sangria import RelaxedPlonkTrace, RelaxedPlonkWitness
 from sirius_tpu_torch.ops import _build, field_kernels as fk, madd as madd_mod, microbench as mb, msm_kernels as mk
 from sirius_tpu_torch.ops import ntt_kernels
@@ -76,12 +92,17 @@ from sirius_tpu_torch.ops.commitment import CommitmentKey
 from sirius_tpu_torch.ops.msm import FAN_IN, MANY_GROUPS, MANY_WINDOW_BITS, best_msm, bucket_plan, msm_many
 from sirius_tpu_torch.ops.msm import split_segments
 from sirius_tpu_torch.ops.ntt import NTT
+from sirius_tpu_torch.util.golden import pg_acc_digest, sangria_acc_digest
 from sirius_tpu_torch.util.interop import limbs_to_words
+from sirius_tpu_torch.util.profiling import profiler
 from sirius_tpu_torch.util.testing import reference_msm
 
 DEVICE = "cuda:0"
 SEED = 20261016
-FOLDS = 3
+FOLDS = 2
+IVC_K = 17  # bench.py's cyclefold_trivial_k17
+IVC_Z0 = [0x42]
+IVC_STEPS = 2
 B1_PAIRS = 1 << 16
 MSM_CHECK_LOG = 12
 PRIMARY_LOG = 20
@@ -218,27 +239,48 @@ def msm_stages(curve, S, pts, timed: bool = False):
     return res, out, plan
 
 
-def profile_fold(chain, inp) -> str:
-    """One traced fold: device launches, device busy seconds (sum of the
-    device-side events; one stream, so they do not overlap) and its share of
-    the fold's wall time."""
+def profiled(label: str, fn) -> str:
+    """One traced call of fn: device launches, device busy seconds (sum of
+    the device-side events; one stream, so they do not overlap) and its
+    share of the call's wall time (closed by a synchronize).  fn may return
+    a dict of phase seconds to print."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        secs = chain.fold(inp)
+        secs = fn() or {}
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e6
     top = {}
     for e in dev:
         top[e.name] = top.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    lines = [f"profiled fold (profiler on): wall {wall:.4f} s ("
+    lines = [f"{label} (profiler on): wall {wall:.4f} s ("
              + ", ".join(f"{k} {v:.4f} s" for k, v in secs.items())
              + f"), {len(dev)} device events, device busy {busy:.4f} s = {100 * busy / wall:.1f}% of wall"]
     for name, ms in sorted(top.items(), key=lambda kv: -kv[1])[:8]:
         lines.append(f"  {ms:9.3f} ms  {name[:90]}")
     return "\n".join(lines)
+
+
+def synced() -> float:
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def span_seconds() -> dict[str, float]:
+    """Host seconds per span name over the profiler's tree (then cleared)."""
+    out: dict[str, float] = {}
+
+    def walk(spans):
+        for s in spans:
+            out[s.name] = out.get(s.name, 0.0) + s.elapsed
+            walk(s.children)
+
+    walk(profiler.roots)
+    profiler.roots.clear()
+    return out
 
 
 def main() -> int:
@@ -280,7 +322,7 @@ def main() -> int:
                             cwd=ROOT, capture_output=True, text=True, timeout=600)
     check(second.returncode == 0 and second.stdout.strip() == "nvcc ran: False",
           f"S4: a second process did not load the cached library: {second.stdout[-500:]} {second.stderr[-2000:]}")
-    probe_launches = {}  # S2-S4 have no path but their own timed runs: counted there, after the twin checks
+    probe_launches = {}  # S1-S4 have no path but their own timed runs: counted there, after the twin checks
     mb.probe_add_one.launches = 0
     ms = gpu_ms(lambda: mb.probe_add_one(x), reps=200)
     probe_launches["probe_add_one"] = mb.probe_add_one.launches
@@ -527,7 +569,7 @@ def main() -> int:
     for name, count in ntt_launches.items():
         check(count > 0, f"kernel {name} never launched on the NTT path")
 
-    # ---- the support-fold chain (main path; launch counts from here) --------------------------
+    # ---- the support-fold chain (launch counts from here) -------------------------------------
     S_sup = support_structure()
     counters = (madd_mod.madd_batch, mk.msm_accumulate, mk.msm_reduce, mk.msm_combine)
     for fn in counters:
@@ -552,7 +594,7 @@ def main() -> int:
         f"{(totals['witness'] + totals['sps'] + totals['prove']) / FOLDS:.4f} s/fold  [{card}]")
     log(f"launch counts on the chain: {launches}")
     for name, count in launches.items():
-        check(count > 0, f"kernel {name} never launched on the main path")
+        check(count > 0, f"kernel {name} never launched on the support chain")
 
     # corruption probe: one flipped witness cell must be caught
     W0 = chain.acc.W.W[0].clone()
@@ -562,11 +604,91 @@ def main() -> int:
     check(len(bad_errors) > 0, "is_sat missed a corrupted witness cell")
     log(f"corruption probe: {len(bad_errors)} error(s): {bad_errors[0]}")
 
-    log(profile_fold(chain, random_input(rng)) + f"  [{card}]")
+    inp = random_input(rng)
+    log(profiled("profiled fold", lambda: chain.fold(inp)) + f"  [{card}]")
     check(chain.is_sat() == [], "is_sat after the profiled fold")
 
+    # ---- the Cyclefold IVC: the main path (launch counts from here) -----------------------------
+    profiler.enable()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    pp = CyclefoldPublicParams(TrivialStepCircuit(arity=1), IVC_K, ck1, ck2)
+    t1 = synced()
+    ivc = CyclefoldIVC(pp, IVC_Z0)
+    t2 = synced()
+    log(f"IVC k={IVC_K}: public parameters {t1 - t0:.4f} s (primary {pp.S_primary.num_advice_columns} advice "
+        f"columns, {len(pp.S_primary.gates)} gate, W round {pp.S_primary.round_sizes[0]}), new {t2 - t1:.4f} s  "
+        f"[{card}]")
+    for i in range(IVC_STEPS):
+        t0 = synced()
+        ivc.next()
+        dt = synced() - t0
+        log(f"IVC next {i + 1} (step {ivc.step - 1} -> {ivc.step}): {dt:.4f} s; spans: "
+            + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items()) + f"  [{card}]")
+    t0 = synced()
+    errors = ivc.verify()
+    dt = synced() - t0
+    check(errors == [], f"IVC verify reported {errors}")
+    check(ivc.z_i == IVC_Z0 and ivc.step == IVC_STEPS + 1, f"IVC state: z_i {ivc.z_i}, step {ivc.step}")
+    log(f"IVC verify: [] in {dt:.4f} s; spans: " + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items())
+        + f"  [{card}]")
+    ivc_launches = {fn.__name__: fn.launches for fn in counters}
+    log(f"launch counts on the IVC path (pp, new, {IVC_STEPS} x next, verify): {ivc_launches}")
+    for name, count in ivc_launches.items():
+        check(count > 0, f"kernel {name} never launched on the IVC path")
+    log(f"IVC digests after {IVC_STEPS} steps: pg_acc_digest "
+        f"{pg_acc_digest(AccumulatorInstance.from_acc(ivc.self_acc))}, "
+        f"sangria_acc_digest {sangria_acc_digest(ivc.support_acc.U)}, pp digest {pp.digest_hex()}")
+
+    # corruption probe: one flipped cell of the PG accumulator's witness
+    W0 = ivc.self_acc.trace.w.W[0]
+    saved = W0[7].clone()
+    W0[7, 0] ^= 1
+    bad_errors = ivc.verify()
+    W0[7] = saved
+    check(any(e.startswith("pg:") for e in bad_errors), f"IVC verify missed a corrupted accumulator: {bad_errors}")
+    log(f"IVC corruption probe: {len(bad_errors)} error(s): {bad_errors}")
+    span_seconds()
+    log(profiled("profiled next", ivc.next) + f"  [{card}]")
+    check(ivc.verify() == [], "IVC verify after the profiled next")
+    profiler.enabled = False
+
+    # ---- S1: the rolled-product reduce on the primary commit's level-0 partials ---------------
+    W = ivc.primary_trace.w.W[0]
+    S = FR.from_mont(W)
+    plan = bucket_plan(S)
+    acc = (BN256_G1, plan.entries, plan.chunk_start, plan.chunk_len, ck1.points.x, ck1.points.y)
+    parts = mk.msm_accumulate(*acc)
+    deep = int((plan.seg_off[1:] - plan.seg_off[:-1]).max()) > FAN_IN
+    sub_off = split_segments(plan.seg_off, FAN_IN)[0] if deep else plan.seg_off
+    args = (BN256_G1, sub_off, parts)
+    rolled = mk.msm_reduce_rolled(*args)
+    err = word_err(rolled, mk.msm_reduce(*args))
+    check(err == 0, "S1 msm_reduce_rolled differs from msm_reduce at the primary commit's level 0")
+    check(point_err(BN256_G1, rolled, mk.msm_reduce_rolled_plain(*args)) == 0,
+          "S1 msm_reduce_rolled disagrees with its twin")
+    mk.msm_reduce_rolled.launches = 0
+    ms_ref = gpu_ms(lambda: mk.msm_reduce(*args), reps=10)
+    ms_rolled = gpu_ms(lambda: mk.msm_reduce_rolled(*args), reps=10)
+    ms_rolled2 = gpu_ms(lambda: mk.msm_reduce_rolled(*args), reps=10)
+    ms_ref2 = gpu_ms(lambda: mk.msm_reduce(*args), reps=10)
+    probe_launches["msm_reduce_rolled"] = mk.msm_reduce_rolled.launches
+    check(probe_launches["msm_reduce_rolled"] > 0, "S1 msm_reduce_rolled never launched in its timed runs")
+    plain = gpu_ms(lambda: mk.msm_reduce_rolled_plain(*args), reps=1)
+    n_parts, n_seg = parts.x.shape[0], sub_off.shape[0] - 1
+    record("msm_reduce_rolled", "sirius_tpu_torch/csrc/msm.cu", "scripts/msm_lab2.py:18", err,
+           (ms_rolled + ms_rolled2) / 2, plain, ADD_MULS * seeded_adds(sub_off[1:] - sub_off[:-1]),
+           3 * FE * n_parts + 4 * (n_seg + 1) + 3 * FE * n_seg)
+    attrs = {"msm_reduce": mk.reduce_kernel_attrs(False), "msm_reduce_rolled": mk.reduce_kernel_attrs(True)}
+    s1 = kernels["msm_reduce_rolled"]
+    log(f"S1 msm_reduce_rolled on the primary commit's level 0 ({W.shape[0]} scalars, {n_parts} partials -> "
+        f"{n_seg} segments): equals msm_reduce word for word and its twin in affine form; in turns msm_reduce "
+        f"{ms_ref:.6f} ms, rolled {ms_rolled:.6f} ms, rolled {ms_rolled2:.6f} ms, msm_reduce {ms_ref2:.6f} ms; "
+        f"plain {plain:.4f} ms; bound {s1['bound_ms']:.6f} ms ({s1['bound_by']}); per thread {attrs}  [{card}]")
+
     for key, fn in zip(("madd", "msm_accumulate", "msm_reduce", "msm_combine"), counters):
-        kernels[key]["launches"] = launches[fn.__name__]
+        kernels[key]["launches"] = ivc_launches[fn.__name__]
     kernels["col_ntt"]["launches"] = ntt_launches["col_ntt"]
     kernels["mul_rows"]["launches"] = ntt_launches["mul_rows"]
     for name, count in probe_launches.items():

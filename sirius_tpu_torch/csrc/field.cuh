@@ -137,43 +137,69 @@ __device__ __forceinline__ Fe fe_double(const Fe& a, const FieldConst& fc) {
   return fe_add(a, a, fc);
 }
 
-// CIOS Montgomery product a*b*R^-1 mod p.
-__device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b, const FieldConst& fc) {
+// One CIOS round: t += a * bi, then t = (t + m * p) / 2^32 with m chosen so
+// the low word vanishes.
+__device__ __forceinline__ void cios_round(uint32_t* t, const Fe& a, uint32_t bi, const FieldConst& fc) {
+  unsigned long long c = 0ull;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    unsigned long long s = (unsigned long long)a.v[j] * bi + t[j] + c;
+    t[j] = (uint32_t)s;
+    c = s >> 32;
+  }
+  unsigned long long s8 = (unsigned long long)t[8] + c;
+  t[8] = (uint32_t)s8;
+  t[9] = (uint32_t)(s8 >> 32);
+  uint32_t m = t[0] * fc.n0inv;
+  unsigned long long s0 = (unsigned long long)m * fc.p[0] + t[0];
+  c = s0 >> 32;
+#pragma unroll
+  for (int j = 1; j < 8; ++j) {
+    unsigned long long s = (unsigned long long)m * fc.p[j] + t[j] + c;
+    t[j - 1] = (uint32_t)s;
+    c = s >> 32;
+  }
+  unsigned long long s9 = (unsigned long long)t[8] + c;
+  t[7] = (uint32_t)s9;
+  t[8] = t[9] + (uint32_t)(s9 >> 32);
+  t[9] = 0u;
+}
+
+// CIOS Montgomery product a*b*R^-1 mod p.  ROLLED (S1's product, the
+// TPU's `KF(roll_mul=True)`) runs the eight rounds as a loop that is not
+// unrolled: b's words rotate by one per round, so every round reads word 0
+// and b stays in registers (the TPU variant rolls its limb array the same
+// way).  The default, unrolled, is every other kernel's product.
+template <bool ROLLED>
+__device__ __forceinline__ Fe fe_mul_t(const Fe& a, const Fe& b, const FieldConst& fc) {
   uint32_t t[10];
 #pragma unroll
   for (int k = 0; k < 10; ++k) t[k] = 0u;
+  if (ROLLED) {
+    Fe r = b;
+#pragma unroll 1
+    for (int i = 0; i < 8; ++i) {
+      cios_round(t, a, r.v[0], fc);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    // t += a * b[i]
-    unsigned long long c = 0ull;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      unsigned long long s = (unsigned long long)a.v[j] * b.v[i] + t[j] + c;
-      t[j] = (uint32_t)s;
-      c = s >> 32;
+      for (int k = 0; k < 7; ++k) r.v[k] = r.v[k + 1];
     }
-    unsigned long long s8 = (unsigned long long)t[8] + c;
-    t[8] = (uint32_t)s8;
-    t[9] = (uint32_t)(s8 >> 32);
-    // t = (t + m * p) / 2^32 with m chosen so the low word vanishes
-    uint32_t m = t[0] * fc.n0inv;
-    unsigned long long s0 = (unsigned long long)m * fc.p[0] + t[0];
-    c = s0 >> 32;
+  } else {
 #pragma unroll
-    for (int j = 1; j < 8; ++j) {
-      unsigned long long s = (unsigned long long)m * fc.p[j] + t[j] + c;
-      t[j - 1] = (uint32_t)s;
-      c = s >> 32;
-    }
-    unsigned long long s9 = (unsigned long long)t[8] + c;
-    t[7] = (uint32_t)s9;
-    t[8] = t[9] + (uint32_t)(s9 >> 32);
-    t[9] = 0u;
+    for (int i = 0; i < 8; ++i) cios_round(t, a, b.v[i], fc);
   }
   Fe r;
 #pragma unroll
   for (int k = 0; k < 8; ++k) r.v[k] = t[k];
   return fe_reduce_once(r, t[8], fc);
+}
+
+__device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b, const FieldConst& fc) {
+  return fe_mul_t<false>(a, b, fc);
+}
+
+template <bool ROLLED>
+__device__ __forceinline__ Fe fe_square_t(const Fe& a, const FieldConst& fc) {
+  return fe_mul_t<ROLLED>(a, a, fc);
 }
 
 __device__ __forceinline__ Fe fe_square(const Fe& a, const FieldConst& fc) {

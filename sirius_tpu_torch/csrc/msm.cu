@@ -20,6 +20,14 @@
 //                        running sum gives sum_v v*B_v; then thread 0 runs
 //                        the Horner combine (c doublings per window) into one
 //                        Jacobian point.
+//   msm_reduce_rolled (S1) msm_reduce with the rolled CIOS product
+//                        (`csrc/field.cuh` fe_mul_t<true>): replaces
+//                        `scripts/msm_lab2.py:_merge_call_variant`, B3's merge
+//                        kept for its smaller code (the TPU's
+//                        `KF(roll_mul=True)`).  Same function and add order as
+//                        msm_reduce, so the two agree word for word; on the
+//                        H100 the rolled loop trades registers and
+//                        instruction-cache footprint for loop overhead.
 //
 // What bounds it on the H100: accumulate is ~W*n mixed adds of ~1,400
 // integer multiply-adds each (integer-multiply bound) plus a random 128-byte
@@ -48,12 +56,19 @@ __device__ __forceinline__ void accumulate_row(const FieldConst& fc, const long 
   pt_store(ox, oy, oz, i, acc);
 }
 
+template <bool ROLLED>
+__device__ __forceinline__ void reduce_row_t(const FieldConst& fc, const long long* seg_off, const long long* px,
+                                             const long long* py, const long long* pz, long long* ox,
+                                             long long* oy, long long* oz, long long i) {
+  Pt acc = pt_identity(fc);
+  for (long long k = seg_off[i]; k < seg_off[i + 1]; ++k) acc = pt_add_t<ROLLED>(acc, pt_load(px, py, pz, k), fc);
+  pt_store(ox, oy, oz, i, acc);
+}
+
 __device__ __forceinline__ void reduce_row(const FieldConst& fc, const long long* seg_off, const long long* px,
                                            const long long* py, const long long* pz, long long* ox,
                                            long long* oy, long long* oz, long long i) {
-  Pt acc = pt_identity(fc);
-  for (long long k = seg_off[i]; k < seg_off[i + 1]; ++k) acc = pt_add(acc, pt_load(px, py, pz, k), fc);
-  pt_store(ox, oy, oz, i, acc);
+  reduce_row_t<false>(fc, seg_off, px, py, pz, ox, oy, oz, i);
 }
 
 // Window total sum_{v=1..B} v * B_v of window w of MSM m, via the running sum.
@@ -93,11 +108,12 @@ __global__ void msm_accumulate_kernel(FieldConst fc, const long long* entries, c
   if (i < n_chunks) accumulate_row(fc, entries, chunk_start, chunk_len, px, py, ox, oy, oz, i);
 }
 
+template <bool ROLLED>
 __global__ void msm_reduce_kernel(FieldConst fc, const long long* seg_off, const long long* px,
                                   const long long* py, const long long* pz, long long* ox, long long* oy,
                                   long long* oz, long long n_seg) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n_seg) reduce_row(fc, seg_off, px, py, pz, ox, oy, oz, i);
+  if (i < n_seg) reduce_row_t<ROLLED>(fc, seg_off, px, py, pz, ox, oy, oz, i);
 }
 
 __global__ void msm_combine_kernel(FieldConst fc, const long long* bx, const long long* by, const long long* bz,
@@ -122,14 +138,38 @@ extern "C" int sirius_msm_accumulate(const uint32_t* consts, const void* entries
   return (int)cudaGetLastError();
 }
 
-extern "C" int sirius_msm_reduce(const uint32_t* consts, const void* seg_off, const void* px, const void* py,
-                                 const void* pz, void* ox, void* oy, void* oz, long long n_seg, void* stream) {
+template <bool ROLLED>
+static int launch_reduce(const uint32_t* consts, const void* seg_off, const void* px, const void* py, const void* pz,
+                         void* ox, void* oy, void* oz, long long n_seg, void* stream) {
   const int threads = 128;
   long long blocks = (n_seg + threads - 1) / threads;
-  msm_reduce_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+  msm_reduce_kernel<ROLLED><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       make_field_const(consts), (const long long*)seg_off, (const long long*)px, (const long long*)py,
       (const long long*)pz, (long long*)ox, (long long*)oy, (long long*)oz, n_seg);
   return (int)cudaGetLastError();
+}
+
+extern "C" int sirius_msm_reduce(const uint32_t* consts, const void* seg_off, const void* px, const void* py,
+                                 const void* pz, void* ox, void* oy, void* oz, long long n_seg, void* stream) {
+  return launch_reduce<false>(consts, seg_off, px, py, pz, ox, oy, oz, n_seg, stream);
+}
+
+extern "C" int sirius_msm_reduce_rolled(const uint32_t* consts, const void* seg_off, const void* px, const void* py,
+                                        const void* pz, void* ox, void* oy, void* oz, long long n_seg,
+                                        void* stream) {
+  return launch_reduce<true>(consts, seg_off, px, py, pz, ox, oy, oz, n_seg, stream);
+}
+
+// Registers per thread and local (spill) bytes per thread of msm_reduce
+// (rolled = 0) or msm_reduce_rolled (rolled = 1): out[0], out[1].
+extern "C" int sirius_msm_reduce_attrs(int rolled, long long* out) {
+  cudaFuncAttributes attr;
+  cudaError_t e = rolled ? cudaFuncGetAttributes(&attr, msm_reduce_kernel<true>)
+                         : cudaFuncGetAttributes(&attr, msm_reduce_kernel<false>);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = attr.numRegs;
+  out[1] = (long long)attr.localSizeBytes;
+  return 0;
 }
 
 extern "C" int sirius_msm_combine(const uint32_t* consts, const void* bx, const void* by, const void* bz,

@@ -36,6 +36,7 @@ WORDS = 8
 M32 = 0xFFFFFFFF
 M16 = 0xFFFF
 R_BITS = 256
+CPU_MUL_CHUNK = 4096
 
 
 def ints_to_words(xs: Sequence[int]) -> np.ndarray:
@@ -168,14 +169,26 @@ class Field:
         return self.add(a, a)
 
     def mul(self, a, b):
-        """Montgomery product a*b*R^-1 mod p (CIOS, lazy carries)."""
+        """Montgomery product a*b*R^-1 mod p (CIOS, lazy carries).  On the CPU
+        in chunks of CPU_MUL_CHUNK elements, whose (256, chunk) product table
+        stays in cache (2-3x faster at 2^17 elements than one pass)."""
         shape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
         a = a.expand(shape + (WORDS,)).reshape(-1, WORDS)
         b = b.expand(shape + (WORDS,)).reshape(-1, WORDS)
         n = a.shape[0]
-        dev = a.device
         if n == 0:
-            return torch.zeros(shape + (WORDS,), dtype=torch.int64, device=dev)
+            return torch.zeros(shape + (WORDS,), dtype=torch.int64, device=a.device)
+        if a.device.type == "cpu" and n > CPU_MUL_CHUNK:
+            out = torch.cat([self._mul_rows(a[i : i + CPU_MUL_CHUNK], b[i : i + CPU_MUL_CHUNK])
+                             for i in range(0, n, CPU_MUL_CHUNK)])
+        else:
+            out = self._mul_rows(a, b)
+        return out.reshape(shape + (WORDS,))
+
+    def _mul_rows(self, a, b):
+        """(n, 8) x (n, 8) -> (n, 8) Montgomery products."""
+        n = a.shape[0]
+        dev = a.device
 
         def limbs(w):  # (n, 8) words -> (16, n) limb-first 16-bit limbs
             return torch.stack([w & M16, w >> 16], -1).reshape(n, 16).t().contiguous()
@@ -192,7 +205,7 @@ class Field:
             t[i + 1] += ti >> 16
         res = t[16:32]
         lazy = (res[0::2] + (res[1::2] << 16)).t()  # (n, 8) lazy words, value < 2p
-        return self._canon(lazy - self._c("p", dev), lazy).reshape(shape + (WORDS,))
+        return self._canon(lazy - self._c("p", dev), lazy)
 
     def square(self, a):
         return self.mul(a, a)

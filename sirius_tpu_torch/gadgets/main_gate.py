@@ -46,6 +46,7 @@ class MainGateConfig:
     q_o: Column
     rc: Column
 
+
 class RegionCtx:
     """Row cursor over an Assignment (reference `main_gate.rs:21-116`)."""
 
@@ -166,6 +167,11 @@ class MainGate:
     def _cv(self, c: AssignedCell | int) -> int:
         return c.value if isinstance(c, AssignedCell) else c % self.p
 
+    def add(self, ctx, a, b) -> AssignedCell:
+        p = self.p
+        out = (self._cv(a) + self._cv(b)) % p
+        return self.apply(ctx, [a, b], q_1=[1, 1], out_val=out, q_o=p - 1)
+
     def sub(self, ctx, a, b) -> AssignedCell:
         p = self.p
         out = (self._cv(a) - self._cv(b)) % p
@@ -180,6 +186,11 @@ class MainGate:
         p = self.p
         out = self._cv(a) * k % p
         return self.apply(ctx, [a], q_1=[k % p], out_val=out, q_o=p - 1)
+
+    def add_with_const(self, ctx, a, k: int) -> AssignedCell:
+        p = self.p
+        out = (self._cv(a) + k) % p
+        return self.apply(ctx, [a], q_1=[1], rc=k % p, out_val=out, q_o=p - 1)
 
     def assign_value(self, ctx, v: int) -> AssignedCell:
         """Witness a value with no constraint (freely assigned state cell)."""
@@ -256,6 +267,15 @@ class MainGate:
             )
         ctx.constrain_equal(acc, a)
         return bit_cells
+
+    def le_bits_to_num(self, ctx, bits: Sequence[AssignedCell]) -> AssignedCell:
+        """Constrained recomposition of little-endian bit cells."""
+        p = self.p
+        acc = self.assign_constant(ctx, 0)
+        for cell in reversed(list(bits)):
+            out = (2 * acc.value + cell.value) % p
+            acc = self.apply(ctx, [acc, cell], q_1=[2, 1], out_val=out, q_o=p - 1)
+        return acc
 
     def is_zero_term(self, ctx, a) -> AssignedCell:
         """Returns r with r = 1 if a == 0 else 0, via witness inverse:

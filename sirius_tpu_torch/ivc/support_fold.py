@@ -6,8 +6,8 @@ support folds and `verify`'s support `is_sat`): every fold synthesizes the
 EC co-processor circuit `SupportCircuit` (p_out = l0 p0 + l1 p1 over
 bn256 points, native on grumpkin's scalar field), runs the 0-challenge SPS
 on the grumpkin key and folds the trace into a Sangria accumulator.  The
-public-parameter digest is supplied by the caller (the IVC digest comes
-with the IVC port).
+public-parameter digest is supplied by the caller (`ivc/cyclefold_ivc.py`
+passes its pp digest; the identity when none is given).
 """
 
 from __future__ import annotations

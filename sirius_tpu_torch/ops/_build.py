@@ -39,9 +39,11 @@ _SIGNATURES = {
     "sirius_madd": [P] * 9 + [LL, P],
     "sirius_msm_accumulate": [P] * 9 + [LL, P],
     "sirius_msm_reduce": [P] * 8 + [LL, P],
+    "sirius_msm_reduce_rolled": [P] * 8 + [LL, P],
+    "sirius_msm_reduce_attrs": [I, P],
     "sirius_msm_combine": [P] * 10 + [I, I, I, I, P],
     "sirius_col_ntt": [P] * 5 + [LL, LL, P],
-    "sirius_mul_rows": [P] * 4 + [LL, LL, I, P],
+    "sirius_mul_rows": [P] * 4 + [LL, LL, LL, I, P],
     "sirius_raw_u32": [P] * 2 + [LL, I, I, P],
     "sirius_add_one": [P] * 2 + [LL, P],
 }

@@ -1,10 +1,12 @@
 """The elementwise field product on the card: CUDA wrapper + plain torch twin.
 
-`mul_rows(field, a, b, K=1)`: (n, 8) a and (nb, 8) b in Montgomery form ->
-a_i * b_(i mod nb)^K, by K chained Montgomery products, b broadcast over a's
-rows.  K = 1 is the NTT's elementwise product (mid twiddle, coset powers,
-1/n); K = 8 is the field-rate probe S2 (`ops/microbench.mul_chain`), which
-replaces `scripts/tpu_microbench.py:mul_kernel`.
+`mul_rows(field, a, b, K=1, rep=1)`: (n, 8) a and (nb, 8) b in Montgomery
+form -> a_i * b_((i // rep) mod nb)^K, by K chained Montgomery products, b
+broadcast over a's rows with each row repeated rep times.  K = 1 is the
+NTT's elementwise product (mid twiddle, over R columns at once with
+rep = R in a nested four-step; coset powers; 1/n); K = 8 is the field-rate
+probe S2 (`ops/microbench.mul_chain`), which replaces
+`scripts/tpu_microbench.py:mul_kernel`.
 
 Kernel: `csrc/field_ops.cu` (what bounds it is noted there).  The wrapper
 takes its plain twin for CPU tensors only; for CUDA tensors it launches its
@@ -23,7 +25,9 @@ def _check_words(t: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: expected (n, {WORDS}) words, got {tuple(t.shape)}")
 
 
-def mul_rows_plain(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 1) -> torch.Tensor:
+def mul_rows_plain(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 1, rep: int = 1) -> torch.Tensor:
+    if rep > 1:
+        b = b.repeat_interleave(rep, 0)
     n, nb = a.shape[0], b.shape[0]
     y = b.repeat(-(-n // nb), 1)[:n] if nb != n else b
     for _ in range(K):
@@ -31,14 +35,14 @@ def mul_rows_plain(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 1) -
     return a
 
 
-def mul_rows(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 1) -> torch.Tensor:
-    """a_i * b_(i mod nb)^K per row, by K chained Montgomery products."""
+def mul_rows(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 1, rep: int = 1) -> torch.Tensor:
+    """a_i * b_((i // rep) mod nb)^K per row, by K chained Montgomery products."""
     _check_words(a, "mul_rows a")
     _check_words(b, "mul_rows b")
-    if b.shape[0] == 0 or K < 0:
-        raise ValueError("mul_rows needs at least one row of b and K >= 0")
+    if b.shape[0] == 0 or K < 0 or rep < 1:
+        raise ValueError("mul_rows needs at least one row of b, K >= 0 and rep >= 1")
     if a.device.type == "cpu":
-        return mul_rows_plain(field, a, b, K)
+        return mul_rows_plain(field, a, b, K, rep)
     from . import _build
 
     a, b = a.contiguous(), b.contiguous()
@@ -46,7 +50,7 @@ def mul_rows(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 1) -> torc
     out = torch.empty_like(a)
     if a.shape[0]:
         err = _build.library().sirius_mul_rows(_build.field_consts(field), a.data_ptr(), b.data_ptr(),
-                                               out.data_ptr(), a.shape[0], b.shape[0], K, _build.stream_of(a))
+                                               out.data_ptr(), a.shape[0], b.shape[0], rep, K, _build.stream_of(a))
         _build.check(err, "mul_rows")
         mul_rows.launches += 1
     return out

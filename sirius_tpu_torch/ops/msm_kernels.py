@@ -1,12 +1,16 @@
-"""B2 + B3: the Pippenger MSM kernels, CUDA wrappers + plain torch twins.
+"""B2 + B3 + S1: the Pippenger MSM kernels, CUDA wrappers + plain torch twins.
 
-Replaces `sirius_tpu/ops/pallas_msm.py:_msm_table_kernel` (B2) and
+Replaces `sirius_tpu/ops/pallas_msm.py:_msm_table_kernel` (B2),
 `sirius_tpu/ops/pallas_msm.py:_merge_kernel` with the XLA finish of
-`_finish_jit` (B3).  Kernels: `csrc/msm.cu` (design and bounds noted there).
+`_finish_jit` (B3) and `scripts/msm_lab2.py:_merge_call_variant` (S1, B3's
+merge with a rolled CIOS product).  Kernels: `csrc/msm.cu` (design and
+bounds noted there).
 
-  msm_accumulate  (B2)  chunks of bucket-sorted entries -> Jacobian partials
-  msm_reduce      (B3)  partials of each segment -> one Jacobian point each
-  msm_combine     (B3)  (t, W, B) bucket sums -> t Jacobian MSM results
+  msm_accumulate     (B2)  chunks of bucket-sorted entries -> Jacobian partials
+  msm_reduce         (B3)  partials of each segment -> one Jacobian point each
+  msm_combine        (B3)  (t, W, B) bucket sums -> t Jacobian MSM results
+  msm_reduce_rolled  (S1)  msm_reduce with the rolled product: the same
+                           function, word for word; on no path of the library
 
 Each wrapper takes its plain twin for CPU tensors only; for CUDA tensors it
 launches its kernel or raises.  `<wrapper>.launches` counts kernel launches.
@@ -118,12 +122,14 @@ def msm_accumulate(curve: Curve, entries, chunk_start, chunk_len, px, py) -> Poi
     return Points(*out)
 
 
-def msm_reduce(curve: Curve, seg_off, partials: Points) -> Points:
+def _reduce(curve: Curve, seg_off, partials: Points, entry: str) -> Points | None:
+    """Launch the reduce kernel `entry` (None for CPU tensors: the caller
+    takes the plain twin)."""
     _check_rows(*partials)
     if seg_off.dim() != 1 or seg_off.shape[0] < 1:
         raise ValueError("seg_off must be 1-D with n_segments + 1 offsets")
     if partials.x.device.type == "cpu":
-        return msm_reduce_plain(curve, seg_off, partials)
+        return None
     from . import _build
 
     ins = [t.contiguous() for t in (seg_off, *partials)]
@@ -131,12 +137,46 @@ def msm_reduce(curve: Curve, seg_off, partials: Points) -> Points:
     n_seg = seg_off.shape[0] - 1
     out = _points_on(n_seg, partials.x)
     if n_seg:
-        err = _build.library().sirius_msm_reduce(
+        err = getattr(_build.library(), entry)(
             _build.field_consts(curve.fb), *(t.data_ptr() for t in ins),
             *(t.data_ptr() for t in out), n_seg, _build.stream_of(partials.x))
-        _build.check(err, "msm_reduce")
-        msm_reduce.launches += 1
+        _build.check(err, entry)
     return Points(*out)
+
+
+def msm_reduce(curve: Curve, seg_off, partials: Points) -> Points:
+    out = _reduce(curve, seg_off, partials, "sirius_msm_reduce")
+    if out is None:
+        return msm_reduce_plain(curve, seg_off, partials)
+    if seg_off.shape[0] > 1:
+        msm_reduce.launches += 1
+    return out
+
+
+# S1 computes msm_reduce's function: its plain twin is msm_reduce's
+msm_reduce_rolled_plain = msm_reduce_plain
+
+
+def msm_reduce_rolled(curve: Curve, seg_off, partials: Points) -> Points:
+    """S1: msm_reduce through the rolled-product kernel."""
+    out = _reduce(curve, seg_off, partials, "sirius_msm_reduce_rolled")
+    if out is None:
+        return msm_reduce_rolled_plain(curve, seg_off, partials)
+    if seg_off.shape[0] > 1:
+        msm_reduce_rolled.launches += 1
+    return out
+
+
+def reduce_kernel_attrs(rolled: bool) -> dict[str, int]:
+    """Registers and local (spill) bytes per thread of the msm_reduce kernel
+    (rolled: S1's) as the loaded library was built."""
+    import ctypes
+
+    from . import _build
+
+    out = (ctypes.c_longlong * 2)()
+    _build.check(_build.library().sirius_msm_reduce_attrs(int(rolled), out), "msm_reduce_attrs")
+    return {"numRegs": int(out[0]), "localSizeBytes": int(out[1])}
 
 
 def msm_combine(curve: Curve, buckets: Points, c: int) -> Points:
@@ -166,4 +206,5 @@ def msm_combine(curve: Curve, buckets: Points, c: int) -> Points:
 
 msm_accumulate.launches = 0
 msm_reduce.launches = 0
+msm_reduce_rolled.launches = 0
 msm_combine.launches = 0

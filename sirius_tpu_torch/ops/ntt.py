@@ -17,15 +17,19 @@ Routes (no switches):
       X[o2*n1 + o1] = sum_i2 w^(n1*i2*o2) T[o1,i2] sum_i1 x[i1*n2 + i2] w^(n2*i1*o1)
 - k < 10, the flat transform: one column (R = 1) of size n through the same
   kernel, then 1/n for the inverse.
+A column pass longer than `ntt_kernels.MAX_SIZE` (what one thread block's
+shared memory holds) is itself a four-step over its R columns at once: an
+unscaled transform of size s = s1 * s2 along axis 0 of an (s, R) block
+runs the two shorter passes around the mid twiddle broadcast over R.  So
+k = 25..28 (columns of 2^13..2^14) run as columns of at most 128.
 Every elementwise product (mid twiddle, coset powers, 1/n) is the field
 product `field_kernels.mul_rows` with its factor broadcast over rows, so on
 a CUDA tensor no plain torch arithmetic runs; on the CPU every step takes
-the plain twin.  On a CUDA device a column holds at most
-`ntt_kernels.MAX_SIZE` elements, so k <= 2 * log2(MAX_SIZE) = 24 there.
+the plain twin.  The route depends on k and MAX_SIZE alone, on every device.
 
-The mid twiddle is built on the device once per direction, by doubling
-(rows o1 < s times w^(s*i2) give rows s..2s-1), and cached: that is set-up,
-`mid_twiddle()` builds it ahead of the first transform.
+The mid twiddle is built on the device once per direction (and scaling),
+by doubling (rows o1 < s times w^(s*i2) give rows s..2s-1), and cached:
+that is set-up, `mid_twiddle()` builds it ahead of the first transform.
 """
 
 from __future__ import annotations
@@ -39,8 +43,9 @@ from ..fields import gold
 from ..fields.constants import FieldSpec
 from ..fields.jfield import WORDS, Field, field_for
 from ..util.device import resolve
+from . import ntt_kernels
 from .field_kernels import mul_rows
-from .ntt_kernels import MAX_SIZE, col_ntt
+from .ntt_kernels import col_ntt
 
 FOUR_STEP_MIN_K = 10
 
@@ -65,10 +70,7 @@ class NTT:
         self.k = k
         self.n = 1 << k
         self.device = dev = resolve(device)
-        self.use_four_step = k >= FOUR_STEP_MIN_K
-        column = 1 << ((k + 1) // 2) if self.use_four_step else self.n
-        if dev.type == "cuda" and column > MAX_SIZE:
-            raise ValueError(f"k = {k}: a column of {column} elements exceeds the kernel's {MAX_SIZE} on {dev}")
+        self.use_four_step = k >= FOUR_STEP_MIN_K or self.n > ntt_kernels.MAX_SIZE
         p = field.p
         omega = gold.omega_for_k(field.spec, k)
         omega_inv = pow(omega, -1, p)
@@ -89,25 +91,32 @@ class NTT:
             self.n2 = 1 << (k // 2)
             w_in = pow(omega, self.n2, p)  # order n1
             w_out = pow(omega, self.n1, p)  # order n2
-            self.inner = {False: powers(w_in, self.n1 // 2), True: powers(pow(w_in, -1, p), self.n1 // 2)}
-            self.outer = {False: powers(w_out, self.n2 // 2), True: powers(pow(w_out, -1, p), self.n2 // 2)}
             self.base = {False: powers(omega, self.n2), True: powers(omega_inv, self.n2)}  # w^(+-i2)
-            self.rev_n1 = torch.from_numpy(_bit_reverse_indices((k + 1) // 2)).to(dev)
-            self.rev_n2 = torch.from_numpy(_bit_reverse_indices(k // 2)).to(dev)
+            # a pass longer than one kernel column runs through a nested context
+            self.inner = self.outer = None
+            if self.n1 <= ntt_kernels.MAX_SIZE:
+                self.inner = {False: powers(w_in, self.n1 // 2), True: powers(pow(w_in, -1, p), self.n1 // 2)}
+                self.rev_n1 = torch.from_numpy(_bit_reverse_indices((k + 1) // 2)).to(dev)
+            if self.n2 <= ntt_kernels.MAX_SIZE:
+                self.outer = {False: powers(w_out, self.n2 // 2), True: powers(pow(w_out, -1, p), self.n2 // 2)}
+                self.rev_n2 = torch.from_numpy(_bit_reverse_indices(k // 2)).to(dev)
+            self._nested: dict[int, NTT] = {}
         else:
             half = max(self.n // 2, 1)
             self.table = {False: powers(omega, half), True: powers(omega_inv, half)}
             self.rev = torch.from_numpy(_bit_reverse_indices(k)).to(dev)
-        self._mid: dict[bool, torch.Tensor] = {}
+        self._mid: dict[tuple[bool, bool], torch.Tensor] = {}
 
     # -- four-step ------------------------------------------------------------------
-    def mid_twiddle(self, inverse: bool = False) -> torch.Tensor:
+    def mid_twiddle(self, inverse: bool = False, scaled: bool | None = None) -> torch.Tensor:
         """(n1 * n2, 8): row o1*n2 + i2 holds w^(+-o1*i2), times 1/n when
-        inverse; built on the device on first use and cached."""
-        T = self._mid.get(inverse)
+        scaled (by default: when inverse); built on the device on first use
+        and cached."""
+        scaled = inverse if scaled is None else scaled
+        T = self._mid.get((inverse, scaled))
         if T is None:
             f, n2 = self.f, self.n2
-            rows = self.n_inv.expand(n2, WORDS).contiguous() if inverse else f.ones((n2,), self.device)
+            rows = self.n_inv.expand(n2, WORDS).contiguous() if scaled else f.ones((n2,), self.device)
             step = self.base[inverse]  # w^(+-s*i2) for the current s
             s = 1
             while s < self.n1:
@@ -115,16 +124,31 @@ class NTT:
                 s *= 2
                 if s < self.n1:
                     step = mul_rows(f, step, step)
-            T = self._mid[inverse] = rows
+            T = self._mid[(inverse, scaled)] = rows
         return T
 
-    def _four_step(self, a: torch.Tensor, inverse: bool) -> torch.Tensor:
+    def _pass(self, block: torch.Tensor, inner: bool, inverse: bool) -> torch.Tensor:
+        """One column pass over an (size, R, 8) block: B4 when the column fits
+        a kernel column, else a nested four-step."""
+        if (self.inner if inner else self.outer) is not None:
+            rev, table = (self.rev_n1, self.inner) if inner else (self.rev_n2, self.outer)
+            return col_ntt(self.f, block, rev, table[inverse])
+        size = block.shape[0]
+        if size not in self._nested:
+            self._nested[size] = NTT(self.f, size.bit_length() - 1, self.device)
+        return self._nested[size]._columns(block, inverse, scaled=False)
+
+    def _columns(self, a: torch.Tensor, inverse: bool, scaled: bool) -> torch.Tensor:
+        """The transform along axis 0 of an (n, R, 8) block, R columns at once
+        (times 1/n when scaled): the four-step with the mid twiddle
+        broadcast over R."""
         f, n1, n2 = self.f, self.n1, self.n2
-        A = col_ntt(f, a.reshape(n1, n2, WORDS), self.rev_n1, self.inner[inverse])  # (o1, i2)
-        B = mul_rows(f, A.reshape(self.n, WORDS), self.mid_twiddle(inverse))
-        D = B.reshape(n1, n2, WORDS).transpose(0, 1).contiguous()  # (i2, o1)
-        E = col_ntt(f, D, self.rev_n2, self.outer[inverse])  # (o2, o1)
-        return E.reshape(self.n, WORDS)
+        R = a.shape[1]
+        A = self._pass(a.reshape(n1, n2 * R, WORDS), True, inverse)  # (o1, i2 R)
+        B = mul_rows(f, A.reshape(-1, WORDS), self.mid_twiddle(inverse, scaled), rep=R)
+        D = B.reshape(n1, n2, R, WORDS).transpose(0, 1).contiguous()  # (i2, o1, R)
+        E = self._pass(D.reshape(n2, n1 * R, WORDS), False, inverse)  # (o2, o1 R)
+        return E.reshape(self.n, R, WORDS)
 
     # -- public API -----------------------------------------------------------------
     def fft(self, a: torch.Tensor, inverse: bool = False) -> torch.Tensor:
@@ -134,7 +158,7 @@ class NTT:
         if a.device != self.device:
             raise ValueError(f"input on {a.device}, NTT context on {self.device}")
         if self.use_four_step:
-            return self._four_step(a, inverse)
+            return self._columns(a.reshape(self.n, 1, WORDS), inverse, inverse).reshape(self.n, WORDS)
         out = col_ntt(self.f, a.reshape(self.n, 1, WORDS), self.rev, self.table[inverse]).reshape(self.n, WORDS)
         return mul_rows(self.f, out, self.n_inv) if inverse else out
 

@@ -2,7 +2,8 @@
 
 Counterpart of `sirius_tpu/plonk/eval.py`: selectors and fixed columns come
 from the structure's device mirrors, folded variables from static slices of
-the round witness tensors.
+the round witness tensors.  The rows where each structure column is nonzero
+are found once per structure and device (the evaluator's sparse products).
 """
 
 from __future__ import annotations
@@ -61,4 +62,15 @@ class PlonkEvalDomain:
                 col = Ws[rnd][slot * n : (slot + 1) * n]
             return rotate_rows(col, q.rotation)
 
-        return evaluate_expressions(S.field, exprs, resolve_poly, self.challenges.__getitem__, dev)
+        def resolve_support(q: Query):
+            """Rows where a selector or fixed column may be nonzero."""
+            if q.index >= num_sel + num_fixed:
+                return None
+            key = ("support", q.index, q.rotation, str(dev))
+            if key not in S.cache:
+                col = sel[q.index] if q.index < num_sel else fixed[q.index - num_sel]
+                S.cache[key] = torch.nonzero(~S.field.is_zero(rotate_rows(col, q.rotation))).flatten()
+            return S.cache[key]
+
+        return evaluate_expressions(S.field, exprs, resolve_poly, self.challenges.__getitem__, dev, n,
+                                    resolve_support)

@@ -77,6 +77,23 @@ class PlonkStructure:
     def num_fold_vars(self) -> int:
         return self.num_advice_columns + 5 * self.num_lookups()
 
+    def get_degree_for_folding(self) -> int:
+        return len(self.custom_gates_lookup_compressed.grouped)
+
+    @property
+    def query_index_ctx(self) -> QueryIndexContext:
+        return QueryIndexContext(
+            num_selectors=self.selectors.shape[0],
+            num_fixed=len(self.fixed_columns),
+            num_advice=self.num_advice_columns,
+            num_challenges=self.num_challenges,
+            num_lookups=self.num_lookups(),
+        )
+
+    def permutation_matrix(self):
+        """COO triplets of P with P @ Z = Z over Z = [instances | advice]."""
+        return self.permutation_data.matrix(self.k, self.num_io, self.num_advice_columns)
+
     @cached_property
     def field(self) -> Field:
         return field_for(self.spec)
@@ -106,6 +123,9 @@ class PlonkInstance:
     W_commitments: list  # host gold affine points
     instances: list[list[int]]
     challenges: list[int]
+
+    def clone(self) -> "PlonkInstance":
+        return PlonkInstance(list(self.W_commitments), [list(i) for i in self.instances], list(self.challenges))
 
 
 @dataclass

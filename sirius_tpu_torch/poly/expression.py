@@ -125,6 +125,32 @@ class Expression:
     def num_challenges(self) -> int:
         return len(self.challenge_set())
 
+    def degree(self, ctx: QueryIndexContext) -> int:
+        """Folding degree: advice/lookup queries and challenges count 1
+        (reference `expression.rs:431-447`)."""
+        memo: dict[int, int] = {}
+
+        def go(e) -> int:
+            hit = memo.get(id(e))
+            if hit is not None:
+                return hit
+            if isinstance(e, Poly):
+                d = 1 if e.query.subtype(ctx) in (QueryType.ADVICE, QueryType.LOOKUP) else 0
+            elif isinstance(e, Challenge):
+                d = 1
+            elif isinstance(e, (Neg, Scaled)):
+                d = go(e.arg)
+            elif isinstance(e, Sum):
+                d = max(go(e.lhs), go(e.rhs))
+            elif isinstance(e, Product):
+                d = go(e.lhs) + go(e.rhs)
+            else:
+                d = 0
+            memo[id(e)] = d
+            return d
+
+        return go(self)
+
     def homogeneous(self, ctx: QueryIndexContext) -> "HomogeneousExpression":
         """Equalize monomial degrees with a homogenizing challenge u at index
         `ctx.num_challenges` (reference `expression.rs:356-429`)."""

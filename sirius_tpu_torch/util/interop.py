@@ -7,6 +7,11 @@ crosses as numpy arrays: the port never imports jax or `sirius_tpu`, and the
 tests hand `np.asarray(jax_array)` in and take `.numpy()` out.  Host objects
 (affine points, curve specs) cross by value: `affine_from` rebuilds any
 affine point with `.curve.name`, `.x` and `.y` as the port's own.
+
+State carried across: the `*_from` functions rebuild the port's objects
+(plain and relaxed instances and traces, a ProtoGalaxy accumulator, the
+whole state of a `CyclefoldIVC`) from the JAX package's by value, so a
+test can start both packages from one state and step them side by side.
 """
 
 from __future__ import annotations
@@ -76,3 +81,61 @@ def affine_from(pt) -> gold.AffinePoint:
     (by curve name and coordinates; the identity stays the identity)."""
     spec = curve_for(pt.curve).spec
     return gold.identity(spec) if pt.is_identity else gold.AffinePoint(spec, pt.x, pt.y)
+
+
+def plonk_instance_from(u):
+    """A `PlonkInstance` of either package -> the port's."""
+    from ..plonk.structure import PlonkInstance
+
+    return PlonkInstance([affine_from(c) for c in u.W_commitments], [list(i) for i in u.instances],
+                         list(u.challenges))
+
+
+def plonk_trace_from(trace, device=None):
+    """A `PlonkTrace` (instance + per-round witness arrays) -> the port's."""
+    from ..plonk.structure import PlonkTrace, PlonkWitness
+
+    return PlonkTrace(plonk_instance_from(trace.u), PlonkWitness(witness_to_torch(trace.w.W, device)))
+
+
+def pg_accumulator_from(acc, device=None):
+    """A ProtoGalaxy `Accumulator` -> the port's."""
+    from ..nifs.protogalaxy import Accumulator
+
+    return Accumulator(plonk_trace_from(acc.trace, device), list(acc.betas), acc.e)
+
+
+def relaxed_instance_from(U):
+    """A Sangria `RelaxedPlonkInstance` -> the port's."""
+    from ..nifs.sangria import RelaxedPlonkInstance
+
+    return RelaxedPlonkInstance([affine_from(c) for c in U.W_commitments], list(U.consistency_markers),
+                                list(U.challenges), affine_from(U.E_commitment), U.u, U.sc_instances_hash_acc)
+
+
+def relaxed_trace_from(acc, device=None):
+    """A Sangria `RelaxedPlonkTrace` (instance, W rounds, E) -> the port's."""
+    from ..nifs.sangria import RelaxedPlonkTrace, RelaxedPlonkWitness
+
+    W = witness_to_torch([*acc.W.W, acc.W.E], device)
+    return RelaxedPlonkTrace(relaxed_instance_from(acc.U), RelaxedPlonkWitness(W[:-1], W[-1]))
+
+
+def cyclefold_ivc_from(pp, ivc, device=None):
+    """The state of a `CyclefoldIVC` of either package (self_acc,
+    support_acc, primary_trace, z_0, z_i, step, support_pub_instances) on
+    the port's public parameters `pp`: a port `CyclefoldIVC` that continues
+    from it."""
+    from ..ivc.cyclefold_ivc import CyclefoldIVC
+    from ..ivc.support_fold import SupportFoldChain
+
+    out = CyclefoldIVC.__new__(CyclefoldIVC)
+    out.pp = pp
+    out.step = ivc.step
+    out.z_0, out.z_i = list(ivc.z_0), list(ivc.z_i)
+    out.self_acc = pg_accumulator_from(ivc.self_acc, device)
+    out.primary_trace = plonk_trace_from(ivc.primary_trace, device)
+    out.support = SupportFoldChain(pp.ck2, pp.S_support, pp_digest=pp.digest)
+    out.support_acc = relaxed_trace_from(ivc.support_acc, device)
+    out.support_pub_instances = [[list(i) for i in inst] for inst in ivc.support_pub_instances]
+    return out

@@ -22,6 +22,7 @@ from sirius_tpu_torch.ops.commitment import CommitmentKey
 from sirius_tpu_torch.ops.madd import madd_batch, madd_plain
 from sirius_tpu_torch.ops.msm import best_msm, bucket_plan, msm_many
 from sirius_tpu_torch.ops.ntt import NTT, _bit_reverse_indices
+from sirius_tpu_torch.util.interop import limbs_to_words
 
 CURVES = [BN256_G1, GRUMPKIN]
 IDS = ["bn256_g1", "grumpkin"]
@@ -128,10 +129,104 @@ def test_ntt_k21_round_trip_and_direct_sums(cuda_device):
 
 @pytest.mark.gpu
 def test_ntt_refuses_columns_beyond_the_kernel(cuda_device):
-    """k = 24 (columns of 4096) builds; k = 25 (8192) is refused at once."""
+    """B4 refuses a column above MAX_SIZE; k = 24 (columns of 4096) runs on
+    B4 columns directly, k = 25 (8192) through nested four-steps."""
     assert NTT(FR, 24, cuda_device).n1 == ntt_kernels.MAX_SIZE
-    with pytest.raises(ValueError, match="exceeds"):
-        NTT(FR, 25, cuda_device)
+    size = 2 * ntt_kernels.MAX_SIZE
+    a = FR.zeros((size, 1), cuda_device)
+    rev = torch.arange(size, device=cuda_device)
+    with pytest.raises(ValueError, match="does not fit"):
+        ntt_kernels.col_ntt(FR, a, rev, FR.zeros((size // 2,), cuda_device))
+    ctx = NTT(FR, 25, cuda_device)
+    assert ctx.inner is None and ctx.outer is not None
+
+
+@pytest.mark.gpu
+def test_ntt_k25_round_trip_and_direct_sums(cuda_device):
+    """The 2^25 transform (pass-1 columns of 8192 as nested 128 x 64
+    four-steps; 2 GB per tensor) on standard-form words: the round trip is
+    exact and two values equal the direct sums."""
+    k = 25
+    xs = np.random.default_rng(25).integers(0, 2**62, size=1 << k, dtype=np.int64)
+    words = np.zeros((1 << k, 8), dtype=np.int64)
+    words[:, 0], words[:, 1] = xs & 0xFFFFFFFF, xs >> 32
+    a = torch.from_numpy(words).to(cuda_device)
+    ctx = NTT(FR, k, cuda_device)
+    before = ntt_kernels.col_ntt.launches
+    out = ctx.fft(a)
+    assert ntt_kernels.col_ntt.launches == before + 3  # two nested passes, then pass 2 on B4
+    assert torch.equal(ctx.ifft(out), a)
+    p, w = FR.p, gold.omega_for_k(bn256_fr, k)
+    vals = xs.tolist()
+    for j in (1, 23456789):
+        wj, acc = pow(w, j, p), 0
+        for v in reversed(vals):  # Horner: sum_i x_i wj^i
+            acc = (acc * wj + v) % p
+        got = sum(int(word) << (32 * i) for i, word in enumerate(out[j].tolist()))
+        assert got == acc
+
+
+@pytest.mark.gpu
+def test_msm_reduce_rolled_matches_reduce_at_the_primary_commit_shape(cuda_device):
+    """S1 on the level-0 partials of a 917,504-point bn256 commit (7 advice
+    columns x 2^17 rows): word for word equal to B3 msm_reduce (same add
+    order), and to the plain twin in affine form."""
+    from sirius_tpu_torch.ops.msm import FAN_IN, split_segments
+
+    n = 7 << 17
+    q = BN256_G1.spec.scalar.modulus
+    rng = np.random.default_rng(7)
+    limbs = rng.integers(0, 1 << 16, size=(n, 16), dtype=np.uint32)
+    limbs[:, 15] &= 0x0FFF
+    S = torch.from_numpy(limbs_to_words(limbs)).to(cuda_device)
+    plan = bucket_plan(S)
+    ck = CommitmentKey.setup(BN256_G1, 14, b"torch-gpu-test", use_cache=False, device=cuda_device)
+    n_parts = int(plan.seg_off[-1])
+    reps = -(-n_parts // len(ck))
+    parts = BN256_G1.dbl(Points(*(c.repeat(reps, 1)[:n_parts].contiguous() for c in ck.points)))
+    sub_off, _ = split_segments(plan.seg_off, FAN_IN)
+    before = (mk.msm_reduce.launches, mk.msm_reduce_rolled.launches)
+    got = mk.msm_reduce_rolled(BN256_G1, sub_off, parts)
+    ref = mk.msm_reduce(BN256_G1, sub_off, parts)
+    assert (mk.msm_reduce.launches, mk.msm_reduce_rolled.launches) == (before[0] + 1, before[1] + 1)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert BN256_G1.decode(got) == BN256_G1.decode(mk.msm_reduce_rolled_plain(BN256_G1, sub_off, parts))
+    attrs = (mk.reduce_kernel_attrs(False), mk.reduce_kernel_attrs(True))
+    assert all(a["numRegs"] > 0 for a in attrs)
+
+
+@pytest.mark.gpu
+def test_protogalaxy_prove_on_the_card_equals_the_cpu(cuda_device):
+    """ProtoGalaxy new + prove (L = 1) on fibo traces at k = 4 with a real
+    key: the card's accumulator and proof equal the CPU run of the port."""
+    from sirius_tpu_torch.fields.constants import bn256_g1
+    from sirius_tpu_torch.frontend.runner import CircuitRunner
+    from sirius_tpu_torch.nifs.protogalaxy import AccumulatorInstance, ProtoGalaxy
+    from sirius_tpu_torch.ops.poseidon import PoseidonHash, poseidon_spec
+    from sirius_tpu_torch.plonk.sps import run_sps_protocol
+    from sirius_tpu_torch.util.golden import pg_acc_digest
+
+    from fixtures import FiboCircuit
+
+    p = bn256_fr.modulus
+
+    def run(device):
+        ck = CommitmentKey.setup(BN256_G1, 7, b"pg-test", use_cache=False, device=device)
+        circuits = [FiboCircuit(1, 1, 10), FiboCircuit(2, 3, 10)]
+        S = CircuitRunner(4, bn256_fr, circuits[0], circuits[0].instances(p)).collect_plonk_structure()
+        ro = lambda: PoseidonHash(poseidon_spec(bn256_fr, 3, 2, 4, 3))  # noqa: E731
+        traces = [run_sps_protocol(S, ck, c.instances(p), CircuitRunner(4, bn256_fr, c, c.instances(p))
+                                   .collect_witness(), ro()) for c in circuits]
+        pp, _ = ProtoGalaxy.setup_params(gold.identity(bn256_g1), S)
+        acc = ProtoGalaxy.new_accumulator(pp, ro(), traces[0], bn256_g1)
+        new_acc, proof = ProtoGalaxy.prove(ck, pp, ro(), acc, traces[1:])
+        assert ProtoGalaxy.is_sat(ck, S, new_acc) == []
+        return (pg_acc_digest(AccumulatorInstance.from_acc(new_acc)), proof.poly_F.coeffs, proof.poly_K.coeffs,
+                [w.cpu() for w in new_acc.trace.w.W])
+
+    card, cpu = run(cuda_device), run("cpu")
+    assert card[:3] == cpu[:3]
+    assert all(torch.equal(a, b) for a, b in zip(card[3], cpu[3]))
 
 
 @pytest.mark.gpu

@@ -17,6 +17,7 @@ from sirius_tpu_torch.fields.constants import bn256_fr
 from sirius_tpu_torch.fields.jfield import FR
 from sirius_tpu_torch.ops.commitment import CommitmentKey
 from sirius_tpu_torch.ops.ntt import NTT, ntt_ctx
+from sirius_tpu_torch.plonk.structure import PlonkWitness
 from sirius_tpu_torch.util.interop import to_torch
 from sirius_tpu_torch.util.testing import MockCommitmentKey
 
@@ -68,7 +69,9 @@ def test_no_source_line_imports_jax():
     lambda: MockCommitmentKey(BN256_G1),
     lambda: NTT(FR, 3),
     lambda: ntt_ctx(bn256_fr, 3),
-], ids=["encode", "zeros", "ones", "const", "identity", "key_setup", "to_torch", "mock_key", "ntt", "ntt_ctx"])
+    lambda: PlonkWitness.zeros(FR, [4]).W[0],
+], ids=["encode", "zeros", "ones", "const", "identity", "key_setup", "to_torch", "mock_key", "ntt", "ntt_ctx",
+        "witness_zeros"])
 def test_entry_points_default_to_cuda(call):
     """Without a device the port asks for the card: where there is no CUDA
     it raises instead of running on the CPU; with one it lands there."""

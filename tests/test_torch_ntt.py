@@ -110,3 +110,22 @@ def test_col_ntt_twin_matches_pallas_interpret():
     got = ntt_kernels.col_ntt(FR, words(a), torch.from_numpy(rev), words(table))
     assert ntt_kernels.col_ntt.launches == before  # CPU tensors: the plain twin, no launch
     assert torch.equal(got, words(want))
+
+
+def test_nested_four_step_k10_matches_jax(monkeypatch):
+    """With kernel columns of at most 16 elements, the k = 10 passes (32) run
+    as nested four-steps (8 x 4) over their 32 columns at once: the same
+    transforms as the JAX package's, bit for bit."""
+    monkeypatch.setattr(ntt_kernels, "MAX_SIZE", 16)
+    xs, limbs, words = _inputs(J_FR, 10, 11)
+    tctx = NTT(FR, 10, "cpu")
+    assert tctx.inner is None and tctx.outer is None
+    jctx = jntt.ntt_ctx(J_FR_SPEC, 10)
+    out = tctx.fft(words)
+    assert _same(out, jctx.fft(limbs))
+    assert sorted(tctx._nested) == [32]
+    assert _same(tctx.ifft(out), jctx.ifft(jctx.fft(limbs)))
+    assert FR.decode(tctx.ifft(out)) == xs
+    coset = tctx.coset_fft(words)
+    assert _same(coset, jctx.coset_fft(limbs))
+    assert FR.decode(tctx.coset_ifft(coset)) == xs
