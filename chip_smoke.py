@@ -48,7 +48,8 @@
 8. S1, the rolled-product reduce (on no path): on the level-0 partials of
    the primary trace's 917,504-point commit it must equal B3 msm_reduce
    word for word and its plain twin in affine form; both timed in turns,
-   with each variant's registers and local (spill) bytes per thread.
+   with each variant's registers and local (spill) bytes per thread and
+   its SASS instruction count (`cuobjdump`, where the toolkit has it).
 
 Ends with a JSON line of kernel results (time, plain twin's time, bound
 and what sets it, launches on the path that runs the kernel: B1-B3 on the
@@ -68,6 +69,8 @@ from __future__ import annotations
 
 import hashlib
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -262,6 +265,23 @@ def profiled(label: str, fn) -> str:
     for name, ms in sorted(top.items(), key=lambda kv: -kv[1])[:8]:
         lines.append(f"  {ms:9.3f} ms  {name[:90]}")
     return "\n".join(lines)
+
+
+def sass_instructions() -> dict[str, int] | None:
+    """SASS instructions per kernel of the built library (cuobjdump), by
+    mangled name; None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    dump = subprocess.run([tool, "-sass", _build.library()._name], capture_output=True, text=True).stdout
+    counts, cur = {}, None
+    for line in dump.splitlines():
+        if "Function :" in line:
+            cur = line.split("Function :")[1].strip()
+            counts[cur] = 0
+        elif cur and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            counts[cur] += 1
+    return counts
 
 
 def synced() -> float:
@@ -681,6 +701,10 @@ def main() -> int:
            (ms_rolled + ms_rolled2) / 2, plain, ADD_MULS * seeded_adds(sub_off[1:] - sub_off[:-1]),
            3 * FE * n_parts + 4 * (n_seg + 1) + 3 * FE * n_seg)
     attrs = {"msm_reduce": mk.reduce_kernel_attrs(False), "msm_reduce_rolled": mk.reduce_kernel_attrs(True)}
+    sass = sass_instructions()
+    for key, tag in (("msm_reduce", "ILb0E"), ("msm_reduce_rolled", "ILb1E")):
+        attrs[key]["sassInstructions"] = (sum(v for k, v in sass.items() if "msm_reduce_kernel" in k and tag in k)
+                                          if sass else "not measured")
     s1 = kernels["msm_reduce_rolled"]
     log(f"S1 msm_reduce_rolled on the primary commit's level 0 ({W.shape[0]} scalars, {n_parts} partials -> "
         f"{n_seg} segments): equals msm_reduce word for word and its twin in affine form; in turns msm_reduce "

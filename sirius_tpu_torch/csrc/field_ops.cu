@@ -15,10 +15,12 @@
 
 #include "field.cuh"
 
+// REPEAT: rep > 1 (a separate instance, so the rep = 1 code has no division).
+template <bool REPEAT>
 __device__ __forceinline__ void mul_rows_row(const FieldConst& fc, const long long* a, const long long* b,
                                              long long* out, long long nb, long long rep, int K, long long i) {
   Fe x = fe_load(a, i);
-  const Fe y = fe_load(b, (rep == 1 ? i : i / rep) % nb);
+  const Fe y = fe_load(b, (REPEAT ? i / rep : i) % nb);
 #pragma unroll 1
   for (int k = 0; k < K; ++k) x = fe_mul(x, y, fc);
   fe_store(out, i, x);
@@ -27,18 +29,24 @@ __device__ __forceinline__ void mul_rows_row(const FieldConst& fc, const long lo
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 
+template <bool REPEAT>
 __global__ void mul_rows_kernel(FieldConst fc, const long long* a, const long long* b, long long* out, long long n,
                                 long long nb, long long rep, int K) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) mul_rows_row(fc, a, b, out, nb, rep, K, i);
+  if (i < n) mul_rows_row<REPEAT>(fc, a, b, out, nb, rep, K, i);
 }
 
 extern "C" int sirius_mul_rows(const uint32_t* consts, const void* a, const void* b, void* out, long long n,
                                long long nb, long long rep, int K, void* stream) {
   const int threads = 128;
   long long blocks = (n + threads - 1) / threads;
-  mul_rows_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      make_field_const(consts), (const long long*)a, (const long long*)b, (long long*)out, n, nb, rep, K);
+  const FieldConst fc = make_field_const(consts);
+  if (rep == 1)
+    mul_rows_kernel<false><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        fc, (const long long*)a, (const long long*)b, (long long*)out, n, nb, rep, K);
+  else
+    mul_rows_kernel<true><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        fc, (const long long*)a, (const long long*)b, (long long*)out, n, nb, rep, K);
   return (int)cudaGetLastError();
 }
 #endif

@@ -179,13 +179,13 @@ class Field:
         if n == 0:
             return torch.zeros(shape + (WORDS,), dtype=torch.int64, device=a.device)
         if a.device.type == "cpu" and n > CPU_MUL_CHUNK:
-            out = torch.cat([self._mul_rows(a[i : i + CPU_MUL_CHUNK], b[i : i + CPU_MUL_CHUNK])
+            out = torch.cat([self._mul_flat(a[i : i + CPU_MUL_CHUNK], b[i : i + CPU_MUL_CHUNK])
                              for i in range(0, n, CPU_MUL_CHUNK)])
         else:
-            out = self._mul_rows(a, b)
+            out = self._mul_flat(a, b)
         return out.reshape(shape + (WORDS,))
 
-    def _mul_rows(self, a, b):
+    def _mul_flat(self, a, b):
         """(n, 8) x (n, 8) -> (n, 8) Montgomery products."""
         n = a.shape[0]
         dev = a.device

@@ -25,8 +25,6 @@ from .main_gate import AssignedCell, MainGate, RegionCtx
 # reference defaults
 SANGRIA_LIMB_WIDTH = 32
 SANGRIA_LIMBS_COUNT = 10
-CYCLEFOLD_LIMB_WIDTH = 64
-CYCLEFOLD_LIMBS_COUNT = 20
 
 
 @dataclass

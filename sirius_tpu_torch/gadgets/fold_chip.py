@@ -17,7 +17,7 @@ fold natively via the ECC chip, while consistency markers / challenges / u
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Optional
 
 from ..fields.constants import CurveSpec
 from ..nifs.sangria import RelaxedPlonkInstance

@@ -336,7 +336,7 @@ class CyclefoldPublicParams:
         return pg.AccumulatorInstance(self._default_primary_incoming(), [0] * self.betas_count(), 0)
 
 
-# -- the driver ----------------------------------------------------------------------
+# -- new / next / verify --------------------------------------------------------------
 
 
 class CyclefoldIVC:
@@ -372,17 +372,9 @@ class CyclefoldIVC:
     def support_acc(self) -> sg.RelaxedPlonkTrace:
         return self.support.acc
 
-    @support_acc.setter
-    def support_acc(self, acc: sg.RelaxedPlonkTrace):
-        self.support.acc = acc
-
     @property
     def support_pub_instances(self) -> list:
         return self.support.pub_instances
-
-    @support_pub_instances.setter
-    def support_pub_instances(self, instances: list):
-        self.support.pub_instances = instances
 
     def _sfc_witness(self, inputs: CyclefoldStepInputs, marker_of_z, x0: int = 0):
         """(advice columns, z_next, x1) of the SFC for `inputs` by direct

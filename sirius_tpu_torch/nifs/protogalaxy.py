@@ -13,7 +13,7 @@ element-major (the JAX package's limb-first layout was for the TPU's lanes):
 - the pow-weighted reduce sum_i pow_i(w) leaf_i for t weight sets at once,
   as coefficient products over chunks of `_TREE_CHUNK` leaves (field sums do
   not depend on the order, so the chunking only bounds the memory);
-- the witness fold sum_j L_j w_j.
+- the witness fold sum_j L_j w_j, as w_0 + sum_{j>0} L_j (w_j - w_0).
 The F and K interpolations run on the host (`gold.fft`, `gold.coset_ifft`),
 as in the JAX package.
 
@@ -36,13 +36,12 @@ from ..fields.jfield import WORDS, Field
 from ..ops.poseidon import PoseidonHash
 from ..plonk.eval import PlonkEvalDomain
 from ..plonk.permutation import device_perm_mismatches, perm_index_vector
-from ..plonk.sps import run_sps_protocol, sps_verify
+from ..plonk.sps import sps_verify
 from ..plonk.structure import PlonkInstance, PlonkStructure, PlonkTrace, PlonkWitness
 from ..poly import lagrange
 from ..poly.univariate import UnivariatePoly
 from ..util.profiling import span
 from ..util.ro import MAX_BITS
-from .sangria import fold_witness as _axpy
 
 # commitment-coordinate decompositions: the 32 x 10 geometry of the JAX
 # package (the reference uses 64 x 20; PARITY.md)
@@ -127,9 +126,6 @@ class ProverParam:
     def absorb_into(self, ro: PoseidonHash, q: int):
         ro.absorb_field(self.pp_digest[0] % q)
         ro.absorb_field(self.pp_digest[1] % q)
-
-
-VerifierParam = ProverParam
 
 
 # -- sizes (reference `poly/mod.rs:205-269,511-545`) -----------------------------
@@ -289,8 +285,19 @@ def compute_F(ctx: PolyContext, betas: Sequence[int], delta: int, trace: PlonkTr
 
 
 def fold_witness(f: Field, witnesses: Sequence[PlonkWitness], ls: Sequence[int]) -> PlonkWitness:
-    """sum_j ls[j] * witnesses[j], round by round."""
-    return PlonkWitness([_axpy(f, ls, [w.W[r] for w in witnesses]) for r in range(len(witnesses[0].W))])
+    """sum_j ls[j] w_j, round by round, for Lagrange values ls (they sum to
+    1): w_0 + sum_{j>0} ls[j] (w_j - w_0), one product per incoming witness
+    and none where ls[j] is 0 or 1."""
+    if sum(ls) % f.p != 1:
+        raise ProtoGalaxyError("fold weights must be Lagrange values, summing to 1")
+    dev = witnesses[0].W[0].device
+    out = list(witnesses[0].W)
+    for l, w in zip(ls[1:], witnesses[1:]):
+        l %= f.p
+        if l:
+            d = [f.sub(wr, br) for wr, br in zip(w.W, witnesses[0].W)]
+            out = [f.add(o, dr if l == 1 else f.mul(dr, f.encode(l, dev))) for o, dr in zip(out, d)]
+    return PlonkWitness(out)
 
 
 def compute_G(ctx: PolyContext, betas_stroke: Sequence[int], accumulator: PlonkTrace,
@@ -298,9 +305,7 @@ def compute_G(ctx: PolyContext, betas_stroke: Sequence[int], accumulator: PlonkT
     """G(X) = sum_i pow_i(beta') f_i(sum_j L_j(X) w_j) (reference
     `poly/mod.rs:308-425`): per point X of the size-fft_points_count_G
     subgroup one witness fold, one leaf sweep and one reduce; peak memory is
-    one point's folded witness.  The Lagrange basis sums to 1, so the fold is
-    w_0 + sum_{j>0} L_j(X) (w_j - w_0): one product per incoming trace, none
-    where L_j(X) is 0 or 1."""
+    one point's folded witness."""
     S = ctx.S
     spec = S.spec
     p = spec.modulus
@@ -308,16 +313,6 @@ def compute_G(ctx: PolyContext, betas_stroke: Sequence[int], accumulator: PlonkT
     dev = accumulator.w.W[0].device
     weights = _weights(f, [list(betas_stroke)], dev)
     all_traces = [accumulator, *traces]
-    base = accumulator.w.W
-    diffs = [[f.sub(w, b) for w, b in zip(t.w.W, base)] for t in traces]
-
-    def fold(ls):
-        out = list(base)
-        for l, d in zip(ls[1:], diffs):
-            if l:
-                out = [f.add(o, di if l == 1 else f.mul(di, f.encode(l, dev))) for o, di in zip(out, d)]
-        return out
-
     pts = []
     for X in lagrange.iter_cyclic_subgroup(spec, ctx.fft_points_count_G.bit_length() - 1):
         ls = list(lagrange.iter_eval_lagrange_poly_for_cyclic_group(spec, X, ctx.lagrange_domain))
@@ -325,7 +320,8 @@ def compute_G(ctx: PolyContext, betas_stroke: Sequence[int], accumulator: PlonkT
             sum(l * (t.u.challenges[ci] if ci < len(t.u.challenges) else 0) for l, t in zip(ls, all_traces)) % p
             for ci in range(S.num_challenges)
         ]
-        pts.append(pow_weighted_reduce(f, gate_leaves(S, _challenges(f, ch, dev), fold(ls)), weights)[0])
+        folded = fold_witness(f, [t.w for t in all_traces], ls)
+        pts.append(pow_weighted_reduce(f, gate_leaves(S, _challenges(f, ch, dev), folded.W), weights)[0])
     points = f.decode(torch.stack(pts))
     return UnivariatePoly(spec, gold.fft(points, spec, inverse=True))
 
@@ -370,10 +366,6 @@ class ProtoGalaxy:
     def setup_params(pp_digest_point, S: PlonkStructure):
         coords = (0, 0) if pp_digest_point.is_identity else (pp_digest_point.x, pp_digest_point.y)
         return ProverParam(S, coords), ProverParam(S, coords)
-
-    @staticmethod
-    def generate_plonk_trace(ck, instances, witness, pp: ProverParam, ro_nark: PoseidonHash) -> PlonkTrace:
-        return run_sps_protocol(pp.S, ck, instances, witness, ro_nark)
 
     @staticmethod
     def _delta(pp, ro_acc: PoseidonHash, acc_ins: AccumulatorInstance, instances, q: int) -> int:

@@ -177,7 +177,7 @@ class VanillaFS:
         the grouped terms)."""
         f = S.field
         p = f.p
-        D = len(S.custom_gates_lookup_compressed.grouped) - 1
+        D = S.get_degree_for_folding() - 1
         if D < 1:
             return [], []
         expr = S.custom_gates_lookup_compressed.homogeneous

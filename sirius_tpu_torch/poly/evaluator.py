@@ -32,13 +32,13 @@ def evaluate_expressions(
     resolve_poly: Callable[[Query], torch.Tensor],
     resolve_challenge: Callable[[int], torch.Tensor],
     device,
-    n: int = 0,
-    resolve_support: Optional[Callable[[Query], Optional[torch.Tensor]]] = None,
+    n: int,
+    resolve_support: Callable[[Query], Optional[torch.Tensor]],
 ) -> list[torch.Tensor]:
     """resolve_poly(query) -> the rotated (n, 8) Montgomery column;
     resolve_challenge(i) -> an (8,) Montgomery scalar; resolve_support(query)
     -> the sorted rows where the rotated column may be nonzero, or None where
-    any row may be (a witness column); n, the row count, is needed with it."""
+    any row may be (a witness column); n is the row count."""
     f = field
     supports: dict[Expression, Optional[torch.Tensor]] = {}
     restricted: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
@@ -48,7 +48,7 @@ def evaluate_expressions(
         if e in supports:
             return supports[e]
         s = None
-        if isinstance(e, Poly) and resolve_support is not None:
+        if isinstance(e, Poly):
             s = resolve_support(e.query)
         elif isinstance(e, (Neg, Scaled)):
             s = support(e.arg)

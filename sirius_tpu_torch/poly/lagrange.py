@@ -46,13 +46,6 @@ def iter_eval_lagrange_poly_for_cyclic_group(
         w_i = w_i * w % p
 
 
-def eval_lagrange_poly(spec: FieldSpec, i: int, point: int, log_n: int) -> int:
-    for j, v in enumerate(iter_eval_lagrange_poly_for_cyclic_group(spec, point, log_n)):
-        if j == i:
-            return v
-    raise IndexError(i)
-
-
 def eval_vanish_polynomial(spec: FieldSpec, log_n: int, point: int) -> int:
     """Z(X) = X^n - 1 (reference `lagrange.rs:83-85`)."""
     return (pow(point, 1 << log_n, spec.modulus) - 1) % spec.modulus

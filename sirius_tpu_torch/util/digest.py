@@ -37,10 +37,6 @@ def into_curve_from_bits(curve: CurveSpec, bits_value: int) -> gold.AffinePoint:
     return gold.generator(curve).mul(bits_value % curve.scalar.modulus)
 
 
-def digest_to_curve(curve: CurveSpec, data: Iterable[bytes]) -> gold.AffinePoint:
-    return into_curve_from_bits(curve, digest_ints_to_bits(data))
-
-
 
 @lru_cache(maxsize=1 << 16)
 def _int_bytes(v: int, width: int) -> bytes:

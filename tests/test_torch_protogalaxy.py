@@ -102,7 +102,8 @@ def test_prove_and_verify_match_jax(jax_side, L):
     new_acc, proof = ProtoGalaxy.prove(ck, pp, _ro(), acc, traces)
     assert proof.poly_F.coeffs == jproof.poly_F.coeffs
     assert proof.poly_K.coeffs == jproof.poly_K.coeffs
-    assert pg_acc_digest(AccumulatorInstance.from_acc(new_acc)) == j_pg_acc_digest(jpg.AccumulatorInstance.from_acc(jnew))
+    want = j_pg_acc_digest(jpg.AccumulatorInstance.from_acc(jnew))
+    assert pg_acc_digest(AccumulatorInstance.from_acc(new_acc)) == want
     for t, j in zip(witness_to_numpy(new_acc.trace.w.W), jnew.trace.w.W):
         assert np.array_equal(t, np.asarray(j))
     ver = ProtoGalaxy.verify(vp, bn256_fr, _ro(), _ro(), AccumulatorInstance.from_acc(acc), [t.u for t in traces],
