@@ -9,14 +9,18 @@
    process must load the cached library without running nvcc.
    S2/S3: the Montgomery-multiply rate (K = 8 chains on 2^17 bn256 Fr and Fq
    elements, bit-exact against the twin) and the raw u32 multiply/add rates
-   (2^22 values x 64), each beside its paper rate for the card's SM clock.
+   (2^22 values x 64), each beside its paper rate for the card's SM clock;
+   the latency probe: one element, K = 1024 chained products, on the
+   unrolled and on the rolled product (microseconds per product).
 2. Keys: the bn256 2^20 key (b"bench-primary") and the grumpkin 2^17 key
    (b"bench-support"), derived on the device.
 3. Holds every kernel against its plain torch twin on the card, on the same
    inputs: B1 madd bit-exact on 2^16 pairs per curve and at the cross-term
-   step shape; best_msm's stages (B2 accumulate bit-exact, every B3 reduce
-   level and the B3 combine in affine form) at the support W-commit shape,
-   with kernel and twin timed there; best_msm at 2^12 against the
+   step shape; best_msm's stages (B2 accumulate and every B3 reduce level
+   bit-exact, the B3 window sums and combine in affine form) at the support
+   W-commit shape, with kernel and twin timed there, each beside its bound
+   and the serial floor of its longest dependent chain; the B3 combine at
+   msm_many's shape (5, 64, 15) the same way; best_msm at 2^12 against the
    big-integer reference; msm_many (B1 path) against best_msm (B2/B3 path)
    at the cross-term shape (5 x 2^14).
 4. Commits 2^20 bn256 scalars (drawn as bench.py draws them): reference
@@ -45,17 +49,21 @@
    launched on this path.  A flipped cell of the ProtoGalaxy accumulator's
    witness must make verify() report it; then one more next under
    torch.profiler (device events, busy share) and a clean verify().
-8. S1, the rolled-product reduce (on no path): on the level-0 partials of
-   the primary trace's 917,504-point commit it must equal B3 msm_reduce
-   word for word and its plain twin in affine form; both timed in turns,
-   with each variant's registers and local (spill) bytes per thread and
-   its SASS instruction count (`cuobjdump`, where the toolkit has it).
+8. S1, the rolled-product serial reduce (on no path): on the level-0
+   partials of the primary trace's 917,504-point commit it must equal B3
+   msm_reduce and its plain twin in affine form (msm_reduce equals the twin
+   word for word); both timed in turns.  Then every MSM kernel's registers,
+   local (spill) bytes per thread, static shared bytes and SASS instruction
+   count (`cuobjdump`, where the toolkit has it).
 
 Ends with a JSON line of kernel results (time, plain twin's time, bound
 and what sets it, launches on the path that runs the kernel: B1-B3 on the
 IVC path, B4 and the K = 1 product on the NTT path; the probes S1-S4 run on
 no path but their own timed runs, which are counted; S2's kernel
-`mul_rows` has a second entry at the NTT's K = 1 shape), the nvidia-smi
+`mul_rows` has a second entry at the NTT's K = 1 shape; B3's combine has
+one at best_msm's shape (t = 1) and one at msm_many's (t > 1), each with
+the launches of its own shapes, and its window-sum kernel an entry of its
+own), the nvidia-smi
 line, and the device JSON line.  Bounds: the larger of the
 canonical bytes moved (32 B per field element, each input read once and
 each output written once) over 3.35 TB/s and the Montgomery products the
@@ -134,6 +142,9 @@ GOLDEN_FFT8 = [
     21819324486465344547821487577044723192426134441150200363949012713744408569955,
 ]
 MADD_MULS, ADD_MULS, DBL_MULS = 11, 16, 7  # Montgomery products: csrc/curve.cuh pt_madd, pt_add, pt_dbl
+ADD_LEVELS, DBL_LEVELS = 5, 3  # dependent product levels of csrc/curve.cuh pt_add_ilp, pt_dbl_ilp
+LATENCY_K = 1024  # the latency probe's chain of dependent products on one element
+MANY_SHAPE = (CROSS_TERMS, 64, 15, 4)  # msm_many's combine: (t, W, B, c) at 4-bit windows
 
 
 def log(msg: str) -> None:
@@ -191,13 +202,54 @@ def seeded_adds(lengths) -> int:
     return int((lengths - 1).clamp(min=0).sum())
 
 
+def log2_ceil(n: int) -> int:
+    return (n - 1).bit_length() if n > 1 else 0
+
+
+def combine_chains(W: int, B: int, c: int) -> dict[str, tuple[int, int]]:
+    """(adds, doublings) on the longest dependent chain of B3's kernels
+    (csrc/msm.cu) for buckets of W windows of B: the window sums (a segment
+    walk of 2L complete adds, a suffix scan and a tree of log2 S adds each,
+    an add and log2 L doublings) and, with the grouped Horner (c (W - 1)
+    doublings, (K - 1) + (G - 1) adds), the combine."""
+    log2L = mk.window_log2(B)
+    S = -(-B // (1 << log2L))
+    K = mk.horner_group_size(W)
+    G = -(-W // K)
+    window = (2 * (1 << log2L) + 2 * log2_ceil(S) + 1, log2L)
+    return {"msm_window_sums": window, "msm_combine": (window[0] + (K - 1) + (G - 1), window[1] + c * (W - 1))}
+
+
+def combine_stage(curve, shaped, c, timed: bool) -> dict:
+    """B3's window sums and combine on (t, W, B) buckets against their twins
+    (affine form); {kernel: [max_abs_err, ms, plain_ms, Montgomery products,
+    canonical bytes]}, timed only when `timed`."""
+    t, W, B = shaped.x.shape[:3]
+    flat = lambda P: Points(*(a.reshape(-1, 8) for a in P))  # noqa: E731
+    L = 1 << mk.window_log2(B)
+    tot = mk.msm_window_sums(curve, shaped)
+    err_w = point_err(curve, flat(tot), flat(mk.msm_window_sums_plain(curve, shaped, L)))
+    check(err_w == 0, f"B3 msm_window_sums disagrees with its twin at {(t, W, B)}")
+    res = mk.msm_combine(curve, shaped, c)
+    err = point_err(curve, res, mk.msm_combine_plain(curve, shaped, c))
+    check(err == 0, f"B3 msm_combine disagrees with its twin at {(t, W, B)}")
+    sums = ADD_MULS * 2 * t * W * (B - 1)  # the running sums: 2 (B - 1) adds per window
+    return {"msm_window_sums": [err_w, gpu_ms(lambda: mk.msm_window_sums(curve, shaped)) if timed else None,
+                                gpu_ms(lambda: mk.msm_window_sums_plain(curve, shaped, L), reps=1) if timed else None,
+                                sums, 3 * FE * t * W * B + 3 * FE * t * W],
+            "msm_combine": [err, gpu_ms(lambda: mk.msm_combine(curve, shaped, c)) if timed else None,
+                            gpu_ms(lambda: mk.msm_combine_plain(curve, shaped, c), reps=1) if timed else None,
+                            sums + t * (W - 1) * (DBL_MULS * c + ADD_MULS), 3 * FE * t * W * B + 3 * FE * t]}, res
+
+
 def msm_stages(curve, S, pts, timed: bool = False):
     """best_msm's stages at the shapes it gives them: B2 accumulate, every
-    B3 reduce level, B3 combine.  Each kernel is held against its plain twin
-    on the same inputs, and the kernel's output feeds the next stage.
-    Returns (the (1, 8) Jacobian result, {kernel: [max_abs_err, ms,
-    plain_ms, Montgomery products, canonical bytes]}, the plan); times only
-    when `timed` (the reduce time and work are its first level's)."""
+    B3 reduce level, B3 window sums and combine.  Each kernel is held
+    against its plain twin on the same inputs, and the kernel's output feeds
+    the next stage.  Returns (the (1, 8) Jacobian result, {kernel:
+    [max_abs_err, ms, plain_ms, Montgomery products, canonical bytes]}, the
+    plan); times only when `timed` (the reduce time and work are its first
+    level's)."""
     plan = bucket_plan(S)
     out = {}
     acc = (curve, plan.entries, plan.chunk_start, plan.chunk_len, pts.x.contiguous(), pts.y.contiguous())
@@ -215,8 +267,8 @@ def msm_stages(curve, S, pts, timed: bool = False):
         deep = int((seg_off[1:] - seg_off[:-1]).max()) > FAN_IN
         sub_off, nxt = split_segments(seg_off, FAN_IN) if deep else (seg_off, None)
         red = mk.msm_reduce(curve, sub_off, parts)
-        err = point_err(curve, red, mk.msm_reduce_plain(curve, sub_off, parts))
-        check(err == 0, f"B3 msm_reduce level {level} disagrees with its twin at {S.shape[0]} points")
+        err = word_err(red, mk.msm_reduce_plain(curve, sub_off, parts))
+        check(err == 0, f"B3 msm_reduce level {level} is not bit-exact against its twin at {S.shape[0]} points")
         red_err = max(red_err, err)
         if level == 0:
             args = (curve, sub_off, parts)
@@ -232,13 +284,8 @@ def msm_stages(curve, S, pts, timed: bool = False):
     out["msm_reduce"][0] = red_err
 
     shaped = Points(*(b.reshape(1, plan.W, plan.B, 8) for b in parts))
-    res = mk.msm_combine(curve, shaped, plan.c)
-    err = point_err(curve, res, mk.msm_combine_plain(curve, shaped, plan.c))
-    check(err == 0, f"B3 msm_combine disagrees with its twin at {S.shape[0]} points")
-    out["msm_combine"] = [err, gpu_ms(lambda: mk.msm_combine(curve, shaped, plan.c)) if timed else None,
-                          gpu_ms(lambda: mk.msm_combine_plain(curve, shaped, plan.c), reps=1) if timed else None,
-                          ADD_MULS * 2 * plan.W * (plan.B - 1) + (plan.W - 1) * (DBL_MULS * plan.c + ADD_MULS),
-                          3 * FE * plan.W * plan.B + 3 * FE]
+    comb, res = combine_stage(curve, shaped, plan.c, timed)
+    out.update(comb)
     return res, out, plan
 
 
@@ -399,6 +446,20 @@ def main() -> int:
             record("raw_u32", "sirius_tpu_torch/csrc/microbench.cu", "scripts/tpu_microbench.py:102", err, ms,
                    plain, S3_N * S3_REPS, 8 * S3_N, per_mul=1)
     probe_launches["raw_u32"] = mb.raw_u32.launches
+
+    # the latency of one dependent product: one thread, K = LATENCY_K (S2's kernel)
+    a1, b1 = random_elements(rng, 1), random_elements(rng, 1)
+    lat = {}
+    for rolled in (False, True):
+        err = word_err([mb.mul_chain(FR, a2, b2, S2_K, rolled=rolled)], [mb.mul_chain_plain(FR, a2, b2, S2_K)])
+        check(err == 0, f"mul_chain (rolled={rolled}) at K = {S2_K} is not bit-exact")
+        lat[rolled] = gpu_ms(lambda: mb.mul_chain(FR, a1, b1, LATENCY_K, rolled=rolled), reps=5) * 1e3 / LATENCY_K
+    check(torch.equal(mb.mul_chain(FR, a1, b1, LATENCY_K), mb.mul_chain(FR, a1, b1, LATENCY_K, rolled=True)),
+          "the rolled and unrolled chains differ")
+    latency_us = lat[True]  # B3's window sums, Horner and reduce run on the rolled product
+    log(f"latency probe (one element, K = {LATENCY_K} dependent bn256 Fr products): unrolled {lat[False]:.6f} us, "
+        f"rolled {lat[True]:.6f} us per product = {lat[False] * clock_mhz:.0f} / {lat[True] * clock_mhz:.0f} SM "
+        f"cycles at the max clock; both bit-exact at K = {S2_K}  [{card}]")
     log(f"launch counts of the probes' timed runs: {probe_launches}")
     for name, count in probe_launches.items():
         check(count > 0, f"probe {name} never launched in its timed runs")
@@ -459,13 +520,31 @@ def main() -> int:
     pw = Points(*(c[:W_COMMIT_N] for c in ck2.points))
     res, stage, plan = msm_stages(GRUMPKIN, Sw, pw, timed=True)
     check(GRUMPKIN.decode(res)[0] == best_msm(GRUMPKIN, Sw, pw), "W-commit stages disagree with best_msm")
+    # B3's combine at msm_many's shape, on doubled key points as bucket sums
+    t, W, B, c = MANY_SHAPE
+    idx = torch.from_numpy(rng.integers(0, len(ck2), size=t * W * B)).to(dev)
+    many = Points(*(a.reshape(t, W, B, 8) for a in GRUMPKIN.dbl(Points(*(k[idx] for k in ck2.points)))))
+    many_stage, _ = combine_stage(GRUMPKIN, many, c, timed=True)
+    stage["msm_combine_many"] = many_stage["msm_combine"]
     for name, (err, ms, plain, muls, nbytes) in stage.items():
         record(name, "sirius_tpu_torch/csrc/msm.cu",
                "sirius_tpu/ops/pallas_msm.py:50" if name == "msm_accumulate" else "sirius_tpu/ops/pallas_msm.py:173",
                err, ms, plain, muls, nbytes)
-    log(f"B2/B3 at {W_COMMIT_N} grumpkin points (c={plan.c}, W={plan.W}, B={plan.B}): every stage agrees "
-        "with its twin; " + ", ".join(f"{k} {v[1]:.4f} ms (plain {v[2]:.4f} ms)" for k, v in stage.items())
-        + f"  [{card}]")
+    log(f"B2/B3 at {W_COMMIT_N} grumpkin points (c={plan.c}, W={plan.W}, B={plan.B}) and the combine at "
+        f"msm_many's {MANY_SHAPE[:3]}: every stage agrees with its twin; "
+        + ", ".join(f"{k} {v[1]:.6f} ms (plain {v[2]:.4f} ms, bound {kernels[k]['bound_ms']:.7f} ms)"
+                    for k, v in stage.items()) + f"  [{card}]")
+    chain = {"msm_reduce": (log2_ceil(FAN_IN), 0), **combine_chains(plan.W, plan.B, plan.c)}
+    chain["msm_combine_many"] = combine_chains(*MANY_SHAPE[1:])["msm_combine"]
+    floors = []
+    for k, (adds, dbls) in chain.items():
+        muls, levels = ADD_MULS * adds + DBL_MULS * dbls, ADD_LEVELS * adds + DBL_LEVELS * dbls
+        floors.append(f"{k} ({adds} adds, {dbls} doublings): {muls} products x {latency_us:.6f} us = "
+                      f"{muls * latency_us / 1e3:.6f} ms, {levels} levels x {latency_us:.6f} us = "
+                      f"{levels * latency_us / 1e3:.6f} ms (kernel {stage[k][1]:.6f} ms, bound "
+                      f"{kernels[k]['bound_ms']:.7f} ms)")
+    log("serial floors of the longest dependent chain at the rolled product's latency, its products one after "
+        "another and its dependency levels one after another: " + "; ".join(floors) + f"  [{card}]")
 
     # best_msm at 2^12 against the big-integer reference
     n = 1 << MSM_CHECK_LOG
@@ -591,7 +670,7 @@ def main() -> int:
 
     # ---- the support-fold chain (launch counts from here) -------------------------------------
     S_sup = support_structure()
-    counters = (madd_mod.madd_batch, mk.msm_accumulate, mk.msm_reduce, mk.msm_combine)
+    counters = (madd_mod.madd_batch, mk.msm_accumulate, mk.msm_reduce, mk.msm_window_sums, mk.msm_combine)
     for fn in counters:
         fn.launches = 0
     chain = SupportFoldChain(ck2, S_sup)
@@ -632,6 +711,7 @@ def main() -> int:
     profiler.enable()
     for fn in counters:
         fn.launches = 0
+    mk.msm_combine.shapes = {}
     t0 = time.perf_counter()
     pp = CyclefoldPublicParams(TrivialStepCircuit(arity=1), IVC_K, ck1, ck2)
     t1 = synced()
@@ -654,9 +734,13 @@ def main() -> int:
     log(f"IVC verify: [] in {dt:.4f} s; spans: " + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items())
         + f"  [{card}]")
     ivc_launches = {fn.__name__: fn.launches for fn in counters}
-    log(f"launch counts on the IVC path (pp, new, {IVC_STEPS} x next, verify): {ivc_launches}")
+    combine_shapes = dict(mk.msm_combine.shapes)
+    log(f"launch counts on the IVC path (pp, new, {IVC_STEPS} x next, verify): {ivc_launches}; msm_combine by "
+        f"(t, W, B): {combine_shapes}")
     for name, count in ivc_launches.items():
         check(count > 0, f"kernel {name} never launched on the IVC path")
+    check(any(shape[0] == 1 for shape in combine_shapes) and any(shape[0] > 1 for shape in combine_shapes),
+          f"msm_combine did not launch at both best_msm's and msm_many's shapes: {combine_shapes}")
     log(f"IVC digests after {IVC_STEPS} steps: pg_acc_digest "
         f"{pg_acc_digest(AccumulatorInstance.from_acc(ivc.self_acc))}, "
         f"sangria_acc_digest {sangria_acc_digest(ivc.support_acc.U)}, pp digest {pp.digest_hex()}")
@@ -684,10 +768,11 @@ def main() -> int:
     sub_off = split_segments(plan.seg_off, FAN_IN)[0] if deep else plan.seg_off
     args = (BN256_G1, sub_off, parts)
     rolled = mk.msm_reduce_rolled(*args)
-    err = word_err(rolled, mk.msm_reduce(*args))
+    tree = mk.msm_reduce(*args)
+    check(word_err(tree, mk.msm_reduce_plain(*args)) == 0,
+          "B3 msm_reduce is not bit-exact against its twin at the primary commit's level 0")
+    err = point_err(BN256_G1, rolled, tree)
     check(err == 0, "S1 msm_reduce_rolled differs from msm_reduce at the primary commit's level 0")
-    check(point_err(BN256_G1, rolled, mk.msm_reduce_rolled_plain(*args)) == 0,
-          "S1 msm_reduce_rolled disagrees with its twin")
     mk.msm_reduce_rolled.launches = 0
     ms_ref = gpu_ms(lambda: mk.msm_reduce(*args), reps=10)
     ms_rolled = gpu_ms(lambda: mk.msm_reduce_rolled(*args), reps=10)
@@ -700,19 +785,23 @@ def main() -> int:
     record("msm_reduce_rolled", "sirius_tpu_torch/csrc/msm.cu", "scripts/msm_lab2.py:18", err,
            (ms_rolled + ms_rolled2) / 2, plain, ADD_MULS * seeded_adds(sub_off[1:] - sub_off[:-1]),
            3 * FE * n_parts + 4 * (n_seg + 1) + 3 * FE * n_seg)
-    attrs = {"msm_reduce": mk.reduce_kernel_attrs(False), "msm_reduce_rolled": mk.reduce_kernel_attrs(True)}
-    sass = sass_instructions()
-    for key, tag in (("msm_reduce", "ILb0E"), ("msm_reduce_rolled", "ILb1E")):
-        attrs[key]["sassInstructions"] = (sum(v for k, v in sass.items() if "msm_reduce_kernel" in k and tag in k)
-                                          if sass else "not measured")
     s1 = kernels["msm_reduce_rolled"]
     log(f"S1 msm_reduce_rolled on the primary commit's level 0 ({W.shape[0]} scalars, {n_parts} partials -> "
-        f"{n_seg} segments): equals msm_reduce word for word and its twin in affine form; in turns msm_reduce "
-        f"{ms_ref:.6f} ms, rolled {ms_rolled:.6f} ms, rolled {ms_rolled2:.6f} ms, msm_reduce {ms_ref2:.6f} ms; "
-        f"plain {plain:.4f} ms; bound {s1['bound_ms']:.6f} ms ({s1['bound_by']}); per thread {attrs}  [{card}]")
+        f"{n_seg} segments): equals msm_reduce and its twin in affine form, msm_reduce equals the twin word for "
+        f"word; in turns msm_reduce {ms_ref:.6f} ms, rolled {ms_rolled:.6f} ms, rolled {ms_rolled2:.6f} ms, "
+        f"msm_reduce {ms_ref2:.6f} ms; plain {plain:.4f} ms; bound {s1['bound_ms']:.6f} ms ({s1['bound_by']})  "
+        f"[{card}]")
+    sass = sass_instructions()
+    for name in mk.MSM_KERNELS:
+        attrs = mk.msm_kernel_attrs(name)
+        attrs["sassInstructions"] = (sum(v for k, v in sass.items() if re.search(rf"\d{name}_kernel", k))
+                                     if sass else "not measured")
+        log(f"{name}: {attrs}")
 
-    for key, fn in zip(("madd", "msm_accumulate", "msm_reduce", "msm_combine"), counters):
+    for key, fn in zip(("madd", "msm_accumulate", "msm_reduce", "msm_window_sums"), counters):
         kernels[key]["launches"] = ivc_launches[fn.__name__]
+    kernels["msm_combine"]["launches"] = sum(n for shape, n in combine_shapes.items() if shape[0] == 1)
+    kernels["msm_combine_many"]["launches"] = sum(n for shape, n in combine_shapes.items() if shape[0] > 1)
     kernels["col_ntt"]["launches"] = ntt_launches["col_ntt"]
     kernels["mul_rows"]["launches"] = ntt_launches["mul_rows"]
     for name, count in probe_launches.items():

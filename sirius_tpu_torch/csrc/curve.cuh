@@ -100,6 +100,74 @@ __device__ __forceinline__ Pt pt_add(const Pt& P, const Pt& Q, const FieldConst&
   return pt_add_t<false>(P, Q, fc);
 }
 
+// k_dbl with its products in dependency levels (fe_mul_n): 3 + 3 + 1
+// products, so a chain of doublings waits ~3 product latencies per
+// doubling instead of 7.  The same words as pt_dbl.
+__device__ __forceinline__ Pt pt_dbl_ilp(const Pt& P, const FieldConst& fc) {
+  Fe o1[3];
+  const Fe a1[3] = {P.x, P.y, P.y}, b1[3] = {P.x, P.y, P.z};
+  fe_mul_n<3>(o1, a1, b1, fc);  // A = x^2, B = y^2, y z
+  const Fe& A = o1[0];
+  const Fe& B = o1[1];
+  const Fe xb = fe_add(P.x, B, fc);
+  const Fe E = fe_add(fe_double(A, fc), A, fc);
+  Fe o2[3];
+  const Fe a2[3] = {B, xb, E};
+  fe_mul_n<3>(o2, a2, a2, fc);  // C = B^2, T = (x + B)^2, F = E^2
+  const Fe& C = o2[0];
+  const Fe D = fe_double(fe_sub(fe_sub(o2[1], A, fc), C, fc), fc);
+  Pt r;
+  r.x = fe_sub(o2[2], fe_double(D, fc), fc);
+  const Fe C8 = fe_double(fe_double(fe_double(C, fc), fc), fc);
+  Fe o3[1];
+  const Fe a3[1] = {E}, b3[1] = {fe_sub(D, r.x, fc)};
+  fe_mul_n<1>(o3, a3, b3, fc);
+  r.y = fe_sub(o3[0], C8, fc);
+  r.z = fe_double(o1[2], fc);
+  return r;
+}
+
+// k_add_complete with its products in dependency levels (fe_mul_n):
+// 5 + 4 + 3 + 2 + 2 products, ~5 product latencies instead of 16.  The same
+// words as pt_add.
+__device__ __forceinline__ Pt pt_add_ilp(const Pt& P, const Pt& Q, const FieldConst& fc) {
+  Fe o1[5];
+  const Fe a1[5] = {P.z, Q.z, P.y, Q.y, P.z}, b1[5] = {P.z, Q.z, Q.z, P.z, Q.z};
+  fe_mul_n<5>(o1, a1, b1, fc);  // z1z1, z2z2, y1 z2, y2 z1, z1 z2
+  Fe o2[4];
+  const Fe a2[4] = {P.x, Q.x, o1[2], o1[3]}, b2[4] = {o1[1], o1[0], o1[1], o1[0]};
+  fe_mul_n<4>(o2, a2, b2, fc);  // u1, u2, s1, s2
+  const Fe& u1 = o2[0];
+  const Fe& s1 = o2[2];
+  const Fe h = fe_sub(o2[1], u1, fc);
+  const Fe r = fe_sub(o2[3], s1, fc);
+  Fe o3[3];
+  const Fe a3[3] = {h, r, o1[4]}, b3[3] = {h, r, h};
+  fe_mul_n<3>(o3, a3, b3, fc);  // hh, r^2, z3
+  Fe o4[2];
+  const Fe a4[2] = {h, u1}, b4[2] = {o3[0], o3[0]};
+  fe_mul_n<2>(o4, a4, b4, fc);  // hhh, v
+  const Fe& hhh = o4[0];
+  const Fe& v = o4[1];
+  Pt out;
+  out.x = fe_sub(fe_sub(o3[1], hhh, fc), fe_double(v, fc), fc);
+  Fe o5[2];
+  const Fe a5[2] = {r, s1}, b5[2] = {fe_sub(v, out.x, fc), hhh};
+  fe_mul_n<2>(o5, a5, b5, fc);
+  out.y = fe_sub(o5[0], o5[1], fc);
+  out.z = o3[2];
+
+  bool p_inf = fe_is_zero(P.z);
+  bool q_inf = fe_is_zero(Q.z);
+  bool h_zero = fe_is_zero(h);
+  bool r_zero = fe_is_zero(r);
+  if (h_zero && r_zero && !p_inf && !q_inf) out = pt_dbl_ilp(P, fc);
+  if (h_zero && !r_zero && !p_inf && !q_inf) out = pt_identity(fc);
+  if (q_inf) out = P;
+  if (p_inf) out = Q;
+  return out;
+}
+
 // k_madd_incomplete: Q = (qx, qy) affine, not the identity, Q != +-P;
 // P may be the identity, which gives Q.
 __device__ __forceinline__ Pt pt_madd(const Pt& P, const Fe& qx, const Fe& qy, const FieldConst& fc) {

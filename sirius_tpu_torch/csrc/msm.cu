@@ -11,33 +11,71 @@
 // digits by bucket with `torch.sort`, so every bucket is one contiguous
 // segment, cut into fixed-length chunks.
 //
-//   msm_accumulate (B2)  one thread per chunk walks its points with the
-//                        incomplete mixed add (y negated for a negative
-//                        signed digit) and writes one Jacobian partial.
-//   msm_reduce     (B3)  one thread per (window, bucket) segment sums its
-//                        chunk partials with the complete add.
-//   msm_combine    (B3)  one block per MSM, one thread per window: the
-//                        running sum gives sum_v v*B_v; then thread 0 runs
-//                        the Horner combine (c doublings per window) into one
-//                        Jacobian point.
-//   msm_reduce_rolled (S1) msm_reduce with the rolled CIOS product
-//                        (`csrc/field.cuh` fe_mul_t<true>): replaces
-//                        `scripts/msm_lab2.py:_merge_call_variant`, B3's merge
-//                        kept for its smaller code (the TPU's
-//                        `KF(roll_mul=True)`).  Same function and add order as
-//                        msm_reduce, so the two agree word for word; on the
-//                        H100 the rolled loop trades registers and
-//                        instruction-cache footprint for loop overhead.
+//   msm_accumulate  (B2)  one thread per chunk walks its points with the
+//                         incomplete mixed add (y negated for a negative
+//                         signed digit) and writes one Jacobian partial.
+//   msm_reduce      (B3)  segments of at most FAN_IN = 32 partials, summed
+//                         by a pairwise tree in shared memory: a block
+//                         takes the segments that start in its span of 128
+//                         partials (at most 159 partials, 160 threads), one
+//                         thread per partial; level h adds element i + h of
+//                         a segment onto element i < h, h = 16 .. 1, the
+//                         halving order of the plain twin's `sum_reduce`
+//                         over the segment padded to a power of two, so the
+//                         two agree word for word.
+//   msm_window_sums (B3)  one block per (MSM, window), one thread per
+//                         segment of L buckets (L a power of two, S =
+//                         ceil(B / L) <= 128 segments, the last ragged):
+//                         thread s walks its buckets top-down for its run
+//                         R_s and local weighted sum T_s = sum (v - sL) B_v;
+//                         a log-depth suffix scan in shared memory gives
+//                         P_s = sum_{s' >= s} R_s', each thread adds L * P_s
+//                         (log2 L doublings) onto T_s, and a tree sums the
+//                         S results: sum_v v B_v = sum_s T_s + L sum_s s R_s.
+//   msm_horner      (B3)  one block per MSM: the window totals are staged
+//                         in shared memory; thread j runs the Horner of its
+//                         group of K ~ sqrt(W) windows (the lowest group
+//                         ragged), then thread 0 the Horner over the groups
+//                         (c K doublings per group).  The chain is c (W - 1)
+//                         doublings, as before, but (K - 1) + (G - 1) adds
+//                         instead of W - 1.
+//   msm_reduce_rolled (S1) one thread per segment walks its partials with
+//                         the complete add on the rolled CIOS product
+//                         (`csrc/field.cuh` fe_mul_t<true>): replaces
+//                         `scripts/msm_lab2.py:_merge_call_variant`, B3's
+//                         merge kept for its smaller code (the TPU's
+//                         `KF(roll_mul=True)`).  Its add order is serial, so
+//                         it equals msm_reduce in affine form only.
 //
-// What bounds it on the H100: accumulate is ~W*n mixed adds of ~1,400
+// What bounds them on the H100: accumulate is ~W*n mixed adds of ~1,400
 // integer multiply-adds each (integer-multiply bound) plus a random 128-byte
 // gather of each point per window (the key stays in the 50 MB L2 up to
 // ~2^17 points); chunks make the work per thread uniform whatever the digit
-// skew.  reduce and combine are latency bound on few threads and small next
-// to accumulate at the commit sizes of the main path.  Dead (zero) digits
-// never enter a chunk, so no padding reaches the incomplete add.
+// skew.  reduce, window sums and Horner do little work (a few hundred to a
+// few ten thousand complete adds) on dependent chains: the latency of one
+// thread's chain of Montgomery products bounds them, not the card's rate
+// (one dependent product takes ~1,600 SM cycles unrolled, ~2,000 rolled:
+// chip_smoke's latency probe).  So they cut the chain (reduce: 5 adds
+// instead of up to 31; window sums: 2L + 2 log2 S + 1 adds and log2 L
+// doublings instead of 2B adds; Horner: (K - 1) + (G - 1) adds instead of
+// W - 1), fill more SMs (reduce: ~900 blocks of 5 warps at the primary
+// commit's first level), keep the values a chain reads in shared memory,
+// and run the point ops with their independent products interleaved
+// (`csrc/curve.cuh` pt_add_ilp, pt_dbl_ilp: 5 and 3 dependency levels
+// instead of 16 and 7 products) on the rolled product's loop body, which
+// keeps the code small (the unrolled complete add inlines ~4,600
+// instructions at every call site; S1's rolled serial reduce ran in 0.60x
+// the unrolled one's time).  The Horner's c (W - 1) doublings remain its
+// floor.  Dead (zero) digits never enter a chunk, so no padding reaches the
+// incomplete add.
 
 #include "curve.cuh"
+
+constexpr int REDUCE_SPAN = 128;                      // segment starts per reduce block
+constexpr int REDUCE_MAX_SEG = 32;                    // longest segment the tree takes (FAN_IN)
+constexpr int REDUCE_THREADS = REDUCE_SPAN + REDUCE_MAX_SEG;  // 127 + 32 partials at most
+constexpr int WINDOW_THREADS = 128;                   // most segments per window
+constexpr int HORNER_GROUPS = 32;                     // most window groups per MSM
 
 __device__ __forceinline__ void accumulate_row(const FieldConst& fc, const long long* entries,
                                                const long long* chunk_start, const long long* chunk_len,
@@ -56,46 +94,64 @@ __device__ __forceinline__ void accumulate_row(const FieldConst& fc, const long 
   pt_store(ox, oy, oz, i, acc);
 }
 
-template <bool ROLLED>
-__device__ __forceinline__ void reduce_row_t(const FieldConst& fc, const long long* seg_off, const long long* px,
-                                             const long long* py, const long long* pz, long long* ox,
-                                             long long* oy, long long* oz, long long i) {
+// S1: the serial walk of segment i with the rolled product.
+__device__ __forceinline__ void reduce_row_rolled(const FieldConst& fc, const long long* seg_off,
+                                                  const long long* px, const long long* py, const long long* pz,
+                                                  long long* ox, long long* oy, long long* oz, long long i) {
   Pt acc = pt_identity(fc);
-  for (long long k = seg_off[i]; k < seg_off[i + 1]; ++k) acc = pt_add_t<ROLLED>(acc, pt_load(px, py, pz, k), fc);
+  for (long long k = seg_off[i]; k < seg_off[i + 1]; ++k) acc = pt_add_t<true>(acc, pt_load(px, py, pz, k), fc);
   pt_store(ox, oy, oz, i, acc);
 }
 
-__device__ __forceinline__ void reduce_row(const FieldConst& fc, const long long* seg_off, const long long* px,
-                                           const long long* py, const long long* pz, long long* ox,
-                                           long long* oy, long long* oz, long long i) {
-  reduce_row_t<false>(fc, seg_off, px, py, pz, ox, oy, oz, i);
+// First index i in [0, n) with v[i] >= x (n when there is none).
+__device__ __forceinline__ long long lower_bound(const long long* v, long long n, long long x) {
+  long long lo = 0, hi = n;
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    if (v[mid] < x) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
 }
 
-// Window total sum_{v=1..B} v * B_v of window w of MSM m, via the running sum.
-__device__ __forceinline__ void combine_window(const FieldConst& fc, const long long* bx, const long long* by,
-                                               const long long* bz, long long* tx, long long* ty,
-                                               long long* tz, int W, int B, int m, int w) {
-  Pt run = pt_identity(fc);
-  Pt tot = pt_identity(fc);
-  const long long base = ((long long)m * W + w) * B;
-  for (int v = B; v >= 1; --v) {
-    run = pt_add(run, pt_load(bx, by, bz, base + v - 1), fc);
-    tot = pt_add(tot, run, fc);
-  }
-  pt_store(tx, ty, tz, (long long)m * W + w, tot);
+// n doublings (a rolled loop: one copy of the doubling's code).
+__device__ __forceinline__ Pt pt_dbl_n(Pt P, int n, const FieldConst& fc) {
+#pragma unroll 1
+  for (int k = 0; k < n; ++k) P = pt_dbl_ilp(P, fc);
+  return P;
 }
 
-// Horner over the window totals of MSM m, most significant window first.
-__device__ __forceinline__ void combine_horner(const FieldConst& fc, const long long* tx, const long long* ty,
-                                               const long long* tz, long long* ox, long long* oy,
-                                               long long* oz, int W, int c, int m) {
-  const long long base = (long long)m * W;
-  Pt acc = pt_load(tx, ty, tz, base + W - 1);
-  for (int w = W - 2; w >= 0; --w) {
-    for (int k = 0; k < c; ++k) acc = pt_dbl(acc, fc);
-    acc = pt_add(acc, pt_load(tx, ty, tz, base + w), fc);
+// Segment s of a window's buckets b[base .. base + B): buckets v = sL + 1 ..
+// min(sL + L, B) walked top-down; run = R_s = sum B_v, tot = T_s = sum (v - sL) B_v.
+__device__ __forceinline__ void window_segment(const FieldConst& fc, const long long* bx, const long long* by,
+                                               const long long* bz, long long base, int B, int L, int s, Pt& run,
+                                               Pt& tot) {
+  run = pt_identity(fc);
+  tot = pt_identity(fc);
+  const int lo = s * L;
+  const int hi = lo + L < B ? lo + L : B;
+#pragma unroll 1
+  for (int v = hi; v > lo; --v) {
+    run = pt_add_ilp(run, pt_load(bx, by, bz, base + v - 1), fc);
+    tot = pt_add_ilp(tot, run, fc);
   }
-  pt_store(ox, oy, oz, m, acc);
+}
+
+// Horner over totals t[lo .. hi), most significant first: sum 2^(c (w - lo)) t[w].
+__device__ __forceinline__ Pt horner_group(const FieldConst& fc, const Pt* t, int lo, int hi, int c) {
+  Pt acc = t[hi - 1];
+#pragma unroll 1
+  for (int w = hi - 2; w >= lo; --w) acc = pt_add_ilp(pt_dbl_n(acc, c, fc), t[w], fc);
+  return acc;
+}
+
+// Window range [lo, hi) of group j of W windows in groups of K, the lowest
+// group holding the r = W - (G - 1) K windows left over.
+__device__ __forceinline__ void horner_range(int W, int K, int j, int& lo, int& hi) {
+  const int G = (W + K - 1) / K;
+  const int r = W - (G - 1) * K;
+  lo = j == 0 ? 0 : r + (j - 1) * K;
+  hi = j == 0 ? r : lo + K;
 }
 
 #ifdef __CUDACC__
@@ -108,22 +164,121 @@ __global__ void msm_accumulate_kernel(FieldConst fc, const long long* entries, c
   if (i < n_chunks) accumulate_row(fc, entries, chunk_start, chunk_len, px, py, ox, oy, oz, i);
 }
 
-template <bool ROLLED>
-__global__ void msm_reduce_kernel(FieldConst fc, const long long* seg_off, const long long* px,
-                                  const long long* py, const long long* pz, long long* ox, long long* oy,
-                                  long long* oz, long long n_seg) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n_seg) reduce_row_t<ROLLED>(fc, seg_off, px, py, pz, ox, oy, oz, i);
+__global__ void __launch_bounds__(REDUCE_THREADS) msm_reduce_kernel(FieldConst fc, const long long* seg_off,
+                                                                    const long long* px, const long long* py,
+                                                                    const long long* pz, long long* ox,
+                                                                    long long* oy, long long* oz, long long n_seg) {
+  __shared__ Pt sh[REDUCE_THREADS];
+  const int tid = threadIdx.x;
+  // empty segments give the identity (the tree below never sees them)
+  for (long long q = (long long)blockIdx.x * blockDim.x + tid; q < n_seg; q += (long long)gridDim.x * blockDim.x)
+    if (seg_off[q] == seg_off[q + 1]) pt_store(ox, oy, oz, q, pt_identity(fc));
+
+  // the run of the segments that start in [span0, span0 + REDUCE_SPAN)
+  const long long span0 = (long long)blockIdx.x * REDUCE_SPAN;
+  const long long run_start = seg_off[lower_bound(seg_off, n_seg, span0)];
+  const long long run_end = seg_off[lower_bound(seg_off, n_seg, span0 + REDUCE_SPAN)];
+  const long long p = run_start + tid;
+  const bool live = p < run_end;
+  long long s = 0, start = 0, end = 0;
+  Pt x = pt_identity(fc);
+  if (live) {
+    s = lower_bound(seg_off, n_seg, p + 1) - 1;  // the last segment starting at or before p
+    start = seg_off[s];
+    end = seg_off[s + 1];
+    x = pt_load(px, py, pz, p);
+  }
+  sh[tid] = x;
+  __syncthreads();
+#pragma unroll 1
+  for (int h = REDUCE_MAX_SEG / 2; h >= 1; h >>= 1) {
+    // offset p - start < h takes offset + h when it lies in the segment; reads
+    // at offsets [h, 2h), writes at [0, h): no hazard inside a level
+    const bool take = live && p - start < h && p + h < end;
+    if (take) {
+      x = pt_add_ilp(x, sh[tid + h], fc);
+      sh[tid] = x;
+    }
+    __syncthreads();
+  }
+  if (live && p == start) pt_store(ox, oy, oz, s, x);
 }
 
-__global__ void msm_combine_kernel(FieldConst fc, const long long* bx, const long long* by, const long long* bz,
-                                   long long* tx, long long* ty, long long* tz, long long* ox, long long* oy,
-                                   long long* oz, int W, int B, int c) {
+__global__ void msm_reduce_rolled_kernel(FieldConst fc, const long long* seg_off, const long long* px,
+                                         const long long* py, const long long* pz, long long* ox, long long* oy,
+                                         long long* oz, long long n_seg) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n_seg) reduce_row_rolled(fc, seg_off, px, py, pz, ox, oy, oz, i);
+}
+
+__global__ void __launch_bounds__(WINDOW_THREADS) msm_window_sums_kernel(FieldConst fc, const long long* bx,
+                                                                         const long long* by, const long long* bz,
+                                                                         long long* tx, long long* ty,
+                                                                         long long* tz, int B, int L, int log2L) {
+  __shared__ Pt sh[WINDOW_THREADS];
+  const long long mw = blockIdx.x;  // MSM * W + window
+  const int s = threadIdx.x;
+  const int S = (B + L - 1) / L;
+  Pt run = pt_identity(fc), tot = pt_identity(fc);
+  if (s < S) window_segment(fc, bx, by, bz, mw * B, B, L, s, run, tot);
+
+  // suffix scan: run <- P_s = sum_{s' >= s} R_s'
+  sh[s] = run;
+  __syncthreads();
+#pragma unroll 1
+  for (int h = 1; h < S; h <<= 1) {
+    const bool take = s + h < S;
+    Pt q = run;
+    if (take) q = sh[s + h];
+    __syncthreads();
+    if (take) {
+      run = pt_add_ilp(run, q, fc);
+      sh[s] = run;
+    }
+    __syncthreads();
+  }
+  // X_s = T_s + L P_s for s >= 1, X_0 = T_0; then sum_s X_s by a tree
+  if (s >= 1 && s < S) tot = pt_add_ilp(tot, pt_dbl_n(run, log2L, fc), fc);
+  sh[s] = tot;
+  __syncthreads();
+#pragma unroll 1
+  for (int h = 1; h < S; h <<= 1) {
+    // reads at s + h with s = 0 mod 2h, writes at s = 0 mod 2h: no hazard inside a level
+    if ((s & (2 * h - 1)) == 0 && s + h < S) {
+      tot = pt_add_ilp(tot, sh[s + h], fc);
+      sh[s] = tot;
+    }
+    __syncthreads();
+  }
+  if (s == 0) pt_store(tx, ty, tz, mw, tot);
+}
+
+__global__ void __launch_bounds__(HORNER_GROUPS) msm_horner_kernel(FieldConst fc, const long long* tx,
+                                                                   const long long* ty, const long long* tz,
+                                                                   long long* ox, long long* oy, long long* oz,
+                                                                   int W, int c, int K) {
+  extern __shared__ Pt totals[];  // the W window totals of this MSM
+  __shared__ Pt groups[HORNER_GROUPS];
   const int m = blockIdx.x;
-  const int w = threadIdx.x;
-  if (w < W) combine_window(fc, bx, by, bz, tx, ty, tz, W, B, m, w);
-  __syncthreads();  // window totals of this block visible to thread 0
-  if (w == 0) combine_horner(fc, tx, ty, tz, ox, oy, oz, W, c, m);
+  const int j = threadIdx.x;
+  for (int w = j; w < W; w += blockDim.x) totals[w] = pt_load(tx, ty, tz, (long long)m * W + w);
+  __syncthreads();
+  const int G = (W + K - 1) / K;
+  if (j < G) {
+    int lo, hi;
+    horner_range(W, K, j, lo, hi);
+    groups[j] = horner_group(fc, totals, lo, hi, c);
+  }
+  __syncthreads();
+  if (j == 0) {
+    int lo0, r;
+    horner_range(W, K, 0, lo0, r);
+    Pt acc = groups[G - 1];
+#pragma unroll 1
+    for (int g = G - 2; g >= 1; --g) acc = pt_add_ilp(pt_dbl_n(acc, c * K, fc), groups[g], fc);
+    if (G > 1) acc = pt_add_ilp(pt_dbl_n(acc, c * r, fc), groups[0], fc);
+    pt_store(ox, oy, oz, m, acc);
+  }
 }
 
 extern "C" int sirius_msm_accumulate(const uint32_t* consts, const void* entries, const void* chunk_start,
@@ -138,47 +293,74 @@ extern "C" int sirius_msm_accumulate(const uint32_t* consts, const void* entries
   return (int)cudaGetLastError();
 }
 
-template <bool ROLLED>
-static int launch_reduce(const uint32_t* consts, const void* seg_off, const void* px, const void* py, const void* pz,
-                         void* ox, void* oy, void* oz, long long n_seg, void* stream) {
-  const int threads = 128;
-  long long blocks = (n_seg + threads - 1) / threads;
-  msm_reduce_kernel<ROLLED><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+// n_parts: the partials' count, seg_off[n_seg]; every segment holds at most
+// REDUCE_MAX_SEG of them (the wrapper checks).
+extern "C" int sirius_msm_reduce(const uint32_t* consts, const void* seg_off, const void* px, const void* py,
+                                 const void* pz, void* ox, void* oy, void* oz, long long n_seg, long long n_parts,
+                                 void* stream) {
+  long long blocks = (n_parts + REDUCE_SPAN - 1) / REDUCE_SPAN;
+  if (blocks < 1) blocks = 1;  // all segments empty: one block writes their identities
+  msm_reduce_kernel<<<(unsigned)blocks, REDUCE_THREADS, 0, (cudaStream_t)stream>>>(
       make_field_const(consts), (const long long*)seg_off, (const long long*)px, (const long long*)py,
       (const long long*)pz, (long long*)ox, (long long*)oy, (long long*)oz, n_seg);
   return (int)cudaGetLastError();
 }
 
-extern "C" int sirius_msm_reduce(const uint32_t* consts, const void* seg_off, const void* px, const void* py,
-                                 const void* pz, void* ox, void* oy, void* oz, long long n_seg, void* stream) {
-  return launch_reduce<false>(consts, seg_off, px, py, pz, ox, oy, oz, n_seg, stream);
-}
-
 extern "C" int sirius_msm_reduce_rolled(const uint32_t* consts, const void* seg_off, const void* px, const void* py,
                                         const void* pz, void* ox, void* oy, void* oz, long long n_seg,
                                         void* stream) {
-  return launch_reduce<true>(consts, seg_off, px, py, pz, ox, oy, oz, n_seg, stream);
+  const int threads = 128;
+  long long blocks = (n_seg + threads - 1) / threads;
+  msm_reduce_rolled_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      make_field_const(consts), (const long long*)seg_off, (const long long*)px, (const long long*)py,
+      (const long long*)pz, (long long*)ox, (long long*)oy, (long long*)oz, n_seg);
+  return (int)cudaGetLastError();
 }
 
-// Registers per thread and local (spill) bytes per thread of msm_reduce
-// (rolled = 0) or msm_reduce_rolled (rolled = 1): out[0], out[1].
-extern "C" int sirius_msm_reduce_attrs(int rolled, long long* out) {
+// (t * W) window totals of (t, W, B) buckets, segments of L = 2^log2L buckets.
+extern "C" int sirius_msm_window_sums(const uint32_t* consts, const void* bx, const void* by, const void* bz,
+                                      void* tx, void* ty, void* tz, long long n_windows, int B, int log2L,
+                                      void* stream) {
+  const int L = 1 << log2L;
+  const int S = (B + L - 1) / L;
+  if (S > WINDOW_THREADS) return (int)cudaErrorInvalidValue;
+  const int threads = ((S + 31) / 32) * 32;
+  msm_window_sums_kernel<<<(unsigned)n_windows, threads, 0, (cudaStream_t)stream>>>(
+      make_field_const(consts), (const long long*)bx, (const long long*)by, (const long long*)bz, (long long*)tx,
+      (long long*)ty, (long long*)tz, B, L, log2L);
+  return (int)cudaGetLastError();
+}
+
+// t MSM results from (t, W) window totals, in groups of K windows.
+extern "C" int sirius_msm_horner(const uint32_t* consts, const void* tx, const void* ty, const void* tz, void* ox,
+                                 void* oy, void* oz, int n_msm, int W, int c, int K, void* stream) {
+  if ((W + K - 1) / K > HORNER_GROUPS) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)W * sizeof(Pt);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  msm_horner_kernel<<<n_msm, HORNER_GROUPS, smem, (cudaStream_t)stream>>>(
+      make_field_const(consts), (const long long*)tx, (const long long*)ty, (const long long*)tz, (long long*)ox,
+      (long long*)oy, (long long*)oz, W, c, K);
+  return (int)cudaGetLastError();
+}
+
+// Registers, local (spill) bytes and static shared bytes per thread/block
+// of MSM kernel `k`: 0 accumulate, 1 reduce, 2 reduce_rolled (S1),
+// 3 window_sums, 4 horner -> out[0], out[1], out[2].
+extern "C" int sirius_msm_attrs(int k, long long* out) {
   cudaFuncAttributes attr;
-  cudaError_t e = rolled ? cudaFuncGetAttributes(&attr, msm_reduce_kernel<true>)
-                         : cudaFuncGetAttributes(&attr, msm_reduce_kernel<false>);
+  cudaError_t e;
+  switch (k) {
+    case 0: e = cudaFuncGetAttributes(&attr, msm_accumulate_kernel); break;
+    case 1: e = cudaFuncGetAttributes(&attr, msm_reduce_kernel); break;
+    case 2: e = cudaFuncGetAttributes(&attr, msm_reduce_rolled_kernel); break;
+    case 3: e = cudaFuncGetAttributes(&attr, msm_window_sums_kernel); break;
+    case 4: e = cudaFuncGetAttributes(&attr, msm_horner_kernel); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   if (e != cudaSuccess) return (int)e;
   out[0] = attr.numRegs;
   out[1] = (long long)attr.localSizeBytes;
+  out[2] = (long long)attr.sharedSizeBytes;
   return 0;
-}
-
-extern "C" int sirius_msm_combine(const uint32_t* consts, const void* bx, const void* by, const void* bz,
-                                  void* tx, void* ty, void* tz, void* ox, void* oy, void* oz, int n_msm, int W,
-                                  int B, int c, void* stream) {
-  const int threads = ((W + 31) / 32) * 32;
-  msm_combine_kernel<<<n_msm, threads, 0, (cudaStream_t)stream>>>(
-      make_field_const(consts), (const long long*)bx, (const long long*)by, (const long long*)bz,
-      (long long*)tx, (long long*)ty, (long long*)tz, (long long*)ox, (long long*)oy, (long long*)oz, W, B, c);
-  return (int)cudaGetLastError();
 }
 #endif

@@ -38,12 +38,13 @@ P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "sirius_madd": [P] * 9 + [LL, P],
     "sirius_msm_accumulate": [P] * 9 + [LL, P],
-    "sirius_msm_reduce": [P] * 8 + [LL, P],
+    "sirius_msm_reduce": [P] * 8 + [LL, LL, P],
     "sirius_msm_reduce_rolled": [P] * 8 + [LL, P],
-    "sirius_msm_reduce_attrs": [I, P],
-    "sirius_msm_combine": [P] * 10 + [I, I, I, I, P],
+    "sirius_msm_window_sums": [P] * 7 + [LL, I, I, P],
+    "sirius_msm_horner": [P] * 7 + [I, I, I, I, P],
+    "sirius_msm_attrs": [I, P],
     "sirius_col_ntt": [P] * 5 + [LL, LL, P],
-    "sirius_mul_rows": [P] * 4 + [LL, LL, LL, I, P],
+    "sirius_mul_rows": [P] * 4 + [LL, LL, LL, I, I, P],
     "sirius_raw_u32": [P] * 2 + [LL, I, I, P],
     "sirius_add_one": [P] * 2 + [LL, P],
 }

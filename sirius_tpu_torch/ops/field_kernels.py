@@ -6,7 +6,9 @@ broadcast over a's rows with each row repeated rep times.  K = 1 is the
 NTT's elementwise product (mid twiddle, over R columns at once with
 rep = R in a nested four-step; coset powers; 1/n); K = 8 is the field-rate
 probe S2 (`ops/microbench.mul_chain`), which replaces
-`scripts/tpu_microbench.py:mul_kernel`.
+`scripts/tpu_microbench.py:mul_kernel`; at one element and a long K it is
+the latency probe of one dependent product, on the unrolled product or
+(`rolled=True`) on S1's rolled one.
 
 Kernel: `csrc/field_ops.cu` (what bounds it is noted there).  The wrapper
 takes its plain twin for CPU tensors only; for CUDA tensors it launches its
@@ -25,7 +27,8 @@ def _check_words(t: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: expected (n, {WORDS}) words, got {tuple(t.shape)}")
 
 
-def mul_rows_plain(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 1, rep: int = 1) -> torch.Tensor:
+def mul_rows_plain(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 1, rep: int = 1,
+                   rolled: bool = False) -> torch.Tensor:
     if rep > 1:
         b = b.repeat_interleave(rep, 0)
     n, nb = a.shape[0], b.shape[0]
@@ -35,14 +38,16 @@ def mul_rows_plain(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 1, r
     return a
 
 
-def mul_rows(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 1, rep: int = 1) -> torch.Tensor:
-    """a_i * b_((i // rep) mod nb)^K per row, by K chained Montgomery products."""
+def mul_rows(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 1, rep: int = 1,
+             rolled: bool = False) -> torch.Tensor:
+    """a_i * b_((i // rep) mod nb)^K per row, by K chained Montgomery products
+    (`rolled`: on the rolled product, the same words; rep = 1 only)."""
     _check_words(a, "mul_rows a")
     _check_words(b, "mul_rows b")
-    if b.shape[0] == 0 or K < 0 or rep < 1:
-        raise ValueError("mul_rows needs at least one row of b, K >= 0 and rep >= 1")
+    if b.shape[0] == 0 or K < 0 or rep < 1 or (rolled and rep > 1):
+        raise ValueError("mul_rows needs at least one row of b, K >= 0, rep >= 1, and rep = 1 when rolled")
     if a.device.type == "cpu":
-        return mul_rows_plain(field, a, b, K, rep)
+        return mul_rows_plain(field, a, b, K, rep, rolled)
     from . import _build
 
     a, b = a.contiguous(), b.contiguous()
@@ -50,7 +55,8 @@ def mul_rows(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 1, rep: in
     out = torch.empty_like(a)
     if a.shape[0]:
         err = _build.library().sirius_mul_rows(_build.field_consts(field), a.data_ptr(), b.data_ptr(),
-                                               out.data_ptr(), a.shape[0], b.shape[0], rep, K, _build.stream_of(a))
+                                               out.data_ptr(), a.shape[0], b.shape[0], rep, K, int(rolled),
+                                               _build.stream_of(a))
         _build.check(err, "mul_rows")
         mul_rows.launches += 1
     return out

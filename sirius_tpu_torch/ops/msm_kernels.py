@@ -7,26 +7,65 @@ merge with a rolled CIOS product).  Kernels: `csrc/msm.cu` (design and
 bounds noted there).
 
   msm_accumulate     (B2)  chunks of bucket-sorted entries -> Jacobian partials
-  msm_reduce         (B3)  partials of each segment -> one Jacobian point each
-  msm_combine        (B3)  (t, W, B) bucket sums -> t Jacobian MSM results
-  msm_reduce_rolled  (S1)  msm_reduce with the rolled product: the same
-                           function, word for word; on no path of the library
+  msm_reduce         (B3)  partials of each segment (at most 32) -> one
+                           Jacobian point each, by a pairwise tree: word for
+                           word the plain twin's
+  msm_window_sums    (B3)  (t, W, B) bucket sums -> (t, W) window totals
+                           sum_v v B_v, from segments of L buckets
+  msm_combine        (B3)  (t, W, B) bucket sums -> t Jacobian MSM results:
+                           msm_window_sums, then the grouped Horner kernel
+  msm_reduce_rolled  (S1)  a serial walk of each segment with the rolled
+                           product: msm_reduce's function (equal in affine
+                           form); on no path of the library
 
 Each wrapper takes its plain twin for CPU tensors only; for CUDA tensors it
-launches its kernel or raises.  `<wrapper>.launches` counts kernel launches.
-Points are (., 8) int64 Montgomery words; `entries` holds
-`point_index * 2 + negated`.
+launches its kernel or raises.  `<wrapper>.launches` counts kernel launches
+(`msm_combine` counts its Horner launches, by (t, W, B) shape also in
+`msm_combine.shapes`; its window sums count on `msm_window_sums`).  Points
+are (., 8) int64 Montgomery words; `entries` holds `point_index * 2 +
+negated`.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from ..curves.jpoint import Curve, Points
 
+REDUCE_MAX_SEG = 32  # csrc/msm.cu: the longest segment msm_reduce's tree takes
+WINDOW_THREADS = 128  # csrc/msm.cu: the most bucket segments of one window
+MSM_KERNELS = ("msm_accumulate", "msm_reduce", "msm_reduce_rolled", "msm_window_sums", "msm_horner")
+
 
 def _points_on(n: int, like: torch.Tensor) -> list[torch.Tensor]:
     return [torch.empty((n, 8), dtype=torch.int64, device=like.device) for _ in range(3)]
+
+
+def _cat(parts, dim: int) -> Points:
+    return Points(*(torch.cat(cs, dim) for cs in zip(*parts)))
+
+
+def _dbl_n(curve: Curve, P: Points, n: int) -> Points:
+    for _ in range(n):
+        P = curve.dbl(P)
+    return P
+
+
+def window_log2(B: int) -> int:
+    """log2 L of the bucket segments msm_window_sums takes for B buckets:
+    the least L with at most WINDOW_THREADS segments."""
+    log2L = 0
+    while -(-B >> log2L) > WINDOW_THREADS:
+        log2L += 1
+    return log2L
+
+
+def horner_group_size(W: int) -> int:
+    """K windows per Horner group: ceil(sqrt(W)) keeps the chain's adds,
+    (K - 1) + (ceil(W / K) - 1), near their least."""
+    return math.isqrt(W - 1) + 1 if W > 1 else 1
 
 
 def _check_rows(*tensors: torch.Tensor) -> None:
@@ -72,30 +111,76 @@ def msm_reduce_plain(curve: Curve, seg_off, partials: Points) -> Points:
     return curve.sum_reduce(table, axis=1)
 
 
-def msm_combine_plain(curve: Curve, buckets: Points, c: int) -> Points:
-    """sum_w 2^(c w) sum_v v B[:, w, v-1] for (t, W, B) buckets; the window
-    sums by two log-depth suffix scans (element 0 of the second is
-    sum_v v B_v), then Horner over windows."""
+def suffix_window_sums(curve: Curve, buckets: Points) -> Points:
+    """(t, W, B) buckets -> (t, W) totals sum_v v B[:, w, v-1] by two log-depth
+    suffix scans (element 0 of the second is sum_v v B_v)."""
     t, W, B = buckets.x.shape[:3]
     dev = buckets.x.device
 
     def suffix_scan(P: Points) -> Points:
         s = 1
         while s < B:
-            ident = curve.identity((t, W, s), dev)
-            nxt = Points(*(torch.cat([a[:, :, s:], i], 2) for a, i in zip(P, ident)))
+            nxt = _cat([Points(*(a[:, :, s:] for a in P)), curve.identity((t, W, s), dev)], 2)
             P = curve.add(P, nxt)
             s *= 2
         return P
 
-    tot = suffix_scan(suffix_scan(buckets))
-    tot = Points(*(a[:, :, 0] for a in tot))  # (t, W)
-    acc = Points(*(a[:, W - 1] for a in tot))
-    for w in range(W - 2, -1, -1):
-        for _ in range(c):
-            acc = curve.dbl(acc)
-        acc = curve.add(acc, Points(*(a[:, w] for a in tot)))
+    return Points(*(a[:, :, 0] for a in suffix_scan(suffix_scan(buckets))))
+
+
+def msm_window_sums_plain(curve: Curve, buckets: Points, L: int) -> Points:
+    """The same totals as msm_window_sums computes them, from segments of L
+    (a power of two) buckets, the last ragged: segment s walks its buckets
+    top-down for R_s and T_s = sum (v - sL) B_v; then sum_v v B_v =
+    sum_s (T_s + L P_s), P_s = sum_{s' >= s} R_s' (P_0's term dropped)."""
+    t, W, B = buckets.x.shape[:3]
+    dev = buckets.x.device
+    if L < 1 or L & (L - 1):
+        raise ValueError(f"segment length {L} is not a power of two")
+    S = -(-B // L)
+    if S * L > B:  # the ragged top: identities add nothing
+        buckets = _cat([buckets, curve.identity((t, W, S * L - B), dev)], 2)
+    seg = Points(*(a.reshape(t, W, S, L, a.shape[-1]) for a in buckets))
+    run = tot = curve.identity((t, W, S), dev)
+    for k in range(L - 1, -1, -1):
+        run = curve.add(run, Points(*(a[:, :, :, k] for a in seg)))
+        tot = curve.add(tot, run)
+    h = 1
+    while h < S:
+        run = curve.add(run, _cat([Points(*(a[:, :, h:] for a in run)), curve.identity((t, W, h), dev)], 2))
+        h *= 2
+    weighted = curve.add(tot, _dbl_n(curve, run, L.bit_length() - 1))
+    X = curve.select((torch.arange(S, device=dev) >= 1).expand(t, W, S), weighted, tot)
+    return curve.sum_reduce(X, axis=2)
+
+
+def msm_horner_plain(curve: Curve, totals: Points, c: int, K: int) -> Points:
+    """sum_w 2^(c w) T[:, w] for (t, W) totals as msm_combine's Horner kernel
+    runs it: groups of K windows (the lowest holding the r left over, padded
+    at its top with identities here), each by Horner, then Horner over the
+    groups (c K doublings between groups, c r before the lowest).  K = 1 is
+    the plain Horner over windows."""
+    t, W = totals.x.shape[:2]
+    G = -(-W // K)
+    r = W - (G - 1) * K
+    low = Points(*(a[:, :r] for a in totals))
+    T = _cat([low, curve.identity((t, K - r), totals.x.device), Points(*(a[:, r:] for a in totals))], 1)
+    T = Points(*(a.reshape(t, G, K, a.shape[-1]) for a in T))
+    grp = Points(*(a[:, :, K - 1] for a in T))
+    for i in range(K - 2, -1, -1):
+        grp = curve.add(_dbl_n(curve, grp, c), Points(*(a[:, :, i] for a in T)))
+    acc = Points(*(a[:, G - 1] for a in grp))
+    for g in range(G - 2, 0, -1):
+        acc = curve.add(_dbl_n(curve, acc, c * K), Points(*(a[:, g] for a in grp)))
+    if G > 1:
+        acc = curve.add(_dbl_n(curve, acc, c * r), Points(*(a[:, 0] for a in grp)))
     return acc
+
+
+def msm_combine_plain(curve: Curve, buckets: Points, c: int) -> Points:
+    """sum_w 2^(c w) sum_v v B[:, w, v-1] for (t, W, B) buckets: the window
+    sums by two log-depth suffix scans, then Horner over windows."""
+    return msm_horner_plain(curve, suffix_window_sums(curve, buckets), c, 1)
 
 
 # -- kernel wrappers ---------------------------------------------------------------
@@ -122,8 +207,8 @@ def msm_accumulate(curve: Curve, entries, chunk_start, chunk_len, px, py) -> Poi
     return Points(*out)
 
 
-def _reduce(curve: Curve, seg_off, partials: Points, entry: str) -> Points | None:
-    """Launch the reduce kernel `entry` (None for CPU tensors: the caller
+def _reduce_args(curve: Curve, seg_off, partials: Points) -> list[torch.Tensor] | None:
+    """The kernel operands of a reduce (None for CPU tensors: the caller
     takes the plain twin)."""
     _check_rows(*partials)
     if seg_off.dim() != 1 or seg_off.shape[0] < 1:
@@ -134,23 +219,28 @@ def _reduce(curve: Curve, seg_off, partials: Points, entry: str) -> Points | Non
 
     ins = [t.contiguous() for t in (seg_off, *partials)]
     _build.require_cuda(*ins)
-    n_seg = seg_off.shape[0] - 1
-    out = _points_on(n_seg, partials.x)
-    if n_seg:
-        err = getattr(_build.library(), entry)(
-            _build.field_consts(curve.fb), *(t.data_ptr() for t in ins),
-            *(t.data_ptr() for t in out), n_seg, _build.stream_of(partials.x))
-        _build.check(err, entry)
-    return Points(*out)
+    return ins
 
 
 def msm_reduce(curve: Curve, seg_off, partials: Points) -> Points:
-    out = _reduce(curve, seg_off, partials, "sirius_msm_reduce")
-    if out is None:
+    """One point per segment [seg_off[s], seg_off[s+1]) of at most
+    REDUCE_MAX_SEG partials (the identity for an empty one)."""
+    ins = _reduce_args(curve, seg_off, partials)
+    if ins is None:
         return msm_reduce_plain(curve, seg_off, partials)
-    if seg_off.shape[0] > 1:
+    from . import _build
+
+    n_seg = seg_off.shape[0] - 1
+    out = _points_on(n_seg, partials.x)
+    if n_seg:
+        if int((seg_off[1:] - seg_off[:-1]).max()) > REDUCE_MAX_SEG:
+            raise ValueError(f"msm_reduce takes segments of at most {REDUCE_MAX_SEG} partials")
+        err = _build.library().sirius_msm_reduce(
+            _build.field_consts(curve.fb), *(t.data_ptr() for t in ins), *(t.data_ptr() for t in out), n_seg,
+            partials.x.shape[0], _build.stream_of(partials.x))
+        _build.check(err, "msm_reduce")
         msm_reduce.launches += 1
-    return out
+    return Points(*out)
 
 
 # S1 computes msm_reduce's function: its plain twin is msm_reduce's
@@ -158,53 +248,89 @@ msm_reduce_rolled_plain = msm_reduce_plain
 
 
 def msm_reduce_rolled(curve: Curve, seg_off, partials: Points) -> Points:
-    """S1: msm_reduce through the rolled-product kernel."""
-    out = _reduce(curve, seg_off, partials, "sirius_msm_reduce_rolled")
-    if out is None:
+    """S1: one thread walks each segment (any length) with the rolled product."""
+    ins = _reduce_args(curve, seg_off, partials)
+    if ins is None:
         return msm_reduce_rolled_plain(curve, seg_off, partials)
-    if seg_off.shape[0] > 1:
+    from . import _build
+
+    n_seg = seg_off.shape[0] - 1
+    out = _points_on(n_seg, partials.x)
+    if n_seg:
+        err = _build.library().sirius_msm_reduce_rolled(
+            _build.field_consts(curve.fb), *(t.data_ptr() for t in ins), *(t.data_ptr() for t in out), n_seg,
+            _build.stream_of(partials.x))
+        _build.check(err, "msm_reduce_rolled")
         msm_reduce_rolled.launches += 1
-    return out
+    return Points(*out)
 
 
-def reduce_kernel_attrs(rolled: bool) -> dict[str, int]:
-    """Registers and local (spill) bytes per thread of the msm_reduce kernel
-    (rolled: S1's) as the loaded library was built."""
+def msm_kernel_attrs(name: str) -> dict[str, int]:
+    """Registers and local (spill) bytes per thread, static shared bytes per
+    block, of the MSM kernel `name` (one of MSM_KERNELS) as the loaded
+    library was built."""
     import ctypes
 
     from . import _build
 
-    out = (ctypes.c_longlong * 2)()
-    _build.check(_build.library().sirius_msm_reduce_attrs(int(rolled), out), "msm_reduce_attrs")
-    return {"numRegs": int(out[0]), "localSizeBytes": int(out[1])}
+    out = (ctypes.c_longlong * 3)()
+    _build.check(_build.library().sirius_msm_attrs(MSM_KERNELS.index(name), out), "msm_attrs")
+    return {"numRegs": int(out[0]), "localSizeBytes": int(out[1]), "sharedSizeBytes": int(out[2])}
+
+
+def _check_buckets(buckets: Points) -> None:
+    if any(b.dim() != 4 or b.shape[-1] != 8 or b.shape != buckets.x.shape for b in buckets):
+        raise ValueError("buckets must be three (t, W, B, 8) tensors")
+
+
+def msm_window_sums(curve: Curve, buckets: Points) -> Points:
+    """(t, W, B, 8) bucket sums (bucket v at index v-1) -> (t, W, 8) Jacobian
+    window totals sum_v v B_v, from segments of 2^window_log2(B) buckets."""
+    _check_buckets(buckets)
+    t, W, B = buckets.x.shape[:3]
+    log2L = window_log2(B)
+    if buckets.x.device.type == "cpu":
+        return msm_window_sums_plain(curve, buckets, 1 << log2L)
+    from . import _build
+
+    ins = [a.contiguous() for a in buckets]
+    _build.require_cuda(*ins)
+    out = _points_on(t * W, ins[0])
+    if t * W:
+        err = _build.library().sirius_msm_window_sums(
+            _build.field_consts(curve.fb), *(a.data_ptr() for a in ins), *(a.data_ptr() for a in out), t * W, B,
+            log2L, _build.stream_of(ins[0]))
+        _build.check(err, "msm_window_sums")
+        msm_window_sums.launches += 1
+    return Points(*(a.reshape(t, W, 8) for a in out))
 
 
 def msm_combine(curve: Curve, buckets: Points, c: int) -> Points:
     """(t, W, B, 8) bucket sums (bucket v at index v-1) -> (t, 8) Jacobian."""
-    if any(b.dim() != 4 or b.shape[-1] != 8 or b.shape != buckets.x.shape for b in buckets):
-        raise ValueError("buckets must be three (t, W, B, 8) tensors")
+    _check_buckets(buckets)
     if buckets.x.device.type == "cpu":
         return msm_combine_plain(curve, buckets, c)
     from . import _build
 
     t, W, B = buckets.x.shape[:3]
-    if not 1 <= W <= 1024:
-        raise ValueError(f"window count {W} outside 1..1024")
-    ins = [a.contiguous() for a in buckets]
-    _build.require_cuda(*ins)
-    totals = _points_on(t * W, ins[0])
-    out = _points_on(t, ins[0])
+    K = horner_group_size(W)
+    if not 1 <= W <= 512:
+        raise ValueError(f"window count {W} outside 1..512")
+    totals = msm_window_sums(curve, buckets)
+    out = _points_on(t, totals.x)
     if t:
-        err = _build.library().sirius_msm_combine(
-            _build.field_consts(curve.fb), *(a.data_ptr() for a in ins),
-            *(a.data_ptr() for a in totals), *(a.data_ptr() for a in out),
-            t, W, B, c, _build.stream_of(ins[0]))
-        _build.check(err, "msm_combine")
+        err = _build.library().sirius_msm_horner(
+            _build.field_consts(curve.fb), *(a.data_ptr() for a in totals), *(a.data_ptr() for a in out),
+            t, W, c, K, _build.stream_of(totals.x))
+        _build.check(err, "msm_horner")
         msm_combine.launches += 1
+        msm_combine.shapes[(t, W, B)] = msm_combine.shapes.get((t, W, B), 0) + 1
     return Points(*out)
 
 
 msm_accumulate.launches = 0
 msm_reduce.launches = 0
 msm_reduce_rolled.launches = 0
+msm_window_sums.launches = 0
 msm_combine.launches = 0
+msm_combine.shapes = {}

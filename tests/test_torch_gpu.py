@@ -169,12 +169,12 @@ def test_ntt_k25_round_trip_and_direct_sums(cuda_device):
 @pytest.mark.gpu
 def test_msm_reduce_rolled_matches_reduce_at_the_primary_commit_shape(cuda_device):
     """S1 on the level-0 partials of a 917,504-point bn256 commit (7 advice
-    columns x 2^17 rows): word for word equal to B3 msm_reduce (same add
-    order), and to the plain twin in affine form."""
+    columns x 2^17 rows): equal to B3 msm_reduce in affine form (S1 walks
+    each segment serially, msm_reduce sums it by a tree), and msm_reduce
+    word for word equal to the plain twin (the same halving order)."""
     from sirius_tpu_torch.ops.msm import FAN_IN, split_segments
 
     n = 7 << 17
-    q = BN256_G1.spec.scalar.modulus
     rng = np.random.default_rng(7)
     limbs = rng.integers(0, 1 << 16, size=(n, 16), dtype=np.uint32)
     limbs[:, 15] &= 0x0FFF
@@ -189,10 +189,77 @@ def test_msm_reduce_rolled_matches_reduce_at_the_primary_commit_shape(cuda_devic
     got = mk.msm_reduce_rolled(BN256_G1, sub_off, parts)
     ref = mk.msm_reduce(BN256_G1, sub_off, parts)
     assert (mk.msm_reduce.launches, mk.msm_reduce_rolled.launches) == (before[0] + 1, before[1] + 1)
-    assert all(torch.equal(a, b) for a, b in zip(got, ref))
-    assert BN256_G1.decode(got) == BN256_G1.decode(mk.msm_reduce_rolled_plain(BN256_G1, sub_off, parts))
-    attrs = (mk.reduce_kernel_attrs(False), mk.reduce_kernel_attrs(True))
+    assert BN256_G1.decode(got) == BN256_G1.decode(ref)
+    assert all(torch.equal(a, b) for a, b in zip(ref, mk.msm_reduce_plain(BN256_G1, sub_off, parts)))
+    attrs = [mk.msm_kernel_attrs(name) for name in mk.MSM_KERNELS]
     assert all(a["numRegs"] > 0 for a in attrs)
+
+
+def _jacobian_points(curve, device, n, seed):
+    """n Jacobian points (z != 1) of a 2^10 key, doubled, cycled."""
+    ck = _key(curve, device)
+    pts = curve.dbl(Points(*(c.contiguous() for c in ck.points)))
+    idx = torch.from_numpy(np.random.default_rng(seed).integers(0, len(ck), size=n)).to(device)
+    return Points(*(c[idx].contiguous() for c in pts))
+
+
+@pytest.mark.gpu
+def test_msm_reduce_tree_segment_lengths(cuda_device):
+    """B3's tree reduce on segments of 0, 1, 2, 31 and 32 partials, with an
+    equal pair (the doubling branch), an inverse pair and an identity
+    partial: word for word its twin; a segment of 33 is refused."""
+    curve = BN256_G1
+    lens = [0, 1, 2, 31, 32, 5, 0, 32, 17, 31, 2, 1] * 40 + [0, 0]
+    n = sum(lens)
+    parts = _jacobian_points(curve, cuda_device, n, 5)
+    # the 31-segment holds rows 3..33, the 32-segment rows 34..65; the first
+    # tree level adds offset i + 16 onto offset i
+    for c in parts:
+        c[19] = c[3]  # an equal pair: the doubling branch
+    neg = curve.neg(Points(*(c[34:35] for c in parts)))
+    ident = curve.identity((1,), cuda_device)
+    for c, v, z in zip(parts, neg, ident):
+        c[50] = v[0]  # an inverse pair: the identity
+        c[40] = z[0]  # an identity partial
+    seg_off = torch.tensor([0, *np.cumsum(lens)], dtype=torch.int64, device=cuda_device)
+    before = mk.msm_reduce.launches
+    got = mk.msm_reduce(curve, seg_off, parts)
+    assert mk.msm_reduce.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, mk.msm_reduce_plain(curve, seg_off, parts)))
+    assert curve.decode(got) == curve.decode(mk.msm_reduce_rolled(curve, seg_off, parts))
+    with pytest.raises(ValueError, match="at most 32"):
+        mk.msm_reduce(curve, torch.tensor([0, 33], device=cuda_device), parts)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("curve,t,W,B,c", [(BN256_G1, 2, 27, 512, 10), (GRUMPKIN, 5, 64, 15, 4),
+                                           (BN256_G1, 2, 5, 300, 9)],
+                         ids=["best_msm_c10", "msm_many_c4", "ragged_B300"])
+def test_msm_combine_kernels_match_twins(cuda_device, curve, t, W, B, c):
+    """B3's window sums and Horner at both shapes of the IVC path (best_msm's
+    (1, 27, 512) with t = 2, msm_many's (5, 64, 15)) and at B = 300 (the
+    last bucket segment ragged), in affine form against the twins; window 1
+    of MSM 0 all identities; in window 2 equal buckets and a bucket beside
+    its negation."""
+    bk = _jacobian_points(curve, cuda_device, t * W * B, W)
+    bk = Points(*(a.reshape(t, W, B, 8).clone() for a in bk))
+    ident = curve.identity((B,), cuda_device)
+    for a, v in zip(bk, ident):
+        a[0, 1] = v
+    neg = curve.neg(Points(*(a[0, 2, B - 1] for a in bk)))
+    for a, v in zip(bk, neg):
+        a[0, 2, 1] = a[0, 2, 2]  # equal buckets: an add takes the doubling branch
+        a[0, 2, B - 2] = v  # B_(B-1) = -B_B: the top running sum passes through the identity
+    before = (mk.msm_window_sums.launches, mk.msm_combine.launches)
+    tot = mk.msm_window_sums(curve, bk)
+    want = mk.suffix_window_sums(curve, bk)
+    flat = lambda P: Points(*(a.reshape(-1, 8) for a in P))  # noqa: E731
+    assert curve.decode(flat(tot)) == curve.decode(flat(want))
+    L = 1 << mk.window_log2(B)
+    assert curve.decode(flat(mk.msm_window_sums_plain(curve, bk, L))) == curve.decode(flat(want))
+    out = mk.msm_combine(curve, bk, c)
+    assert (mk.msm_window_sums.launches, mk.msm_combine.launches) == (before[0] + 2, before[1] + 1)
+    assert curve.decode(out) == curve.decode(mk.msm_combine_plain(curve, bk, c))
 
 
 @pytest.mark.gpu
