@@ -8,21 +8,28 @@
    one cached library.  S4: x + 1 on an (8, 128) tile, and a second Python
    process must load the cached library without running nvcc.
    S2/S3: the Montgomery-multiply rate (K = 8 chains on 2^17 bn256 Fr and Fq
-   elements, bit-exact against the twin) and the raw u32 multiply/add rates
-   (2^22 values x 64), each beside its paper rate for the card's SM clock;
-   the latency probe: one element, K = 1024 chained products, on the
-   unrolled and on the rolled product (microseconds per product).
+   elements, bit-exact against the twin) on the unrolled C++ product (the
+   NTT's elementwise multiply) and on the PTX carry-chain product (B1, B2,
+   B4), every product on the edge values 0, 1, p - 1, R mod p, and the raw
+   u32 multiply/add rates (2^22 values x 64), each beside its paper rate
+   for the card's SM clock; the latency probe: one element, K = 1024
+   chained products, on each of the port's four products (unrolled,
+   rolled, carry-chain, rolled carry-chain: B3's), microseconds per
+   product.
 2. Keys: the bn256 2^20 key (b"bench-primary") and the grumpkin 2^17 key
    (b"bench-support"), derived on the device.
 3. Holds every kernel against its plain torch twin on the card, on the same
    inputs: B1 madd bit-exact on 2^16 pairs per curve and at the cross-term
-   step shape; best_msm's stages (B2 accumulate and every B3 reduce level
-   bit-exact, the B3 window sums and combine in affine form) at the support
-   W-commit shape, with kernel and twin timed there, each beside its bound
-   and the serial floor of its longest dependent chain; the B3 combine at
+   step shape (timed; off the main path since msm_many walks its buckets
+   in one launch); best_msm's stages (B2's bucket sort equal to
+   bucket_plan_plain, B2 accumulate and every B3 reduce level bit-exact,
+   the B3 window sums and combine in affine form) at the support W-commit
+   shape, with kernel and twin timed there, each beside its bound and the
+   serial floor of its longest dependent chain; the B3 combine at
    msm_many's shape (5, 64, 15) the same way; best_msm at 2^12 against the
-   big-integer reference; msm_many (B1 path) against best_msm (B2/B3 path)
-   at the cross-term shape (5 x 2^14).
+   big-integer reference; B1's bucket walk `madd_buckets` bit-exact and
+   timed at msm_many's cross-term shape (5 x 2^14), and msm_many (one
+   madd_buckets launch, no madd launch) against best_msm (B2/B3 path).
 4. Commits 2^20 bn256 scalars (drawn as bench.py draws them): reference
    check on a 64-point prefix, every stage against its twin at 2^20, the
    result against best_msm's, then the points/s of one warm MSM.
@@ -45,25 +52,33 @@
    trivial step circuit at k = 17 with the two keys above: public
    parameters, new, two next (the second folds a non-base-case step),
    verify() == [] and z_i unchanged; seconds of each and the spans of
-   `util/profiling` per step; both accumulators' digests; B1-B3 must have
-   launched on this path.  A flipped cell of the ProtoGalaxy accumulator's
+   `util/profiling` per step; both accumulators' digests; B1's bucket walk,
+   B2's sort and accumulate (on both curves' commits, the sort at the
+   primary W commit's 917,504 points) and B3 must have launched on this
+   path, and the per-step madd must not have.  A flipped cell of the ProtoGalaxy accumulator's
    witness must make verify() report it; then one more next under
    torch.profiler (device events, busy share) and a clean verify().
-8. S1, the rolled-product serial reduce (on no path): on the level-0
-   partials of the primary trace's 917,504-point commit it must equal B3
-   msm_reduce and its plain twin in affine form (msm_reduce equals the twin
-   word for word); both timed in turns.  Then every MSM kernel's registers,
+8. B2 at the primary trace's 917,504-point W commit: the bucket sort equal
+   to bucket_plan_plain and the accumulate bit-exact, both timed beside
+   their twins and bounds.  S1, the rolled-product serial reduce (on no
+   path): on that commit's level-0 partials it must equal B3 msm_reduce and
+   its plain twin in affine form (msm_reduce equals the twin word for
+   word); both timed in turns.  Then every MSM and madd kernel's registers,
    local (spill) bytes per thread, static shared bytes and SASS instruction
-   count (`cuobjdump`, where the toolkit has it).
+   count, and the SASS of mul_rows on each product by opcode (`cuobjdump`,
+   where the toolkit has it).
 
 Ends with a JSON line of kernel results (time, plain twin's time, bound
-and what sets it, launches on the path that runs the kernel: B1-B3 on the
-IVC path, B4 and the K = 1 product on the NTT path; the probes S1-S4 run on
-no path but their own timed runs, which are counted; S2's kernel
-`mul_rows` has a second entry at the NTT's K = 1 shape; B3's combine has
-one at best_msm's shape (t = 1) and one at msm_many's (t > 1), each with
-the launches of its own shapes, and its window-sum kernel an entry of its
-own), the nvidia-smi
+and what sets it, launches on the path that runs the kernel: B1's bucket
+walk, B2 and B3 on the IVC path, B4 and the K = 1 product on the NTT path;
+the probes S1-S4 and B1's batched madd run on no path but their own timed
+runs, which are counted; S2's kernel `mul_rows` has a second entry at the
+NTT's K = 1 shape and a third on the carry-chain product; B2's sort and
+accumulate have one at the support W commit (the launches of every other
+size; grumpkin for the accumulate) and one at the primary (917,504 points;
+bn256); B3's combine has one at best_msm's shape (t = 1) and one at
+msm_many's (t > 1), each with the launches of its own shapes, and its
+window-sum kernel an entry of its own), the nvidia-smi
 line, and the device JSON line.  Bounds: the larger of the
 canonical bytes moved (32 B per field element, each input read once and
 each output written once) over 3.35 TB/s and the Montgomery products the
@@ -82,6 +97,7 @@ import shutil
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -91,7 +107,7 @@ from sirius_tpu_torch.curves.hash_to_curve import hash_bytes_to_point
 from sirius_tpu_torch.curves.jpoint import BN256_G1, GRUMPKIN, Points
 from sirius_tpu_torch.fields import gold
 from sirius_tpu_torch.fields.constants import bn256_fr
-from sirius_tpu_torch.fields.jfield import FQ, FR
+from sirius_tpu_torch.fields.jfield import FQ, FR, ints_to_words
 from sirius_tpu_torch.ivc.cyclefold_ivc import CyclefoldIVC, CyclefoldPublicParams
 from sirius_tpu_torch.ivc.step_circuit import TrivialStepCircuit
 from sirius_tpu_torch.ivc.support_fold import SupportFoldChain, random_input, support_structure
@@ -100,7 +116,8 @@ from sirius_tpu_torch.nifs.sangria import RelaxedPlonkTrace, RelaxedPlonkWitness
 from sirius_tpu_torch.ops import _build, field_kernels as fk, madd as madd_mod, microbench as mb, msm_kernels as mk
 from sirius_tpu_torch.ops import ntt_kernels
 from sirius_tpu_torch.ops.commitment import CommitmentKey
-from sirius_tpu_torch.ops.msm import FAN_IN, MANY_GROUPS, MANY_WINDOW_BITS, best_msm, bucket_plan, msm_many
+from sirius_tpu_torch.ops.msm import FAN_IN, MANY_GROUPS, MANY_WINDOW_BITS, best_msm, bucket_plan, bucket_plan_plain
+from sirius_tpu_torch.ops.msm import msm_many
 from sirius_tpu_torch.ops.msm import split_segments
 from sirius_tpu_torch.ops.ntt import NTT
 from sirius_tpu_torch.util.golden import pg_acc_digest, sangria_acc_digest
@@ -145,6 +162,9 @@ MADD_MULS, ADD_MULS, DBL_MULS = 11, 16, 7  # Montgomery products: csrc/curve.cuh
 ADD_LEVELS, DBL_LEVELS = 5, 3  # dependent product levels of csrc/curve.cuh pt_add_ilp, pt_dbl_ilp
 LATENCY_K = 1024  # the latency probe's chain of dependent products on one element
 MANY_SHAPE = (CROSS_TERMS, 64, 15, 4)  # msm_many's combine: (t, W, B, c) at 4-bit windows
+PRIMARY_W_N = 7 << 17  # the primary trace's W commit (7 advice columns x 2^17 rows)
+PLAN_ARRAYS = ("entries", "chunk_start", "chunk_len", "seg_off")  # B2's bucket sort output
+B2_NAMES = ("msm_accumulate", "msm_accumulate_primary", "bucket_sort", "bucket_sort_primary")
 
 
 def log(msg: str) -> None:
@@ -242,8 +262,15 @@ def combine_stage(curve, shaped, c, timed: bool) -> dict:
                             sums + t * (W - 1) * (DBL_MULS * c + ADD_MULS), 3 * FE * t * W * B + 3 * FE * t]}, res
 
 
+def sort_bytes(plan, n: int) -> int:
+    """Canonical bytes of B2's bucket sort of n scalars: the scalars read;
+    32-bit entries, chunk starts and lengths, and segment offsets written."""
+    return FE * n + 4 * plan.entries.shape[0] + 8 * plan.chunk_start.shape[0] + 4 * plan.seg_off.shape[0]
+
+
 def msm_stages(curve, S, pts, timed: bool = False):
-    """best_msm's stages at the shapes it gives them: B2 accumulate, every
+    """best_msm's stages at the shapes it gives them: B2's bucket sort
+    (bit-exact against bucket_plan_plain), B2 accumulate, every
     B3 reduce level, B3 window sums and combine.  Each kernel is held
     against its plain twin on the same inputs, and the kernel's output feeds
     the next stage.  Returns (the (1, 8) Jacobian result, {kernel:
@@ -251,7 +278,13 @@ def msm_stages(curve, S, pts, timed: bool = False):
     plan); times only when `timed` (the reduce time and work are its first
     level's)."""
     plan = bucket_plan(S)
-    out = {}
+    plain_plan = bucket_plan_plain(S)
+    check((plan.c, plan.W, plan.B) == (plain_plan.c, plain_plan.W, plain_plan.B)
+          and all(torch.equal(getattr(plan, k), getattr(plain_plan, k)) for k in PLAN_ARRAYS),
+          f"B2's bucket sort differs from bucket_plan_plain at {S.shape[0]} points")
+    out = {"bucket_sort": [0, gpu_ms(lambda: bucket_plan(S)) if timed else None,
+                           gpu_ms(lambda: bucket_plan_plain(S), reps=1) if timed else None, 0,
+                           sort_bytes(plan, S.shape[0])]}
     acc = (curve, plan.entries, plan.chunk_start, plan.chunk_len, pts.x.contiguous(), pts.y.contiguous())
     parts = mk.msm_accumulate(*acc)
     err = word_err(parts, mk.msm_accumulate_plain(*acc))
@@ -314,9 +347,9 @@ def profiled(label: str, fn) -> str:
     return "\n".join(lines)
 
 
-def sass_instructions() -> dict[str, int] | None:
-    """SASS instructions per kernel of the built library (cuobjdump), by
-    mangled name; None where the toolkit has no cuobjdump."""
+def sass_opcodes() -> dict[str, Counter] | None:
+    """SASS instructions by opcode per kernel of the built library
+    (cuobjdump), by mangled name; None where the toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return None
@@ -325,9 +358,11 @@ def sass_instructions() -> dict[str, int] | None:
     for line in dump.splitlines():
         if "Function :" in line:
             cur = line.split("Function :")[1].strip()
-            counts[cur] = 0
-        elif cur and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
-            counts[cur] += 1
+            counts[cur] = Counter()
+        elif cur:
+            m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", line)
+            if m:
+                counts[cur][m.group(1)] += 1
     return counts
 
 
@@ -406,26 +441,40 @@ def main() -> int:
         w[:, 7] &= 0x0FFFFFFF
         return torch.from_numpy(w).to(dev)
 
+    # S2 on the unrolled product (the NTT's multiply) and on the carry-chain one (B1, B2, B4): mul_chain, mul_chain_cc
     for field in (FR, FQ):
         a2, b2 = random_elements(rng, S2_N), random_elements(rng, S2_N)
-        err = word_err([mb.mul_chain(field, a2, b2, S2_K)], [mb.mul_chain_plain(field, a2, b2, S2_K)])
-        check(err == 0, f"S2 mul_chain on {field} is not bit-exact")
-        fk.mul_rows.launches = 0
-        ms = gpu_ms(lambda: mb.mul_chain(field, a2, b2, S2_K), reps=50)
-        if field is FR:
-            probe_launches["mul_chain"] = fk.mul_rows.launches
-        plain = gpu_ms(lambda: mb.mul_chain_plain(field, a2, b2, S2_K), reps=3)
-        rate, paper = S2_N * S2_K / (ms / 1e3), imad_rate / FE_MUL_IMADS
-        log(f"S2 mul_chain {field.spec.name} 2^17 x K={S2_K}: bit-exact; kernel {ms:.6f} ms = {rate:.6e} "
-            f"Montgomery mul/s = {100 * rate / paper:.2f}% of the paper rate {paper:.6e} "
-            f"({FE_MUL_IMADS} multiply-adds per mul); plain {plain:.4f} ms  [{card}]")
-        ms_long = gpu_ms(lambda: mb.mul_chain(field, a2, b2, LONG_K), reps=10)
-        rate = S2_N * LONG_K / (ms_long / 1e3)
-        log(f"S2 mul_chain {field.spec.name} 2^17 x K={LONG_K}: {ms_long:.6f} ms = {rate:.6e} Montgomery mul/s = "
-            f"{100 * rate / paper:.2f}% of the paper rate  [{card}]")
-        if field is FR:
-            record("mul_chain", "sirius_tpu_torch/csrc/field_ops.cu", "scripts/tpu_microbench.py:74", err, ms,
-                   plain, S2_N * S2_K, 3 * FE * S2_N)
+        want = mb.mul_chain_plain(field, a2, b2, S2_K)
+        for product, name in (("unrolled", "mul_chain"), ("cc", "mul_chain_cc")):
+            err = word_err([mb.mul_chain(field, a2, b2, S2_K, product=product)], [want])
+            check(err == 0, f"S2 mul_chain on {field}, {product} product, is not bit-exact")
+            fk.mul_rows.launches = 0
+            ms = gpu_ms(lambda: mb.mul_chain(field, a2, b2, S2_K, product=product), reps=50)
+            if field is FR:
+                probe_launches[name] = fk.mul_rows.launches
+            plain = gpu_ms(lambda: mb.mul_chain_plain(field, a2, b2, S2_K), reps=3)
+            rate, paper = S2_N * S2_K / (ms / 1e3), imad_rate / FE_MUL_IMADS
+            log(f"S2 mul_chain {field.spec.name} 2^17 x K={S2_K}, {product} product: bit-exact; kernel {ms:.6f} ms = "
+                f"{rate:.6e} Montgomery mul/s = {100 * rate / paper:.2f}% of the paper rate {paper:.6e} "
+                f"({FE_MUL_IMADS} multiply-adds per mul); plain {plain:.4f} ms  [{card}]")
+            ms_long = gpu_ms(lambda: mb.mul_chain(field, a2, b2, LONG_K, product=product), reps=10)
+            rate = S2_N * LONG_K / (ms_long / 1e3)
+            log(f"S2 mul_chain {field.spec.name} 2^17 x K={LONG_K}, {product} product: {ms_long:.6f} ms = {rate:.6e} "
+                f"Montgomery mul/s = {100 * rate / paper:.2f}% of the paper rate  [{card}]")
+            if field is FR:
+                record(name, "sirius_tpu_torch/csrc/field_ops.cu", "scripts/tpu_microbench.py:74", err, ms,
+                       plain, S2_N * S2_K, 3 * FE * S2_N)
+    # every product on the edge values 0, 1, p - 1 and R mod p, all pairs, K = 1 and 3
+    for field in (FR, FQ):
+        edge = [0, 1, field.p - 1, (1 << 256) % field.p]
+        ea = torch.from_numpy(ints_to_words(edge)).to(dev)
+        pairs = ea.repeat_interleave(len(edge), 0)  # row i times edge[i mod 4]: every pair
+        for K in (1, 3):
+            want = fk.mul_rows_plain(field, pairs, ea, K)
+            for product in fk.PRODUCTS:
+                check(torch.equal(fk.mul_rows(field, pairs, ea, K, product=product), want),
+                      f"the {product} product on {field} differs from the twin on the edge values (K = {K})")
+    log(f"every product {fk.PRODUCTS} equals the twin on 0, 1, p - 1, R mod p, all pairs, both fields")
     a3 = torch.from_numpy(rng.integers(0, 1 << 32, size=S3_N, dtype=np.int64)).to(dev)
     errs = {}
     for op in ("mul", "add"):
@@ -450,16 +499,16 @@ def main() -> int:
     # the latency of one dependent product: one thread, K = LATENCY_K (S2's kernel)
     a1, b1 = random_elements(rng, 1), random_elements(rng, 1)
     lat = {}
-    for rolled in (False, True):
-        err = word_err([mb.mul_chain(FR, a2, b2, S2_K, rolled=rolled)], [mb.mul_chain_plain(FR, a2, b2, S2_K)])
-        check(err == 0, f"mul_chain (rolled={rolled}) at K = {S2_K} is not bit-exact")
-        lat[rolled] = gpu_ms(lambda: mb.mul_chain(FR, a1, b1, LATENCY_K, rolled=rolled), reps=5) * 1e3 / LATENCY_K
-    check(torch.equal(mb.mul_chain(FR, a1, b1, LATENCY_K), mb.mul_chain(FR, a1, b1, LATENCY_K, rolled=True)),
-          "the rolled and unrolled chains differ")
-    latency_us = lat[True]  # B3's window sums, Horner and reduce run on the rolled product
-    log(f"latency probe (one element, K = {LATENCY_K} dependent bn256 Fr products): unrolled {lat[False]:.6f} us, "
-        f"rolled {lat[True]:.6f} us per product = {lat[False] * clock_mhz:.0f} / {lat[True] * clock_mhz:.0f} SM "
-        f"cycles at the max clock; both bit-exact at K = {S2_K}  [{card}]")
+    for product in fk.PRODUCTS:
+        err = word_err([mb.mul_chain(FR, a2, b2, S2_K, product=product)], [mb.mul_chain_plain(FR, a2, b2, S2_K)])
+        check(err == 0, f"mul_chain ({product} product) at K = {S2_K} is not bit-exact")
+        lat[product] = gpu_ms(lambda: mb.mul_chain(FR, a1, b1, LATENCY_K, product=product), reps=5) * 1e3 / LATENCY_K
+    chains = [mb.mul_chain(FR, a1, b1, LATENCY_K, product=product) for product in fk.PRODUCTS]
+    check(all(torch.equal(chains[0], x) for x in chains[1:]), "the products' chains differ")
+    latency_us = lat["cc_rolled"]  # B3's window sums, Horner and reduce run on the rolled carry-chain product
+    log(f"latency probe (one element, K = {LATENCY_K} dependent bn256 Fr products): "
+        + ", ".join(f"{k} {v:.6f} us = {v * clock_mhz:.0f} SM cycles" for k, v in lat.items())
+        + f" per product at the max clock; all bit-exact at K = {S2_K}  [{card}]")
     log(f"launch counts of the probes' timed runs: {probe_launches}")
     for name, count in probe_launches.items():
         check(count > 0, f"probe {name} never launched in its timed runs")
@@ -509,7 +558,9 @@ def main() -> int:
     qx, qy = K.x[:lanes].contiguous(), K.y[:lanes].contiguous()
     err = word_err(madd_mod.madd_batch(GRUMPKIN, P, qx, qy), madd_mod.madd_plain(GRUMPKIN, P, qx, qy))
     check(err == 0, "B1 madd at the step shape is not bit-exact")
+    madd_mod.madd_batch.launches = 0  # off the main path since msm_many walks its buckets in one launch
     ms = gpu_ms(lambda: madd_mod.madd_batch(GRUMPKIN, P, qx, qy), reps=20)
+    probe_launches["madd"] = madd_mod.madd_batch.launches
     plain = gpu_ms(lambda: madd_mod.madd_plain(GRUMPKIN, P, qx, qy), reps=3)
     record("madd", "sirius_tpu_torch/csrc/madd.cu", "sirius_tpu/ops/pallas_madd.py:136", err, ms, plain,
            MADD_MULS * lanes, 8 * FE * lanes)
@@ -528,7 +579,7 @@ def main() -> int:
     stage["msm_combine_many"] = many_stage["msm_combine"]
     for name, (err, ms, plain, muls, nbytes) in stage.items():
         record(name, "sirius_tpu_torch/csrc/msm.cu",
-               "sirius_tpu/ops/pallas_msm.py:50" if name == "msm_accumulate" else "sirius_tpu/ops/pallas_msm.py:173",
+               "sirius_tpu/ops/pallas_msm.py:50" if name in B2_NAMES else "sirius_tpu/ops/pallas_msm.py:173",
                err, ms, plain, muls, nbytes)
     log(f"B2/B3 at {W_COMMIT_N} grumpkin points (c={plan.c}, W={plan.W}, B={plan.B}) and the combine at "
         f"msm_many's {MANY_SHAPE[:3]}: every stage agrees with its twin; "
@@ -543,7 +594,7 @@ def main() -> int:
                       f"{muls * latency_us / 1e3:.6f} ms, {levels} levels x {latency_us:.6f} us = "
                       f"{levels * latency_us / 1e3:.6f} ms (kernel {stage[k][1]:.6f} ms, bound "
                       f"{kernels[k]['bound_ms']:.7f} ms)")
-    log("serial floors of the longest dependent chain at the rolled product's latency, its products one after "
+    log("serial floors of the longest dependent chain at the rolled carry-chain product's latency, its products one after "
         "another and its dependency levels one after another: " + "; ".join(floors) + f"  [{card}]")
 
     # best_msm at 2^12 against the big-integer reference
@@ -556,13 +607,32 @@ def main() -> int:
     check(BN256_G1.decode(res)[0] == want, "B2/B3 stages at 2^12 disagree with the reference MSM")
     log("B2/B3 best_msm 2^12 bn256: every stage agrees with its twin; result equals the reference MSM")
 
-    # msm_many (B1 path) against best_msm (B2/B3 path) at the cross-term shape
+    # B1's bucket walk at msm_many's cross-term shape, then msm_many (B1 path) against best_msm (B2/B3 path)
     _, Sb = random_scalars(rng, (CROSS_TERMS, CROSS_N))
     pts2 = Points(*(c[:CROSS_N] for c in ck2.points))
+    walk = (GRUMPKIN, Sb, pts2.x.contiguous(), pts2.y.contiguous(), MANY_GROUPS, MANY_WINDOW_BITS)
+    err = word_err(madd_mod.madd_buckets(*walk), madd_mod.madd_buckets_plain(*walk))
+    check(err == 0, "B1 madd_buckets is not bit-exact against its twin at msm_many's shape")
+    ms = gpu_ms(lambda: madd_mod.madd_buckets(*walk), reps=10)
+    plain = gpu_ms(lambda: madd_mod.madd_buckets_plain(*walk), reps=1)
+    # needed products: a madd per live digit but the first of each (t, w, g, v) bucket, which copies the point
+    dg = madd_mod.extract_digits(Sb, MANY_WINDOW_BITS).reshape(CROSS_TERMS, -1, MANY_GROUPS, CROSS_N // MANY_GROUPS)
+    B_many = (1 << MANY_WINDOW_BITS) - 1
+    live = int((dg > 0).sum())
+    touched = sum(int((dg == v).any(-1).sum()) for v in range(1, B_many + 1))
+    record("madd_buckets", "sirius_tpu_torch/csrc/madd.cu", "sirius_tpu/ops/pallas_madd.py:136", err, ms, plain,
+           MADD_MULS * (live - touched), FE * CROSS_TERMS * CROSS_N + 2 * FE * CROSS_N
+           + 3 * FE * CROSS_TERMS * dg.shape[1] * B_many * MANY_GROUPS)
+    mbk = kernels["madd_buckets"]
+    log(f"B1 madd_buckets {CROSS_TERMS} x 2^14 grumpkin ({live} live digits, {touched} buckets touched): bit-exact; "
+        f"kernel {ms:.6f} ms, plain {plain:.4f} ms, bound {mbk['bound_ms']:.6f} ms ({mbk['bound_by']})  [{card}]")
+    before = (madd_mod.madd_buckets.launches, madd_mod.madd_batch.launches)
     many = msm_many(GRUMPKIN, Sb, pts2)
+    after = (madd_mod.madd_buckets.launches, madd_mod.madd_batch.launches)
+    check(after == (before[0] + 1, before[1]), f"msm_many launched madd_buckets / madd {after} from {before}")
     check(many == [best_msm(GRUMPKIN, Sb[i], pts2) for i in range(CROSS_TERMS)],
           "msm_many (B1 path) disagrees with best_msm (B2/B3 path)")
-    log(f"msm_many {CROSS_TERMS} x 2^14 grumpkin: agrees with best_msm")
+    log(f"msm_many {CROSS_TERMS} x 2^14 grumpkin: one madd_buckets launch, no madd launch; agrees with best_msm")
 
     # ---- 2^20 bn256 commit ---------------------------------------------------------------
     n = 1 << PRIMARY_LOG
@@ -670,8 +740,9 @@ def main() -> int:
 
     # ---- the support-fold chain (launch counts from here) -------------------------------------
     S_sup = support_structure()
-    counters = (madd_mod.madd_batch, mk.msm_accumulate, mk.msm_reduce, mk.msm_window_sums, mk.msm_combine)
-    for fn in counters:
+    counters = (madd_mod.madd_buckets, bucket_plan, mk.msm_accumulate, mk.msm_reduce, mk.msm_window_sums,
+                mk.msm_combine)
+    for fn in (*counters, madd_mod.madd_batch):
         fn.launches = 0
     chain = SupportFoldChain(ck2, S_sup)
     totals = {"witness": 0.0, "sps": 0.0, "prove": 0.0}
@@ -691,9 +762,10 @@ def main() -> int:
     log(f"support chain {FOLDS} folds k=14: witness {totals['witness']:.4f} s, sps {totals['sps']:.4f} s, "
         f"prove {totals['prove']:.4f} s, verify {t1 - t0:.4f} s, is_sat {t2 - t1:.4f} s, "
         f"{(totals['witness'] + totals['sps'] + totals['prove']) / FOLDS:.4f} s/fold  [{card}]")
-    log(f"launch counts on the chain: {launches}")
+    log(f"launch counts on the chain: {launches}; madd (batched, off the path): {madd_mod.madd_batch.launches}")
     for name, count in launches.items():
         check(count > 0, f"kernel {name} never launched on the support chain")
+    check(madd_mod.madd_batch.launches == 0, "the support chain still launched the per-step madd")
 
     # corruption probe: one flipped witness cell must be caught
     W0 = chain.acc.W.W[0].clone()
@@ -709,9 +781,9 @@ def main() -> int:
 
     # ---- the Cyclefold IVC: the main path (launch counts from here) -----------------------------
     profiler.enable()
-    for fn in counters:
+    for fn in (*counters, madd_mod.madd_batch):
         fn.launches = 0
-    mk.msm_combine.shapes = {}
+    mk.msm_combine.shapes, mk.msm_accumulate.shapes, bucket_plan.shapes = {}, {}, {}
     t0 = time.perf_counter()
     pp = CyclefoldPublicParams(TrivialStepCircuit(arity=1), IVC_K, ck1, ck2)
     t1 = synced()
@@ -735,10 +807,17 @@ def main() -> int:
         + f"  [{card}]")
     ivc_launches = {fn.__name__: fn.launches for fn in counters}
     combine_shapes = dict(mk.msm_combine.shapes)
-    log(f"launch counts on the IVC path (pp, new, {IVC_STEPS} x next, verify): {ivc_launches}; msm_combine by "
-        f"(t, W, B): {combine_shapes}")
+    accumulate_shapes, sort_shapes = dict(mk.msm_accumulate.shapes), dict(bucket_plan.shapes)
+    log(f"launch counts on the IVC path (pp, new, {IVC_STEPS} x next, verify): {ivc_launches}; madd (batched, off "
+        f"the path): {madd_mod.madd_batch.launches}; msm_combine by (t, W, B): {combine_shapes}; msm_accumulate by "
+        f"(curve, points, chunks): {accumulate_shapes}; bucket_plan by points: {sort_shapes}")
     for name, count in ivc_launches.items():
         check(count > 0, f"kernel {name} never launched on the IVC path")
+    check(madd_mod.madd_batch.launches == 0, "the IVC path still launched the per-step madd")
+    primary_acc = sum(n for (curve, _, _), n in accumulate_shapes.items() if curve == BN256_G1.spec.name)
+    check(0 < primary_acc < ivc_launches["msm_accumulate"],
+          f"msm_accumulate did not launch on both curves' commits: {accumulate_shapes}")
+    check(sort_shapes.get(PRIMARY_W_N, 0) > 0, f"no bucket sort at the primary W commit's {PRIMARY_W_N} points")
     check(any(shape[0] == 1 for shape in combine_shapes) and any(shape[0] > 1 for shape in combine_shapes),
           f"msm_combine did not launch at both best_msm's and msm_many's shapes: {combine_shapes}")
     log(f"IVC digests after {IVC_STEPS} steps: pg_acc_digest "
@@ -758,12 +837,34 @@ def main() -> int:
     check(ivc.verify() == [], "IVC verify after the profiled next")
     profiler.enabled = False
 
-    # ---- S1: the rolled-product reduce on the primary commit's level-0 partials ---------------
+    # ---- B2 at the primary W commit, then S1 on its level-0 partials ------------------------------
     W = ivc.primary_trace.w.W[0]
     S = FR.from_mont(W)
+    check(S.shape[0] == PRIMARY_W_N, f"the primary trace's W round holds {S.shape[0]} values")
     plan = bucket_plan(S)
+    plain_plan = bucket_plan_plain(S)
+    check(all(torch.equal(getattr(plan, k), getattr(plain_plan, k)) for k in PLAN_ARRAYS),
+          "B2's bucket sort differs from bucket_plan_plain at the primary W commit")
     acc = (BN256_G1, plan.entries, plan.chunk_start, plan.chunk_len, ck1.points.x, ck1.points.y)
     parts = mk.msm_accumulate(*acc)
+    err = word_err(parts, mk.msm_accumulate_plain(*acc))
+    check(err == 0, "B2 msm_accumulate is not bit-exact against its twin at the primary W commit")
+    ms_sort = gpu_ms(lambda: bucket_plan(S))
+    plain_sort = gpu_ms(lambda: bucket_plan_plain(S), reps=1)
+    ms_acc = gpu_ms(lambda: mk.msm_accumulate(*acc), reps=5)
+    plain_acc = gpu_ms(lambda: mk.msm_accumulate_plain(*acc), reps=1)
+    n_entries, n_chunks = plan.entries.shape[0], plan.chunk_start.shape[0]
+    record("bucket_sort_primary", "sirius_tpu_torch/csrc/msm.cu", "sirius_tpu/ops/pallas_msm.py:50", 0, ms_sort,
+           plain_sort, 0, sort_bytes(plan, PRIMARY_W_N))
+    record("msm_accumulate_primary", "sirius_tpu_torch/csrc/msm.cu", "sirius_tpu/ops/pallas_msm.py:50", err, ms_acc,
+           plain_acc, MADD_MULS * seeded_adds(plan.chunk_len),
+           4 * n_entries + 8 * n_chunks + 2 * FE * PRIMARY_W_N + 3 * FE * n_chunks)
+    b2p, sp = kernels["msm_accumulate_primary"], kernels["bucket_sort_primary"]
+    log(f"B2 at the primary W commit ({PRIMARY_W_N} bn256 scalars of the IVC's last step, c={plan.c}: {n_entries} "
+        f"live digits, {n_chunks} chunks): the bucket sort equals bucket_plan_plain, msm_accumulate is bit-exact; "
+        f"bucket sort {ms_sort:.6f} ms (plain {plain_sort:.4f} ms, bound {sp['bound_ms']:.7f} ms, {sp['bound_by']}), "
+        f"msm_accumulate {ms_acc:.6f} ms (plain {plain_acc:.4f} ms, bound {b2p['bound_ms']:.7f} ms, "
+        f"{b2p['bound_by']})  [{card}]")
     deep = int((plan.seg_off[1:] - plan.seg_off[:-1]).max()) > FAN_IN
     sub_off = split_segments(plan.seg_off, FAN_IN)[0] if deep else plan.seg_off
     args = (BN256_G1, sub_off, parts)
@@ -791,20 +892,34 @@ def main() -> int:
         f"word; in turns msm_reduce {ms_ref:.6f} ms, rolled {ms_rolled:.6f} ms, rolled {ms_rolled2:.6f} ms, "
         f"msm_reduce {ms_ref2:.6f} ms; plain {plain:.4f} ms; bound {s1['bound_ms']:.6f} ms ({s1['bound_by']})  "
         f"[{card}]")
-    sass = sass_instructions()
-    for name in mk.MSM_KERNELS:
-        attrs = mk.msm_kernel_attrs(name)
-        attrs["sassInstructions"] = (sum(v for k, v in sass.items() if re.search(rf"\d{name}_kernel", k))
+    sass = sass_opcodes()
+    for name, attrs_of in [(k, mk.msm_kernel_attrs) for k in mk.MSM_KERNELS] + [
+            (k, madd_mod.madd_kernel_attrs) for k in madd_mod.MADD_KERNELS]:
+        attrs = attrs_of(name)
+        attrs["sassInstructions"] = (sum(sum(v.values()) for k, v in sass.items() if re.search(rf"\d{name}_kernel", k))
                                      if sass else "not measured")
         log(f"{name}: {attrs}")
+    for i, product in enumerate(fk.PRODUCTS):  # csrc/field_ops.cu mul_rows_kernel<false, i>: one product in its K loop
+        ops = sum((v for k, v in (sass or {}).items() if f"mul_rows_kernelILb0ELi{i}E" in k), Counter())
+        imads = {op: v for op, v in ops.items() if op.startswith("IMAD")}
+        muls = sum(v for op, v in imads.items() if not op.startswith(("IMAD.MOV", "IMAD.IADD", "IMAD.SHL")))
+        log(f"SASS of mul_rows on the {product} product (the K loop holds one product): "
+            + (f"{sum(ops.values())} instructions, {muls} integer multiplies (IMAD-class less moves, adds, "
+               f"shifts); IMAD-class by opcode {dict(sorted(imads.items()))}" if ops else "not measured"))
 
-    for key, fn in zip(("madd", "msm_accumulate", "msm_reduce", "msm_window_sums"), counters):
-        kernels[key]["launches"] = ivc_launches[fn.__name__]
+    kernels["madd_buckets"]["launches"] = ivc_launches["madd_buckets"]
+    for key in ("msm_reduce", "msm_window_sums"):
+        kernels[key]["launches"] = ivc_launches[key]
+    kernels["msm_accumulate"]["launches"] = ivc_launches["msm_accumulate"] - primary_acc
+    kernels["msm_accumulate_primary"]["launches"] = primary_acc
+    kernels["bucket_sort_primary"]["launches"] = sort_shapes[PRIMARY_W_N]
+    kernels["bucket_sort"]["launches"] = ivc_launches["bucket_plan"] - sort_shapes[PRIMARY_W_N]
     kernels["msm_combine"]["launches"] = sum(n for shape, n in combine_shapes.items() if shape[0] == 1)
     kernels["msm_combine_many"]["launches"] = sum(n for shape, n in combine_shapes.items() if shape[0] > 1)
     kernels["col_ntt"]["launches"] = ntt_launches["col_ntt"]
     kernels["mul_rows"]["launches"] = ntt_launches["mul_rows"]
     for name, count in probe_launches.items():
+        check(count > 0, f"{name} never launched in its timed runs")
         kernels[name]["launches"] = count
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)

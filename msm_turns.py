@@ -1,18 +1,31 @@
 #!/usr/bin/env python3
-"""B3's kernels of two checkouts of the port, timed in turns on one GPU.
+"""The MSM kernels (B1-B3), S1 and B4 of two checkouts of the port, timed in turns on one GPU.
 
     python3 msm_turns.py OLD_DIR NEW_DIR
+    python3 msm_turns.py --turn DIR      (one turn alone: DIR's numbers)
 
 Each turn is a fresh Python process that imports `sirius_tpu_torch` from
 one checkout (building its kernels there at first use) and times, with CUDA
-events (mean of 10 calls after one warm call), on inputs made from a fixed
-seed:
+events (mean of 10 calls after one warm call unless noted), on inputs made
+from a fixed seed:
 - `msm_combine` at best_msm's shape (1, W = 27, B = 512, c = 10) and at
   msm_many's (t = 5, W = 64, B = 15, c = 4), on Jacobian bucket sums drawn
   from a 2^10 grumpkin key (the time does not depend on the values);
 - `msm_reduce` on the first reduce level of the support W commit (114,688
   grumpkin scalars, c = 10, as `bench.py` draws them): the real segment
-  offsets, over Jacobian partials from the same key.
+  offsets, over Jacobian partials from the same key;
+- B2 `msm_accumulate` and `bucket_plan` (3 calls; its host syncs included)
+  at the IVC path's two W-commit shapes: the support commit (114,688
+  grumpkin scalars) and the primary commit (917,504 bn256 scalars), both
+  c = 10, over a 2^14 key tiled to the commit's length (the memory
+  footprint of the real key; repeated values cost the same adds);
+- msm_many's bucket stage at the support cross-term shape (t = 5, 2^14
+  grumpkin points, 4-bit windows, 256 groups): one `madd_buckets` launch
+  where the checkout has it, else the per-step loop of B1 launches with the
+  one-hot select and write-back; and the whole `msm_many` call (3 calls);
+- the field product's other kernels: S1 `msm_reduce_rolled` on the reduce
+  inputs above, and B4 `col_ntt` at the 2^20 NTT's first pass (size 1024
+  over R = 1024 columns of random bn256 Fr elements).
 The turns run OLD, NEW, NEW, OLD; each prints one JSON line, and the script
 prints the card (name, power limit) and a JSON summary last.
 """
@@ -25,8 +38,38 @@ import sys
 from pathlib import Path
 
 SEED = 20261016
-W_COMMIT_N = 7 << 14
+W_COMMIT_N = 7 << 14  # the support W commit: 7 advice columns x 2^14 rows
+PRIMARY_N = 7 << 17  # the primary W commit: 7 advice columns x 2^17 rows
+CROSS = (5, 1 << 14)  # msm_many at the support cross terms: (t, n)
 SHAPES = {"combine_1x27x512": (1, 27, 512, 10), "combine_5x64x15": (5, 64, 15, 4)}
+
+
+def old_bucket_stage(curve, scalars, px, py, G, c):
+    """msm_many's bucket stage before `madd_buckets`: one B1 launch per step,
+    the bucket each lane's digit selects taken by a one-hot multiply-and-sum
+    over the table and written back with torch.where."""
+    import torch
+
+    from sirius_tpu_torch.ops.madd import madd_batch
+    from sirius_tpu_torch.ops.msm import _extract_digits
+
+    t, n = scalars.shape[:2]
+    B, g = (1 << c) - 1, n // G
+    digits = _extract_digits(scalars, c)
+    W = digits.shape[1]
+    dg = digits.reshape(t, W, G, g)
+    pxg, pyg = px.reshape(G, g, 8), py.reshape(G, g, 8)
+    vs = torch.arange(1, B + 1, device=scalars.device)
+    table = curve.identity((t, W, G, B), scalars.device)
+    lanes = t * W * G
+    for step in range(g):
+        oh = (dg[..., step, None] == vs).unsqueeze(-1)
+        cur = type(table)(*((tc * oh).sum(3).reshape(lanes, 8) for tc in table))
+        qx = pxg[:, step].expand(t, W, G, 8).reshape(lanes, 8)
+        qy = pyg[:, step].expand(t, W, G, 8).reshape(lanes, 8)
+        new = madd_batch(curve, cur, qx, qy)
+        table = type(table)(*(torch.where(oh, nc.reshape(t, W, G, 1, 8), tc) for tc, nc in zip(table, new)))
+    return table
 
 
 def turn() -> None:
@@ -34,10 +77,15 @@ def turn() -> None:
     import numpy as np
     import torch
 
-    from sirius_tpu_torch.curves.jpoint import GRUMPKIN, Points
+    from sirius_tpu_torch.curves.jpoint import BN256_G1, GRUMPKIN, Points
+    from sirius_tpu_torch.fields.jfield import FR
+    from sirius_tpu_torch.ops import madd as madd_mod
     from sirius_tpu_torch.ops import msm_kernels as mk
     from sirius_tpu_torch.ops.commitment import CommitmentKey
-    from sirius_tpu_torch.ops.msm import FAN_IN, bucket_plan, split_segments
+    from sirius_tpu_torch.ops.msm import FAN_IN, MANY_GROUPS, MANY_WINDOW_BITS, bucket_plan, msm_many
+    from sirius_tpu_torch.ops.msm import split_segments
+    from sirius_tpu_torch.ops.ntt import NTT
+    from sirius_tpu_torch.ops.ntt_kernels import col_ntt
     from sirius_tpu_torch.util.interop import limbs_to_words
 
     dev = torch.device("cuda:0")
@@ -48,6 +96,11 @@ def turn() -> None:
     def jacobian(n):
         idx = torch.from_numpy(rng.integers(0, len(ck), size=n)).to(dev)
         return Points(*(c[idx].contiguous() for c in pts))
+
+    def scalars(shape):
+        limbs = rng.integers(0, 1 << 16, size=(*shape, 16), dtype=np.uint32)
+        limbs[..., 15] &= 0x0FFF
+        return torch.from_numpy(limbs_to_words(limbs)).to(dev)
 
     def gpu_ms(fn, reps=10):
         fn()
@@ -64,18 +117,45 @@ def turn() -> None:
     for name, (t, W, B, c) in SHAPES.items():
         bk = Points(*(a.reshape(t, W, B, 8) for a in jacobian(t * W * B)))
         out[name] = gpu_ms(lambda: mk.msm_combine(GRUMPKIN, bk, c))
-    limbs = rng.integers(0, 1 << 16, size=(W_COMMIT_N, 16), dtype=np.uint32)
-    limbs[:, 15] &= 0x0FFF
-    plan = bucket_plan(torch.from_numpy(limbs_to_words(limbs)).to(dev))
+    plan = bucket_plan(scalars((W_COMMIT_N,)))
     sub_off, _ = split_segments(plan.seg_off, FAN_IN)
     parts = jacobian(int(plan.seg_off[-1]))
     out["reduce_level0"] = gpu_ms(lambda: mk.msm_reduce(GRUMPKIN, sub_off, parts))
+
+    for label, curve, n in (("support", GRUMPKIN, W_COMMIT_N), ("primary", BN256_G1, PRIMARY_N)):
+        key = CommitmentKey.setup(curve, 14, b"msm-turns", use_cache=False, device=dev)
+        reps = -(-n // len(key))
+        px, py = (c.repeat(reps, 1)[:n].contiguous() for c in key.points[:2])
+        S = scalars((n,))
+        plan = bucket_plan(S)
+        args = (curve, plan.entries, plan.chunk_start, plan.chunk_len, px, py)
+        out[f"accumulate_{label}"] = gpu_ms(lambda: mk.msm_accumulate(*args))
+        out[f"bucket_plan_{label}"] = gpu_ms(lambda: bucket_plan(S), reps=3)
+        out[f"live_digits_{label}"] = int(plan.entries.shape[0])
+        out[f"chunks_{label}"] = int(plan.chunk_start.shape[0])
+
+    t, n = CROSS
+    key = CommitmentKey.setup(GRUMPKIN, 14, b"msm-turns", use_cache=False, device=dev)
+    S = scalars((t, n))
+    px, py = key.points.x[:n].contiguous(), key.points.y[:n].contiguous()
+    G, c = MANY_GROUPS, MANY_WINDOW_BITS
+    if hasattr(madd_mod, "madd_buckets"):
+        stage = lambda: madd_mod.madd_buckets(GRUMPKIN, S, px, py, G, c)  # noqa: E731
+    else:
+        stage = lambda: old_bucket_stage(GRUMPKIN, S, px, py, G, c)  # noqa: E731
+    out["many_bucket_stage"] = gpu_ms(stage, reps=3)
+    out["msm_many"] = gpu_ms(lambda: msm_many(GRUMPKIN, S, key.points), reps=3)
+
+    out["reduce_rolled_level0"] = gpu_ms(lambda: mk.msm_reduce_rolled(GRUMPKIN, sub_off, parts))
+    ntt = NTT(FR, 20, dev)
+    M = FR.random((1 << 20,), rng, dev).reshape(ntt.n1, ntt.n2, 8)
+    out["col_ntt_1024"] = gpu_ms(lambda: col_ntt(FR, M, ntt.rev_n1, ntt.inner[False]))
     print(json.dumps(out))
 
 
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--turn":
-        sys.path.insert(0, sys.argv[2])
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
         turn()
         return 0
     if len(sys.argv) != 3:

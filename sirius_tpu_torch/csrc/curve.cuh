@@ -100,36 +100,37 @@ __device__ __forceinline__ Pt pt_add(const Pt& P, const Pt& Q, const FieldConst&
   return pt_add_t<false>(P, Q, fc);
 }
 
-// k_dbl with its products in dependency levels (fe_mul_n): 3 + 3 + 1
-// products, so a chain of doublings waits ~3 product latencies per
-// doubling instead of 7.  The same words as pt_dbl.
+// k_dbl with its products in dependency levels (fe_mul_n: the rolled
+// carry-chain product) and the carry-chain adds: 3 + 3 + 1 products, so a
+// chain of doublings waits ~3 product latencies per doubling instead of 7.
+// The same words as pt_dbl.
 __device__ __forceinline__ Pt pt_dbl_ilp(const Pt& P, const FieldConst& fc) {
   Fe o1[3];
   const Fe a1[3] = {P.x, P.y, P.y}, b1[3] = {P.x, P.y, P.z};
   fe_mul_n<3>(o1, a1, b1, fc);  // A = x^2, B = y^2, y z
   const Fe& A = o1[0];
   const Fe& B = o1[1];
-  const Fe xb = fe_add(P.x, B, fc);
-  const Fe E = fe_add(fe_double(A, fc), A, fc);
+  const Fe xb = fe_add_cc(P.x, B, fc);
+  const Fe E = fe_add_cc(fe_double_cc(A, fc), A, fc);
   Fe o2[3];
   const Fe a2[3] = {B, xb, E};
   fe_mul_n<3>(o2, a2, a2, fc);  // C = B^2, T = (x + B)^2, F = E^2
   const Fe& C = o2[0];
-  const Fe D = fe_double(fe_sub(fe_sub(o2[1], A, fc), C, fc), fc);
+  const Fe D = fe_double_cc(fe_sub_cc(fe_sub_cc(o2[1], A, fc), C, fc), fc);
   Pt r;
-  r.x = fe_sub(o2[2], fe_double(D, fc), fc);
-  const Fe C8 = fe_double(fe_double(fe_double(C, fc), fc), fc);
+  r.x = fe_sub_cc(o2[2], fe_double_cc(D, fc), fc);
+  const Fe C8 = fe_double_cc(fe_double_cc(fe_double_cc(C, fc), fc), fc);
   Fe o3[1];
-  const Fe a3[1] = {E}, b3[1] = {fe_sub(D, r.x, fc)};
+  const Fe a3[1] = {E}, b3[1] = {fe_sub_cc(D, r.x, fc)};
   fe_mul_n<1>(o3, a3, b3, fc);
-  r.y = fe_sub(o3[0], C8, fc);
-  r.z = fe_double(o1[2], fc);
+  r.y = fe_sub_cc(o3[0], C8, fc);
+  r.z = fe_double_cc(o1[2], fc);
   return r;
 }
 
-// k_add_complete with its products in dependency levels (fe_mul_n):
-// 5 + 4 + 3 + 2 + 2 products, ~5 product latencies instead of 16.  The same
-// words as pt_add.
+// k_add_complete with its products in dependency levels (fe_mul_n) and the
+// carry-chain adds: 5 + 4 + 3 + 2 + 2 products, ~5 product latencies
+// instead of 16.  The same words as pt_add.
 __device__ __forceinline__ Pt pt_add_ilp(const Pt& P, const Pt& Q, const FieldConst& fc) {
   Fe o1[5];
   const Fe a1[5] = {P.z, Q.z, P.y, Q.y, P.z}, b1[5] = {P.z, Q.z, Q.z, P.z, Q.z};
@@ -139,8 +140,8 @@ __device__ __forceinline__ Pt pt_add_ilp(const Pt& P, const Pt& Q, const FieldCo
   fe_mul_n<4>(o2, a2, b2, fc);  // u1, u2, s1, s2
   const Fe& u1 = o2[0];
   const Fe& s1 = o2[2];
-  const Fe h = fe_sub(o2[1], u1, fc);
-  const Fe r = fe_sub(o2[3], s1, fc);
+  const Fe h = fe_sub_cc(o2[1], u1, fc);
+  const Fe r = fe_sub_cc(o2[3], s1, fc);
   Fe o3[3];
   const Fe a3[3] = {h, r, o1[4]}, b3[3] = {h, r, h};
   fe_mul_n<3>(o3, a3, b3, fc);  // hh, r^2, z3
@@ -150,11 +151,11 @@ __device__ __forceinline__ Pt pt_add_ilp(const Pt& P, const Pt& Q, const FieldCo
   const Fe& hhh = o4[0];
   const Fe& v = o4[1];
   Pt out;
-  out.x = fe_sub(fe_sub(o3[1], hhh, fc), fe_double(v, fc), fc);
+  out.x = fe_sub_cc(fe_sub_cc(o3[1], hhh, fc), fe_double_cc(v, fc), fc);
   Fe o5[2];
-  const Fe a5[2] = {r, s1}, b5[2] = {fe_sub(v, out.x, fc), hhh};
+  const Fe a5[2] = {r, s1}, b5[2] = {fe_sub_cc(v, out.x, fc), hhh};
   fe_mul_n<2>(o5, a5, b5, fc);
-  out.y = fe_sub(o5[0], o5[1], fc);
+  out.y = fe_sub_cc(o5[0], o5[1], fc);
   out.z = o3[2];
 
   bool p_inf = fe_is_zero(P.z);
@@ -169,26 +170,28 @@ __device__ __forceinline__ Pt pt_add_ilp(const Pt& P, const Pt& Q, const FieldCo
 }
 
 // k_madd_incomplete: Q = (qx, qy) affine, not the identity, Q != +-P;
-// P may be the identity, which gives Q.
+// P may be the identity, which gives Q.  On the carry-chain field ops
+// (B1, B2 and the bucket walk): the same words as on fe_add/fe_sub/fe_mul.
 __device__ __forceinline__ Pt pt_madd(const Pt& P, const Fe& qx, const Fe& qy, const FieldConst& fc) {
-  Fe z1z1 = fe_square(P.z, fc);
-  Fe u2 = fe_mul(qx, z1z1, fc);
-  Fe t = fe_mul(qy, P.z, fc);
-  Fe s2 = fe_mul(t, z1z1, fc);
-  Fe h = fe_sub(u2, P.x, fc);
-  Fe rr = fe_double(fe_sub(s2, P.y, fc), fc);
-  Fe hh = fe_square(h, fc);
-  Fe zh2 = fe_square(fe_add(P.z, h, fc), fc);
-  Fe r2 = fe_square(rr, fc);
-  Fe i4 = fe_double(fe_double(hh, fc), fc);
-  Fe j = fe_mul(h, i4, fc);
-  Fe v = fe_mul(P.x, i4, fc);
+  Fe z1z1 = fe_mul_cc(P.z, P.z, fc);
+  Fe u2 = fe_mul_cc(qx, z1z1, fc);
+  Fe t = fe_mul_cc(qy, P.z, fc);
+  Fe s2 = fe_mul_cc(t, z1z1, fc);
+  Fe h = fe_sub_cc(u2, P.x, fc);
+  Fe rr = fe_double_cc(fe_sub_cc(s2, P.y, fc), fc);
+  Fe hh = fe_mul_cc(h, h, fc);
+  Fe zh2 = fe_add_cc(P.z, h, fc);
+  zh2 = fe_mul_cc(zh2, zh2, fc);
+  Fe r2 = fe_mul_cc(rr, rr, fc);
+  Fe i4 = fe_double_cc(fe_double_cc(hh, fc), fc);
+  Fe j = fe_mul_cc(h, i4, fc);
+  Fe v = fe_mul_cc(P.x, i4, fc);
   Pt out;
-  out.x = fe_sub(fe_sub(r2, j, fc), fe_double(v, fc), fc);
-  Fe a = fe_mul(rr, fe_sub(v, out.x, fc), fc);
-  Fe b = fe_mul(P.y, j, fc);
-  out.y = fe_sub(a, fe_double(b, fc), fc);
-  out.z = fe_sub(fe_sub(zh2, z1z1, fc), hh, fc);
+  out.x = fe_sub_cc(fe_sub_cc(r2, j, fc), fe_double_cc(v, fc), fc);
+  Fe a = fe_mul_cc(rr, fe_sub_cc(v, out.x, fc), fc);
+  Fe b = fe_mul_cc(P.y, j, fc);
+  out.y = fe_sub_cc(a, fe_double_cc(b, fc), fc);
+  out.z = fe_sub_cc(fe_sub_cc(zh2, z1z1, fc), hh, fc);
   if (fe_is_zero(P.z)) {
     out.x = qx;
     out.y = qy;

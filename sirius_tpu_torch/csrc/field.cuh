@@ -54,6 +54,15 @@ __device__ __forceinline__ void fe_store(long long* dst, long long row, const Fe
   for (int k = 0; k < 8; ++k) d[k] = (long long)a.v[k];
 }
 
+// Bits [w c, w c + c) of a 256-bit scalar held as eight words in int64 (a
+// c-bit window, c < 32, as `ops/madd.py:extract_digits` takes it).
+__device__ __forceinline__ uint32_t window_digit(const long long* s, int w, int c) {
+  const int bit = w * c, word = bit >> 5, off = bit & 31;
+  uint32_t d = (uint32_t)s[word] >> off;
+  if (off + c > 32 && word + 1 < 8) d |= (uint32_t)s[word + 1] << (32 - off);
+  return d & ((1u << c) - 1u);
+}
+
 __device__ __forceinline__ Fe fe_zero() {
   Fe r;
 #pragma unroll
@@ -129,10 +138,6 @@ __device__ __forceinline__ Fe fe_sub(const Fe& a, const Fe& b, const FieldConst&
   return fe_select(borrow == 1u, e, d);
 }
 
-__device__ __forceinline__ Fe fe_neg(const Fe& a, const FieldConst& fc) {
-  return fe_sub(fe_zero(), a, fc);
-}
-
 __device__ __forceinline__ Fe fe_double(const Fe& a, const FieldConst& fc) {
   return fe_add(a, a, fc);
 }
@@ -206,36 +211,221 @@ __device__ __forceinline__ Fe fe_square(const Fe& a, const FieldConst& fc) {
   return fe_mul(a, a, fc);
 }
 
-// N independent rolled products r[n] = a[n] * b[n] * R^-1, their CIOS rounds
-// interleaved in one rolled loop: one thread's dependent carry chains
-// (~1,600-2,000 SM cycles per product on the H100) overlap N ways, so N
+// ---- carry-chain arithmetic (B1, B2, B3 through fe_mul_n, B4) ----------------
+//
+// fe_add_cc, fe_sub_cc and fe_mul_cc compute fe_add, fe_sub and fe_mul word
+// for word, with every carry in a PTX carry chain on the device (add.cc /
+// addc, sub.cc / subc, mad.lo.cc / madc.hi.cc: the carry stays in the flag
+// instead of in a 64-bit sum that is split again), the standard form of
+// 256-bit Montgomery arithmetic on NVIDIA GPUs.  A chain lives inside one
+// asm statement: the flag does not survive between statements.  The product
+// is CIOS: per round 8 + 8 multiply-adds for a * b_i, one for m, 7 + 8 for
+// m * p (the low word of t_0 + m p_0 is 0 by the choice of m, so only its
+// carry, t_0 != 0, is taken), 256 in all where the hand count of 32x32->64
+// products is 136.  It needs 2p < 2^256 (every field of the port has
+// p < 2^254): a round's sum t + a b_i + m p < 2^288 fits in nine words.
+// Without __CUDA_ARCH__ (a host rehearsal) they are the C++ functions above.
+
+#ifdef __CUDA_ARCH__
+// s (with carry word c) < 2p -> s mod p
+__device__ __forceinline__ Fe fe_reduce_cc(const Fe& s, uint32_t c, const FieldConst& fc) {
+  Fe d = s;
+  uint32_t bw = c;
+  asm("sub.cc.u32 %0, %0, %9;\n\t"
+      "subc.cc.u32 %1, %1, %10;\n\t"
+      "subc.cc.u32 %2, %2, %11;\n\t"
+      "subc.cc.u32 %3, %3, %12;\n\t"
+      "subc.cc.u32 %4, %4, %13;\n\t"
+      "subc.cc.u32 %5, %5, %14;\n\t"
+      "subc.cc.u32 %6, %6, %15;\n\t"
+      "subc.cc.u32 %7, %7, %16;\n\t"
+      "subc.u32 %8, %8, 0;"
+      : "+r"(d.v[0]), "+r"(d.v[1]), "+r"(d.v[2]), "+r"(d.v[3]), "+r"(d.v[4]), "+r"(d.v[5]), "+r"(d.v[6]),
+        "+r"(d.v[7]), "+r"(bw)
+      : "r"(fc.p[0]), "r"(fc.p[1]), "r"(fc.p[2]), "r"(fc.p[3]), "r"(fc.p[4]), "r"(fc.p[5]), "r"(fc.p[6]),
+        "r"(fc.p[7]));
+  // bw = c - borrow: all ones exactly when there is no carry word and s < p
+  return fe_select(bw == 0xFFFFFFFFu, s, d);
+}
+
+__device__ __forceinline__ Fe fe_add_cc(const Fe& a, const Fe& b, const FieldConst& fc) {
+  Fe s = a;
+  uint32_t c = 0u;
+  asm("add.cc.u32 %0, %0, %9;\n\t"
+      "addc.cc.u32 %1, %1, %10;\n\t"
+      "addc.cc.u32 %2, %2, %11;\n\t"
+      "addc.cc.u32 %3, %3, %12;\n\t"
+      "addc.cc.u32 %4, %4, %13;\n\t"
+      "addc.cc.u32 %5, %5, %14;\n\t"
+      "addc.cc.u32 %6, %6, %15;\n\t"
+      "addc.cc.u32 %7, %7, %16;\n\t"
+      "addc.u32 %8, %8, 0;"
+      : "+r"(s.v[0]), "+r"(s.v[1]), "+r"(s.v[2]), "+r"(s.v[3]), "+r"(s.v[4]), "+r"(s.v[5]), "+r"(s.v[6]),
+        "+r"(s.v[7]), "+r"(c)
+      : "r"(b.v[0]), "r"(b.v[1]), "r"(b.v[2]), "r"(b.v[3]), "r"(b.v[4]), "r"(b.v[5]), "r"(b.v[6]),
+        "r"(b.v[7]));
+  return fe_reduce_cc(s, c, fc);
+}
+
+__device__ __forceinline__ Fe fe_sub_cc(const Fe& a, const Fe& b, const FieldConst& fc) {
+  Fe d = a;
+  uint32_t bw = 0u;
+  asm("sub.cc.u32 %0, %0, %9;\n\t"
+      "subc.cc.u32 %1, %1, %10;\n\t"
+      "subc.cc.u32 %2, %2, %11;\n\t"
+      "subc.cc.u32 %3, %3, %12;\n\t"
+      "subc.cc.u32 %4, %4, %13;\n\t"
+      "subc.cc.u32 %5, %5, %14;\n\t"
+      "subc.cc.u32 %6, %6, %15;\n\t"
+      "subc.cc.u32 %7, %7, %16;\n\t"
+      "subc.u32 %8, %8, 0;"
+      : "+r"(d.v[0]), "+r"(d.v[1]), "+r"(d.v[2]), "+r"(d.v[3]), "+r"(d.v[4]), "+r"(d.v[5]), "+r"(d.v[6]),
+        "+r"(d.v[7]), "+r"(bw)
+      : "r"(b.v[0]), "r"(b.v[1]), "r"(b.v[2]), "r"(b.v[3]), "r"(b.v[4]), "r"(b.v[5]), "r"(b.v[6]),
+        "r"(b.v[7]));
+  // a < b: add p back, dropping the carry out (the sum wraps mod 2^256)
+  Fe e = d;
+  asm("add.cc.u32 %0, %0, %8;\n\t"
+      "addc.cc.u32 %1, %1, %9;\n\t"
+      "addc.cc.u32 %2, %2, %10;\n\t"
+      "addc.cc.u32 %3, %3, %11;\n\t"
+      "addc.cc.u32 %4, %4, %12;\n\t"
+      "addc.cc.u32 %5, %5, %13;\n\t"
+      "addc.cc.u32 %6, %6, %14;\n\t"
+      "addc.u32 %7, %7, %15;"
+      : "+r"(e.v[0]), "+r"(e.v[1]), "+r"(e.v[2]), "+r"(e.v[3]), "+r"(e.v[4]), "+r"(e.v[5]), "+r"(e.v[6]),
+        "+r"(e.v[7])
+      : "r"(fc.p[0]), "r"(fc.p[1]), "r"(fc.p[2]), "r"(fc.p[3]), "r"(fc.p[4]), "r"(fc.p[5]), "r"(fc.p[6]),
+        "r"(fc.p[7]));
+  return fe_select(bw != 0u, e, d);
+}
+
+// One CIOS round of fe_mul_cc on t (nine words): t += a * bi, then t += m p
+// with m = t_0 * n0inv and t /= 2^32.
+__device__ __forceinline__ void cc_round(uint32_t (&t)[9], const Fe& a, uint32_t bi, const FieldConst& fc) {
+  t[8] = 0u;
+  // t (< 2p, eight words) += a * b_i into nine words
+  asm("mad.lo.cc.u32 %0, %9, %17, %0;\n\t"
+      "madc.lo.cc.u32 %1, %10, %17, %1;\n\t"
+      "madc.lo.cc.u32 %2, %11, %17, %2;\n\t"
+      "madc.lo.cc.u32 %3, %12, %17, %3;\n\t"
+      "madc.lo.cc.u32 %4, %13, %17, %4;\n\t"
+      "madc.lo.cc.u32 %5, %14, %17, %5;\n\t"
+      "madc.lo.cc.u32 %6, %15, %17, %6;\n\t"
+      "madc.lo.cc.u32 %7, %16, %17, %7;\n\t"
+      "addc.u32 %8, %8, 0;\n\t"
+      "mad.hi.cc.u32 %1, %9, %17, %1;\n\t"
+      "madc.hi.cc.u32 %2, %10, %17, %2;\n\t"
+      "madc.hi.cc.u32 %3, %11, %17, %3;\n\t"
+      "madc.hi.cc.u32 %4, %12, %17, %4;\n\t"
+      "madc.hi.cc.u32 %5, %13, %17, %5;\n\t"
+      "madc.hi.cc.u32 %6, %14, %17, %6;\n\t"
+      "madc.hi.cc.u32 %7, %15, %17, %7;\n\t"
+      "madc.hi.u32 %8, %16, %17, %8;"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7]),
+        "+r"(t[8])
+      : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(a.v[4]), "r"(a.v[5]), "r"(a.v[6]), "r"(a.v[7]),
+        "r"(bi));
+  // t += m * p with m = t_0 * n0inv, so the low word vanishes: its carry is
+  // t_0 != 0, which t_0 + (2^32 - 1) carries too
+  const uint32_t m = t[0] * fc.n0inv;
+  asm("add.cc.u32 %0, %0, 0xFFFFFFFF;\n\t"
+      "madc.lo.cc.u32 %1, %9, %11, %1;\n\t"
+      "madc.lo.cc.u32 %2, %9, %12, %2;\n\t"
+      "madc.lo.cc.u32 %3, %9, %13, %3;\n\t"
+      "madc.lo.cc.u32 %4, %9, %14, %4;\n\t"
+      "madc.lo.cc.u32 %5, %9, %15, %5;\n\t"
+      "madc.lo.cc.u32 %6, %9, %16, %6;\n\t"
+      "madc.lo.cc.u32 %7, %9, %17, %7;\n\t"
+      "addc.u32 %8, %8, 0;\n\t"
+      "mad.hi.cc.u32 %1, %9, %10, %1;\n\t"
+      "madc.hi.cc.u32 %2, %9, %11, %2;\n\t"
+      "madc.hi.cc.u32 %3, %9, %12, %3;\n\t"
+      "madc.hi.cc.u32 %4, %9, %13, %4;\n\t"
+      "madc.hi.cc.u32 %5, %9, %14, %5;\n\t"
+      "madc.hi.cc.u32 %6, %9, %15, %6;\n\t"
+      "madc.hi.cc.u32 %7, %9, %16, %7;\n\t"
+      "madc.hi.u32 %8, %9, %17, %8;"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7]),
+        "+r"(t[8])
+      : "r"(m), "r"(fc.p[0]), "r"(fc.p[1]), "r"(fc.p[2]), "r"(fc.p[3]), "r"(fc.p[4]), "r"(fc.p[5]), "r"(fc.p[6]),
+        "r"(fc.p[7]));
+#pragma unroll
+  for (int k = 0; k < 8; ++k) t[k] = t[k + 1];  // divide by 2^32
+}
+
+__device__ __forceinline__ Fe fe_mul_cc(const Fe& a, const Fe& b, const FieldConst& fc) {
+  uint32_t t[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) t[k] = 0u;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) cc_round(t, a, b.v[i], fc);
+  const Fe w = {{t[0], t[1], t[2], t[3], t[4], t[5], t[6], t[7]}};
+  return fe_reduce_cc(w, 0u, fc);
+}
+#else
+__device__ __forceinline__ Fe fe_add_cc(const Fe& a, const Fe& b, const FieldConst& fc) { return fe_add(a, b, fc); }
+__device__ __forceinline__ Fe fe_sub_cc(const Fe& a, const Fe& b, const FieldConst& fc) { return fe_sub(a, b, fc); }
+__device__ __forceinline__ Fe fe_mul_cc(const Fe& a, const Fe& b, const FieldConst& fc) {
+  return fe_mul_t<false>(a, b, fc);
+}
+#endif
+
+__device__ __forceinline__ Fe fe_double_cc(const Fe& a, const FieldConst& fc) { return fe_add_cc(a, a, fc); }
+
+// A field element of a read-only (n, 8) int64 array whose rows are 16-byte
+// aligned, in four 16-byte non-coherent loads (ld.global.nc.v2).
+__device__ __forceinline__ Fe fe_load_ro(const long long* src, long long row) {
+#ifdef __CUDA_ARCH__
+  Fe r;
+  const longlong2* s = reinterpret_cast<const longlong2*>(src + row * 8);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const longlong2 w = __ldg(s + k);
+    r.v[2 * k] = (uint32_t)w.x;
+    r.v[2 * k + 1] = (uint32_t)w.y;
+  }
+  return r;
+#else
+  return fe_load(src, row);
+#endif
+}
+
+// N independent rolled carry-chain products r[n] = a[n] * b[n] * R^-1
+// (B3's, through pt_add_ilp and pt_dbl_ilp): cc_round's
+// CIOS rounds, interleaved over the N products in one rolled loop, b's
+// words rotating by one per round so every round reads word 0 and b stays
+// in registers.  One thread's dependent carry chains overlap N ways, so N
 // products cost about one product's latency while the code stays one loop
-// body.  The same words as fe_mul_t.
+// body.  The same words as fe_mul; without __CUDA_ARCH__ the C++ rolled
+// product fe_mul_t<true>.
 template <int N>
 __device__ __forceinline__ void fe_mul_n(Fe* r, const Fe* a, const Fe* b, const FieldConst& fc) {
-  uint32_t t[N][10];
+#ifdef __CUDA_ARCH__
+  uint32_t t[N][9];
   Fe rb[N];
 #pragma unroll
   for (int n = 0; n < N; ++n) {
     rb[n] = b[n];
 #pragma unroll
-    for (int k = 0; k < 10; ++k) t[n][k] = 0u;
+    for (int k = 0; k < 9; ++k) t[n][k] = 0u;
   }
 #pragma unroll 1
   for (int i = 0; i < 8; ++i) {
 #pragma unroll
     for (int n = 0; n < N; ++n) {
-      cios_round(t[n], a[n], rb[n].v[0], fc);
+      cc_round(t[n], a[n], rb[n].v[0], fc);
 #pragma unroll
       for (int k = 0; k < 7; ++k) rb[n].v[k] = rb[n].v[k + 1];
     }
   }
 #pragma unroll
   for (int n = 0; n < N; ++n) {
-    Fe w;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) w.v[k] = t[n][k];
-    r[n] = fe_reduce_once(w, t[n][8], fc);
+    const Fe w = {{t[n][0], t[n][1], t[n][2], t[n][3], t[n][4], t[n][5], t[n][6], t[n][7]}};
+    r[n] = fe_reduce_cc(w, 0u, fc);
   }
+#else
+  for (int n = 0; n < N; ++n) r[n] = fe_mul_t<true>(a[n], b[n], fc);
+#endif
 }
 

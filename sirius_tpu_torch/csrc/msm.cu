@@ -7,13 +7,28 @@
 //
 // The TPU design keeps a (W, 16, B, 8, 128) table in VMEM and selects a
 // bucket row by one-hot masks because it has no cheap scatter.  A GPU has
-// neither the VMEM nor the need: the wrapper sorts the live (window, point)
-// digits by bucket with `torch.sort`, so every bucket is one contiguous
-// segment, cut into fixed-length chunks.
+// neither the VMEM nor the need: a counting sort puts the live (window,
+// point) digits in bucket order, so every bucket is one contiguous segment,
+// cut into fixed-length chunks.
 //
+//   bucket sort     (B2)  `ops/msm.py:bucket_plan` on the card: one thread
+//                         per scalar writes its signed digits (16 bits
+//                         each); one warp per (window, tile of 2048 points)
+//                         counts its live digits per bucket in shared
+//                         memory; torch scans the (bucket, tile) counts;
+//                         the same warps scatter each entry to its place,
+//                         32 points at a time in order, lanes of one bucket
+//                         ranked by `__match_any_sync` (stable: the order of
+//                         the torch sort it replaces); one thread per chunk
+//                         finds its segment by binary search.
 //   msm_accumulate  (B2)  one thread per chunk walks its points with the
 //                         incomplete mixed add (y negated for a negative
-//                         signed digit) and writes one Jacobian partial.
+//                         signed digit) and writes one Jacobian partial; the
+//                         first point seeds the sum (no add onto the
+//                         identity), the next point is loaded during a
+//                         madd, the madd runs on the PTX carry-chain field
+//                         ops, and 3 blocks a SM (at most 168 registers,
+//                         no spill) beat 4 (128, spilling) and 5.
 //   msm_reduce      (B3)  segments of at most FAN_IN = 32 partials, summed
 //                         by a pairwise tree in shared memory: a block
 //                         takes the segments that start in its span of 128
@@ -47,60 +62,106 @@
 //                         `KF(roll_mul=True)`).  Its add order is serial, so
 //                         it equals msm_reduce in affine form only.
 //
-// What bounds them on the H100: accumulate is ~W*n mixed adds of ~1,400
-// integer multiply-adds each (integer-multiply bound) plus a random 128-byte
-// gather of each point per window (the key stays in the 50 MB L2 up to
-// ~2^17 points); chunks make the work per thread uniform whatever the digit
-// skew.  reduce, window sums and Horner do little work (a few hundred to a
+// What bounds them on the H100: accumulate is ~W*n mixed adds of 11
+// products each (integer-multiply bound: each product issues 278 IMAD-class
+// instructions on the carry chains, one 32x32 -> 64 product being an IMAD
+// and an IMAD.HI) plus a random 128-byte gather of each point per window
+// (the key stays in the 50 MB L2 up to ~2^17 points); chunks make the work
+// per thread uniform whatever the digit skew.  The sort moves ~2 bytes a
+// digit three times and a 8-byte entry once: memory bound, far below the
+// accumulate.  reduce, window sums and Horner do little work (a few hundred to a
 // few ten thousand complete adds) on dependent chains: the latency of one
 // thread's chain of Montgomery products bounds them, not the card's rate
-// (one dependent product takes ~1,600 SM cycles unrolled, ~2,000 rolled:
-// chip_smoke's latency probe).  So they cut the chain (reduce: 5 adds
+// (one dependent product takes ~1,600 SM cycles in C++ unrolled, ~2,000
+// rolled, ~1,550 on the carry chains: chip_smoke's latency probe).  So they cut the chain (reduce: 5 adds
 // instead of up to 31; window sums: 2L + 2 log2 S + 1 adds and log2 L
 // doublings instead of 2B adds; Horner: (K - 1) + (G - 1) adds instead of
 // W - 1), fill more SMs (reduce: ~900 blocks of 5 warps at the primary
 // commit's first level), keep the values a chain reads in shared memory,
 // and run the point ops with their independent products interleaved
 // (`csrc/curve.cuh` pt_add_ilp, pt_dbl_ilp: 5 and 3 dependency levels
-// instead of 16 and 7 products) on the rolled product's loop body, which
-// keeps the code small (the unrolled complete add inlines ~4,600
-// instructions at every call site; S1's rolled serial reduce ran in 0.60x
-// the unrolled one's time).  The Horner's c (W - 1) doublings remain its
+// instead of 16 and 7 products) on the rolled carry-chain product's loop
+// body (`fe_mul_n`), which keeps the code small (the unrolled complete add
+// inlines ~4,600 instructions at every call site; S1's rolled serial
+// reduce ran in 0.60x the unrolled one's time; the carry chains cut the
+// combine's time by a quarter against the rolled C++ product, the unrolled
+// carry chains by a tenth).  The Horner's c (W - 1) doublings remain its
 // floor.  Dead (zero) digits never enter a chunk, so no padding reaches the
 // incomplete add.
 
 #include "curve.cuh"
 
+constexpr long long CHUNK = 32;                       // entries per accumulate chunk (ops/msm.py CHUNK)
+constexpr int SORT_TILE = 2048;                       // points of one window per bucket-sort warp
+constexpr int SORT_WARPS = 8;                         // warps per bucket-sort block
+constexpr int SORT_MAX_B = 512;                       // buckets per window: c <= 10
+constexpr int ACCUMULATE_THREADS = 128;               // chunks per accumulate block
+constexpr int ACCUMULATE_MIN_BLOCKS = 3;              // resident blocks per SM: at most 168 registers a thread
 constexpr int REDUCE_SPAN = 128;                      // segment starts per reduce block
 constexpr int REDUCE_MAX_SEG = 32;                    // longest segment the tree takes (FAN_IN)
 constexpr int REDUCE_THREADS = REDUCE_SPAN + REDUCE_MAX_SEG;  // 127 + 32 partials at most
 constexpr int WINDOW_THREADS = 128;                   // most segments per window
 constexpr int HORNER_GROUPS = 32;                     // most window groups per MSM
 
+// B2: chunk i's entries (point index * 2 + negated) summed in order.  The
+// first entry seeds the accumulator (a madd onto the identity gives the
+// point itself); the next entry's point is loaded while a madd runs.
 __device__ __forceinline__ void accumulate_row(const FieldConst& fc, const long long* entries,
                                                const long long* chunk_start, const long long* chunk_len,
                                                const long long* px, const long long* py, long long* ox,
                                                long long* oy, long long* oz, long long i) {
-  Pt acc = pt_identity(fc);
   const long long s = chunk_start[i];
   const long long len = chunk_len[i];
-  for (long long k = 0; k < len; ++k) {
-    const long long e = entries[s + k];  // point index * 2 + negated
-    const long long idx = e >> 1;
-    Fe qy = fe_load(py, idx);
-    if (e & 1) qy = fe_neg(qy, fc);
-    acc = pt_madd(acc, fe_load(px, idx), qy, fc);
+  if (len <= 0) {
+    pt_store(ox, oy, oz, i, pt_identity(fc));
+    return;
+  }
+  long long e = entries[s];
+  Pt acc;
+  acc.x = fe_load_ro(px, e >> 1);
+  acc.y = fe_load_ro(py, e >> 1);
+  if (e & 1) acc.y = fe_sub_cc(fe_zero(), acc.y, fc);
+  acc.z = fe_one(fc);
+  Fe nx = acc.x, ny = acc.y;
+  if (len > 1) {
+    e = entries[s + 1];
+    nx = fe_load_ro(px, e >> 1);
+    ny = fe_load_ro(py, e >> 1);
+  }
+#pragma unroll 1
+  for (long long k = 1; k < len; ++k) {
+    const Fe qx = nx;
+    Fe qy = ny;
+    const bool neg = e & 1;
+    if (k + 1 < len) {  // in flight during the madd below
+      e = entries[s + k + 1];
+      nx = fe_load_ro(px, e >> 1);
+      ny = fe_load_ro(py, e >> 1);
+    }
+    if (neg) qy = fe_sub_cc(fe_zero(), qy, fc);
+    acc = pt_madd(acc, qx, qy, fc);
   }
   pt_store(ox, oy, oz, i, acc);
 }
 
-// S1: the serial walk of segment i with the rolled product.
-__device__ __forceinline__ void reduce_row_rolled(const FieldConst& fc, const long long* seg_off,
-                                                  const long long* px, const long long* py, const long long* pz,
-                                                  long long* ox, long long* oy, long long* oz, long long i) {
-  Pt acc = pt_identity(fc);
-  for (long long k = seg_off[i]; k < seg_off[i + 1]; ++k) acc = pt_add_t<true>(acc, pt_load(px, py, pz, k), fc);
-  pt_store(ox, oy, oz, i, acc);
+// The bucket sort's first pass, scalar i: bucket_plan's signed c-bit digits
+// (W0 = ceil(256 / c) windows; a window value v = digit + carry above
+// 2^(c-1) becomes 2^c - v, negated, with a carry into the next window;
+// window W0 holds the last carry), stored as magnitude * 2 + negated in
+// digits[w n + i].
+__device__ __forceinline__ void signed_digits_row(const long long* scalars, unsigned short* digits, long long n,
+                                                  int c, long long i) {
+  const long long* s = scalars + i * 8;
+  const int W0 = (256 + c - 1) / c;
+  const uint32_t half = 1u << (c - 1), full = 1u << c;
+  uint32_t carry = 0u;
+  for (int w = 0; w < W0; ++w) {
+    const uint32_t v = window_digit(s, w, c) + carry;
+    carry = v > half ? 1u : 0u;
+    const uint32_t mag = carry ? full - v : v;
+    digits[(long long)w * n + i] = (unsigned short)(mag << 1 | carry);
+  }
+  digits[(long long)W0 * n + i] = (unsigned short)(carry << 1);
 }
 
 // First index i in [0, n) with v[i] >= x (n when there is none).
@@ -112,6 +173,27 @@ __device__ __forceinline__ long long lower_bound(const long long* v, long long n
     else hi = mid;
   }
   return lo;
+}
+
+// The bucket sort's last pass, chunk q: its segment s (the last with
+// seg_off[s] <= q) and its place j in it.
+__device__ __forceinline__ void chunk_row(const long long* seg_off, const long long* seg_start,
+                                          const long long* seg_count, long long* chunk_start, long long* chunk_len,
+                                          long long n_seg, long long q) {
+  const long long s = lower_bound(seg_off, n_seg + 1, q + 1) - 1;
+  const long long j = q - seg_off[s];
+  chunk_start[q] = seg_start[s] + j * CHUNK;
+  const long long left = seg_count[s] - j * CHUNK;
+  chunk_len[q] = left < CHUNK ? left : CHUNK;
+}
+
+// S1: the serial walk of segment i with the rolled product.
+__device__ __forceinline__ void reduce_row_rolled(const FieldConst& fc, const long long* seg_off,
+                                                  const long long* px, const long long* py, const long long* pz,
+                                                  long long* ox, long long* oy, long long* oz, long long i) {
+  Pt acc = pt_identity(fc);
+  for (long long k = seg_off[i]; k < seg_off[i + 1]; ++k) acc = pt_add_t<true>(acc, pt_load(px, py, pz, k), fc);
+  pt_store(ox, oy, oz, i, acc);
 }
 
 // n doublings (a rolled loop: one copy of the doubling's code).
@@ -157,9 +239,76 @@ __device__ __forceinline__ void horner_range(int W, int K, int j, int& lo, int& 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 
-__global__ void msm_accumulate_kernel(FieldConst fc, const long long* entries, const long long* chunk_start,
-                                      const long long* chunk_len, const long long* px, const long long* py,
-                                      long long* ox, long long* oy, long long* oz, long long n_chunks) {
+__global__ void msm_signed_digits_kernel(const long long* scalars, unsigned short* digits, long long n, int c) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) signed_digits_row(scalars, digits, n, c, i);
+}
+
+// One warp per (window w, tile of SORT_TILE points): the live digits of
+// each bucket in the tile, into counts[(w B + b) ntiles + tile].
+__global__ void __launch_bounds__(SORT_WARPS * 32)
+    msm_bucket_count_kernel(const unsigned short* digits, int* counts, long long n, int W, int B, long long ntiles) {
+  __shared__ int hist[SORT_WARPS][SORT_MAX_B];
+  const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long job = (long long)blockIdx.x * SORT_WARPS + wid;  // w ntiles + tile
+  if (job >= (long long)W * ntiles) return;
+  int* h = hist[wid];
+  for (int b = lane; b < B; b += 32) h[b] = 0;
+  __syncwarp();
+  const long long w = job / ntiles, tile = job % ntiles;
+  const long long lo = tile * SORT_TILE, hi = lo + SORT_TILE < n ? lo + SORT_TILE : n;
+  const unsigned short* d = digits + w * n;
+  for (long long i = lo + lane; i < hi; i += 32) {
+    const int mag = d[i] >> 1;
+    if (mag) atomicAdd(&h[mag - 1], 1);
+  }
+  __syncwarp();
+  for (int b = lane; b < B; b += 32) counts[(w * B + b) * ntiles + tile] = h[b];
+}
+
+// The same warps again: each live digit's entry (point index * 2 + negated)
+// written at its bucket's next place, offs[(w B + b) ntiles + tile] being
+// where the tile's run of bucket b starts.  The warp walks its tile 32
+// points at a time in order, and lanes of one bucket take their places in
+// lane order, so each bucket keeps point order: the stable sort.
+__global__ void __launch_bounds__(SORT_WARPS * 32)
+    msm_bucket_scatter_kernel(const unsigned short* digits, const long long* offs, long long* entries, long long n,
+                              int W, int B, long long ntiles) {
+  __shared__ long long next[SORT_WARPS][SORT_MAX_B];
+  const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long job = (long long)blockIdx.x * SORT_WARPS + wid;
+  if (job >= (long long)W * ntiles) return;
+  long long* h = next[wid];
+  const long long w = job / ntiles, tile = job % ntiles;
+  for (int b = lane; b < B; b += 32) h[b] = offs[(w * B + b) * ntiles + tile];
+  __syncwarp();
+  const long long lo = tile * SORT_TILE, hi = lo + SORT_TILE < n ? lo + SORT_TILE : n;
+  const unsigned short* d = digits + w * n;
+  const unsigned below = (1u << lane) - 1u;
+  for (long long i0 = lo; i0 < hi; i0 += 32) {
+    const long long i = i0 + lane;
+    const unsigned dg = i < hi ? d[i] : 0u;
+    const int mag = (int)(dg >> 1);
+    const unsigned peers = __match_any_sync(0xFFFFFFFFu, mag);
+    const int rank = __popc(peers & below);
+    if (mag) entries[h[mag - 1] + rank] = i * 2 + (dg & 1u);
+    __syncwarp();
+    if (mag && rank == 0) h[mag - 1] += __popc(peers);
+    __syncwarp();
+  }
+}
+
+__global__ void msm_bucket_chunks_kernel(const long long* seg_off, const long long* seg_start,
+                                         const long long* seg_count, long long* chunk_start, long long* chunk_len,
+                                         long long n_seg, long long n_chunks) {
+  long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (q < n_chunks) chunk_row(seg_off, seg_start, seg_count, chunk_start, chunk_len, n_seg, q);
+}
+
+__global__ void __launch_bounds__(ACCUMULATE_THREADS, ACCUMULATE_MIN_BLOCKS)
+    msm_accumulate_kernel(FieldConst fc, const long long* entries, const long long* chunk_start,
+                          const long long* chunk_len, const long long* px, const long long* py, long long* ox,
+                          long long* oy, long long* oz, long long n_chunks) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n_chunks) accumulate_row(fc, entries, chunk_start, chunk_len, px, py, ox, oy, oz, i);
 }
@@ -281,12 +430,48 @@ __global__ void __launch_bounds__(HORNER_GROUPS) msm_horner_kernel(FieldConst fc
   }
 }
 
+// The bucket sort's first passes: (n, 8) scalars -> (W, n) packed signed
+// digits and the (W B, ntiles) live-digit counts per bucket and tile.
+extern "C" int sirius_msm_bucket_count(const void* scalars, void* digits, void* counts, long long n, int c,
+                                       long long ntiles, void* stream) {
+  const int W = (256 + c - 1) / c + 1, B = 1 << (c - 1);
+  if (c < 2 || B > SORT_MAX_B || ntiles != (n + SORT_TILE - 1) / SORT_TILE) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  msm_signed_digits_kernel<<<(unsigned)((n + 127) / 128), 128, 0, st>>>((const long long*)scalars,
+                                                                       (unsigned short*)digits, n, c);
+  const long long jobs = (long long)W * ntiles;
+  msm_bucket_count_kernel<<<(unsigned)((jobs + SORT_WARPS - 1) / SORT_WARPS), SORT_WARPS * 32, 0, st>>>(
+      (const unsigned short*)digits, (int*)counts, n, W, B, ntiles);
+  return (int)cudaGetLastError();
+}
+
+// Its last passes: entries by bucket from the exclusive offsets of the
+// counts, then the chunks of every segment (seg_off, seg_start and
+// seg_count over the W B segments).
+extern "C" int sirius_msm_bucket_scatter(const void* digits, const void* offs, void* entries, const void* seg_off,
+                                         const void* seg_start, const void* seg_count, void* chunk_start,
+                                         void* chunk_len, long long n, int c, long long ntiles, long long n_chunks,
+                                         void* stream) {
+  const int W = (256 + c - 1) / c + 1, B = 1 << (c - 1);
+  if (c < 2 || B > SORT_MAX_B || ntiles != (n + SORT_TILE - 1) / SORT_TILE) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long jobs = (long long)W * ntiles;
+  msm_bucket_scatter_kernel<<<(unsigned)((jobs + SORT_WARPS - 1) / SORT_WARPS), SORT_WARPS * 32, 0, st>>>(
+      (const unsigned short*)digits, (const long long*)offs, (long long*)entries, n, W, B, ntiles);
+  if (n_chunks > 0)
+    msm_bucket_chunks_kernel<<<(unsigned)((n_chunks + 127) / 128), 128, 0, st>>>(
+        (const long long*)seg_off, (const long long*)seg_start, (const long long*)seg_count, (long long*)chunk_start,
+        (long long*)chunk_len, (long long)W * B, n_chunks);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int sirius_msm_accumulate(const uint32_t* consts, const void* entries, const void* chunk_start,
                                      const void* chunk_len, const void* px, const void* py, void* ox, void* oy,
                                      void* oz, long long n_chunks, void* stream) {
-  const int threads = 128;
-  long long blocks = (n_chunks + threads - 1) / threads;
-  msm_accumulate_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+  long long blocks = (n_chunks + ACCUMULATE_THREADS - 1) / ACCUMULATE_THREADS;
+  msm_accumulate_kernel<<<(unsigned)blocks, ACCUMULATE_THREADS, 0, (cudaStream_t)stream>>>(
       make_field_const(consts), (const long long*)entries, (const long long*)chunk_start,
       (const long long*)chunk_len, (const long long*)px, (const long long*)py, (long long*)ox,
       (long long*)oy, (long long*)oz, n_chunks);
@@ -345,7 +530,8 @@ extern "C" int sirius_msm_horner(const uint32_t* consts, const void* tx, const v
 
 // Registers, local (spill) bytes and static shared bytes per thread/block
 // of MSM kernel `k`: 0 accumulate, 1 reduce, 2 reduce_rolled (S1),
-// 3 window_sums, 4 horner -> out[0], out[1], out[2].
+// 3 window_sums, 4 horner, 5 the bucket sort's count, 6 its scatter ->
+// out[0], out[1], out[2].
 extern "C" int sirius_msm_attrs(int k, long long* out) {
   cudaFuncAttributes attr;
   cudaError_t e;
@@ -355,6 +541,8 @@ extern "C" int sirius_msm_attrs(int k, long long* out) {
     case 2: e = cudaFuncGetAttributes(&attr, msm_reduce_rolled_kernel); break;
     case 3: e = cudaFuncGetAttributes(&attr, msm_window_sums_kernel); break;
     case 4: e = cudaFuncGetAttributes(&attr, msm_horner_kernel); break;
+    case 5: e = cudaFuncGetAttributes(&attr, msm_bucket_count_kernel); break;
+    case 6: e = cudaFuncGetAttributes(&attr, msm_bucket_scatter_kernel); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (e != cudaSuccess) return (int)e;

@@ -18,8 +18,9 @@
 // 32 KB plus a 16 KB twiddle table; above 48 KB (size 2048 and 4096) the
 // launch raises the dynamic shared-memory limit first.
 //
-// What bounds it: (log2(size) - 1) * size/2 Montgomery products per column,
-// ~136 wide integer multiply-adds each, against 2 * 32 bytes per element in
+// What bounds it: (log2(size) - 1) * size/2 Montgomery products per column
+// (on the carry-chain field ops of csrc/field.cuh), ~136 wide integer
+// multiply-adds each by the paper count, against 2 * 32 bytes per element in
 // canonical form: integer-multiply bound by about 2x at size 1024.  Loads
 // and stores are strided by R elements (uncoalesced across the warp, each
 // thread moving a 64-byte int64 word row); coalescing through a transposed
@@ -36,10 +37,10 @@ __device__ __forceinline__ void col_ntt_butterfly(Fe* s, const Fe* tw, int size,
   const int lo = ((j - k) << 1) + k;
   const int hi = lo + m;
   Fe t = s[hi];
-  if (m > 1 || size == 2) t = fe_mul(t, tw[k * (size / (2 * m))], fc);
+  if (m > 1 || size == 2) t = fe_mul_cc(t, tw[k * (size / (2 * m))], fc);
   const Fe u = s[lo];
-  s[lo] = fe_add(u, t, fc);
-  s[hi] = fe_sub(u, t, fc);
+  s[lo] = fe_add_cc(u, t, fc);
+  s[hi] = fe_sub_cc(u, t, fc);
 }
 
 #ifdef __CUDACC__

@@ -37,7 +37,11 @@ NVCC_FLAGS = [
 P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "sirius_madd": [P] * 9 + [LL, P],
+    "sirius_madd_buckets": [P] * 7 + [LL, LL, I, I, I, P],
+    "sirius_madd_attrs": [I, P],
     "sirius_msm_accumulate": [P] * 9 + [LL, P],
+    "sirius_msm_bucket_count": [P] * 3 + [LL, I, LL, P],
+    "sirius_msm_bucket_scatter": [P] * 8 + [LL, I, LL, LL, P],
     "sirius_msm_reduce": [P] * 8 + [LL, LL, P],
     "sirius_msm_reduce_rolled": [P] * 8 + [LL, P],
     "sirius_msm_window_sums": [P] * 7 + [LL, I, I, P],
@@ -122,3 +126,10 @@ def require_cuda(*tensors: torch.Tensor) -> None:
             raise TypeError(f"kernel operand dtype {t.dtype}, expected int64")
         if not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
+
+
+def require_aligned(*tensors: torch.Tensor) -> None:
+    """Operands a kernel reads in 16-byte vector loads (`fe_load_ro`)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("kernel operand not 16-byte aligned")

@@ -7,8 +7,11 @@ NTT's elementwise product (mid twiddle, over R columns at once with
 rep = R in a nested four-step; coset powers; 1/n); K = 8 is the field-rate
 probe S2 (`ops/microbench.mul_chain`), which replaces
 `scripts/tpu_microbench.py:mul_kernel`; at one element and a long K it is
-the latency probe of one dependent product, on the unrolled product or
-(`rolled=True`) on S1's rolled one.
+the latency probe of one dependent product.  `product` picks one of the
+port's four Montgomery products (`csrc/field.cuh`), all giving the same
+words: "unrolled" (fe_mul: this kernel's own, the NTT's elementwise
+product), "rolled" (S1's), "cc" (the PTX carry-chain product of B1, B2 and
+B4) and "cc_rolled" (its rolled form, fe_mul_n: B3's).
 
 Kernel: `csrc/field_ops.cu` (what bounds it is noted there).  The wrapper
 takes its plain twin for CPU tensors only; for CUDA tensors it launches its
@@ -21,6 +24,8 @@ import torch
 
 from ..fields.jfield import WORDS, Field
 
+PRODUCTS = ("unrolled", "rolled", "cc", "cc_rolled")  # csrc/field_ops.cu fe_mul_k's kinds
+
 
 def _check_words(t: torch.Tensor, what: str) -> None:
     if t.dim() != 2 or t.shape[1] != WORDS:
@@ -28,7 +33,7 @@ def _check_words(t: torch.Tensor, what: str) -> None:
 
 
 def mul_rows_plain(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 1, rep: int = 1,
-                   rolled: bool = False) -> torch.Tensor:
+                   product: str = "unrolled") -> torch.Tensor:
     if rep > 1:
         b = b.repeat_interleave(rep, 0)
     n, nb = a.shape[0], b.shape[0]
@@ -39,15 +44,18 @@ def mul_rows_plain(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 1, r
 
 
 def mul_rows(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 1, rep: int = 1,
-             rolled: bool = False) -> torch.Tensor:
+             product: str = "unrolled") -> torch.Tensor:
     """a_i * b_((i // rep) mod nb)^K per row, by K chained Montgomery products
-    (`rolled`: on the rolled product, the same words; rep = 1 only)."""
+    (on `product`, one of PRODUCTS: the same words; rep = 1 only for the
+    rolled and the carry-chain products)."""
     _check_words(a, "mul_rows a")
     _check_words(b, "mul_rows b")
-    if b.shape[0] == 0 or K < 0 or rep < 1 or (rolled and rep > 1):
-        raise ValueError("mul_rows needs at least one row of b, K >= 0, rep >= 1, and rep = 1 when rolled")
+    if product not in PRODUCTS:
+        raise ValueError(f"product {product!r} is not one of {PRODUCTS}")
+    if b.shape[0] == 0 or K < 0 or rep < 1 or (product != "unrolled" and rep > 1):
+        raise ValueError("mul_rows needs at least one row of b, K >= 0, rep >= 1, and rep = 1 off the unrolled product")
     if a.device.type == "cpu":
-        return mul_rows_plain(field, a, b, K, rep, rolled)
+        return mul_rows_plain(field, a, b, K, rep, product)
     from . import _build
 
     a, b = a.contiguous(), b.contiguous()
@@ -55,7 +63,7 @@ def mul_rows(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 1, rep: in
     out = torch.empty_like(a)
     if a.shape[0]:
         err = _build.library().sirius_mul_rows(_build.field_consts(field), a.data_ptr(), b.data_ptr(),
-                                               out.data_ptr(), a.shape[0], b.shape[0], rep, K, int(rolled),
+                                               out.data_ptr(), a.shape[0], b.shape[0], rep, K, PRODUCTS.index(product),
                                                _build.stream_of(a))
         _build.check(err, "mul_rows")
         mul_rows.launches += 1

@@ -30,8 +30,9 @@ RAW_OPS = ("mul", "add")
 # -- plain twins -------------------------------------------------------------------
 
 
-def mul_chain_plain(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 8, rolled: bool = False) -> torch.Tensor:
-    return mul_rows_plain(field, a, b, K, rolled=rolled)
+def mul_chain_plain(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 8,
+                    product: str = "unrolled") -> torch.Tensor:
+    return mul_rows_plain(field, a, b, K, product=product)
 
 
 def _mul32(b: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -54,10 +55,11 @@ def probe_add_one_plain(x: torch.Tensor) -> torch.Tensor:
 # -- kernel wrappers ---------------------------------------------------------------
 
 
-def mul_chain(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 8, rolled: bool = False) -> torch.Tensor:
+def mul_chain(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 8, product: str = "unrolled") -> torch.Tensor:
     """(n, 8) a and (nb, 8) b in Montgomery form -> a_i * b_(i mod nb)^K,
-    by K chained Montgomery products (`rolled`: S1's product)."""
-    return mul_rows(field, a, b, K, rolled=rolled)
+    by K chained Montgomery products on `product` (one of
+    `field_kernels.PRODUCTS`)."""
+    return mul_rows(field, a, b, K, product=product)
 
 
 def raw_u32(a: torch.Tensor, op: str = "mul", reps: int = 64) -> torch.Tensor:

@@ -5,13 +5,13 @@ commitment-key contract (points affine with z = 1, distinct, not the
 identity: a bucket value colliding with an incoming point would be a
 discrete-log relation between key generators):
 
-  best_msm   one MSM: signed c-bit digits, bucket sort in torch, then
-             B2 `msm_accumulate` -> B3 `msm_reduce` (levels of fan-in 32)
-             -> B3 `msm_combine`
-  msm_many   t MSMs over shared points: the one-hot bucket loop of
+  best_msm   one MSM: signed c-bit digits, B2's bucket sort
+             (`bucket_plan`), then B2 `msm_accumulate` -> B3 `msm_reduce`
+             (levels of fan-in 32) -> B3 `msm_combine`
+  msm_many   t MSMs over shared points: the bucket table of
              `sirius_tpu/ops/msm.py:_bucket_totals_onehot_pallas` (4-bit
-             unsigned windows, G groups, one B1 `madd_batch` launch per
-             step), then B3 `msm_reduce` over the groups and `msm_combine`
+             unsigned windows, G groups) in one B1 `madd_buckets` launch,
+             then B3 `msm_reduce` over the groups and `msm_combine`
 
 Scalars are (n, 8) standard-form words; results are host affine points.
 """
@@ -25,35 +25,21 @@ import torch
 from ..curves.jpoint import Curve, Points
 from ..fields import gold
 from ..fields.jfield import WORDS
-from .madd import madd_batch
+from .madd import SCALAR_BITS, extract_digits, madd_buckets
 from .msm_kernels import msm_accumulate, msm_combine, msm_reduce
 
-SCALAR_BITS = 32 * WORDS
-CHUNK = 32  # points walked by one msm_accumulate thread
+CHUNK = 32  # points walked by one msm_accumulate thread (csrc/msm.cu CHUNK)
+SORT_TILE = 2048  # points of one window per bucket-sort warp (csrc/msm.cu)
 FAN_IN = 32  # partials summed by one msm_reduce thread per level
 MANY_WINDOW_BITS = 4  # msm_many: unsigned window width
 MANY_GROUPS = 256  # msm_many: point groups walked in parallel (madd lanes per window)
-
-
-def _extract_digits(scalars_std: torch.Tensor, c: int) -> torch.Tensor:
-    """(..., n, 8) words -> (..., W, n) c-bit windows, W = ceil(256 / c)."""
-    W = (SCALAR_BITS + c - 1) // c
-    mask = (1 << c) - 1
-    out = []
-    for w in range(W):
-        word, off = divmod(w * c, 32)
-        d = scalars_std[..., word] >> off
-        if off + c > 32 and word + 1 < WORDS:
-            d = d | (scalars_std[..., word + 1] << (32 - off))
-        out.append(d & mask)
-    return torch.stack(out, -2)
 
 
 def _extract_digits_signed(scalars_std: torch.Tensor, c: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Signed windows: (W+1, n) magnitudes in [0, 2^(c-1)] and a negation
     mask with scalar = sum_w sign_w * mag_w * 2^(c w) (the last window is the
     final carry, never negative)."""
-    d = _extract_digits(scalars_std, c)
+    d = extract_digits(scalars_std, c)
     half, full = 1 << (c - 1), 1 << c
     mags, negs = [], []
     carry = torch.zeros_like(d[0])
@@ -88,7 +74,9 @@ class BucketPlan:
     seg_off: torch.Tensor  # chunks of segment s: seg_off[s] .. seg_off[s+1]
 
 
-def bucket_plan(scalars_std: torch.Tensor) -> BucketPlan:
+def bucket_plan_plain(scalars_std: torch.Tensor) -> BucketPlan:
+    """The plan in torch: signed digits, a stable `torch.sort` of the live
+    (window, point) digits by bucket, then the chunks of every segment."""
     n = scalars_std.shape[0]
     dev = scalars_std.device
     c = signed_window_bits(n)
@@ -109,6 +97,48 @@ def bucket_plan(scalars_std: torch.Tensor) -> BucketPlan:
     chunk_j = torch.arange(chunk_seg.shape[0], device=dev) - seg_off[chunk_seg]
     chunk_start = seg_start[chunk_seg] + chunk_j * CHUNK
     chunk_len = torch.minimum(counts[chunk_seg] - chunk_j * CHUNK, torch.full_like(chunk_j, CHUNK))
+    return BucketPlan(c, W, B, entries, chunk_start, chunk_len, seg_off)
+
+
+def bucket_plan(scalars_std: torch.Tensor) -> BucketPlan:
+    """B2's inputs for (n, 8) standard-form scalars.  On CUDA tensors the
+    counting sort of `csrc/msm.cu` (signed digits and per-tile bucket counts,
+    an exclusive scan in torch, a stable scatter, the chunks): the same
+    arrays as `bucket_plan_plain`, which CPU tensors take.
+    `bucket_plan.launches` counts the sorts run on the card (by the number of
+    scalars in `bucket_plan.shapes`)."""
+    if scalars_std.device.type == "cpu":
+        return bucket_plan_plain(scalars_std)
+    from . import _build
+
+    S = scalars_std.contiguous()
+    _build.require_cuda(S)
+    n, dev = S.shape[0], S.device
+    c = signed_window_bits(n)
+    B = 1 << (c - 1)
+    W = -(-SCALAR_BITS // c) + 1
+    ntiles = -(-n // SORT_TILE)
+    lib, stream = _build.library(), _build.stream_of(S)
+    digits = torch.empty((W, n), dtype=torch.int16, device=dev)
+    counts = torch.empty((W * B, ntiles), dtype=torch.int32, device=dev)
+    _build.check(lib.sirius_msm_bucket_count(S.data_ptr(), digits.data_ptr(), counts.data_ptr(), n, c, ntiles,
+                                             stream), "msm_bucket_count")
+    flat = counts.reshape(-1).to(torch.int64)
+    offs = torch.cumsum(flat, 0) - flat  # where each (bucket, tile) run starts
+    seg_count = counts.sum(1, dtype=torch.int64)
+    seg_start = torch.cumsum(seg_count, 0) - seg_count
+    nch = (seg_count + CHUNK - 1) // CHUNK
+    seg_off = torch.cat([seg_count.new_zeros(1), torch.cumsum(nch, 0)])
+    n_entries, n_chunks = torch.stack([seg_count.sum(), seg_off[-1]]).tolist()
+    entries = torch.empty(n_entries, dtype=torch.int64, device=dev)
+    chunk_start = torch.empty(n_chunks, dtype=torch.int64, device=dev)
+    chunk_len = torch.empty(n_chunks, dtype=torch.int64, device=dev)
+    _build.check(lib.sirius_msm_bucket_scatter(
+        digits.data_ptr(), offs.data_ptr(), entries.data_ptr(), seg_off.data_ptr(), seg_start.data_ptr(),
+        seg_count.data_ptr(), chunk_start.data_ptr(), chunk_len.data_ptr(), n, c, ntiles, n_chunks, stream),
+        "msm_bucket_scatter")
+    bucket_plan.launches += 1
+    bucket_plan.shapes[n] = bucket_plan.shapes.get(n, 0) + 1
     return BucketPlan(c, W, B, entries, chunk_start, chunk_len, seg_off)
 
 
@@ -165,25 +195,15 @@ def msm_many(curve: Curve, scalars_std_batch: torch.Tensor, points: Points) -> l
         px = torch.cat([px, px[:1].expand(pad, WORDS)])
         py = torch.cat([py, py[:1].expand(pad, WORDS)])
         n += pad
-    g = n // G
-    digits = _extract_digits(scalars_std_batch, c)  # (t, W, n)
-    W = digits.shape[1]
-    dg = digits.reshape(t, W, G, g)
-    pxg, pyg = px.reshape(G, g, WORDS), py.reshape(G, g, WORDS)
-    vs = torch.arange(1, B + 1, device=dev)
-    table = curve.identity((t, W, G, B), dev)
-    lanes = t * W * G
-    for step in range(g):
-        oh = (dg[..., step, None] == vs).unsqueeze(-1)  # (t, W, G, B, 1); none for dead digits
-        cur = Points(*((tc * oh).sum(3).reshape(lanes, WORDS) for tc in table))
-        qx = pxg[:, step].expand(t, W, G, WORDS).reshape(lanes, WORDS)
-        qy = pyg[:, step].expand(t, W, G, WORDS).reshape(lanes, WORDS)
-        new = madd_batch(curve, cur, qx, qy)
-        table = Points(*(torch.where(oh, nc.reshape(t, W, G, 1, WORDS), tc) for tc, nc in zip(table, new)))
-
-    # group partials of every (t, w, b) are contiguous segments of G
-    segs = Points(*(tc.permute(0, 1, 3, 2, 4).reshape(-1, WORDS) for tc in table))
+    table = madd_buckets(curve, scalars_std_batch, px.contiguous(), py.contiguous(), G, c)  # (t, W, B, G)
+    W = table.x.shape[1]
+    # the group partials of every (t, w, b) are contiguous segments of G
+    segs = Points(*(tc.reshape(-1, WORDS) for tc in table))
     seg_off = torch.arange(0, t * W * B * G + 1, G, device=dev)
     buckets = reduce_segments(curve, seg_off, segs)
     out = msm_combine(curve, Points(*(b.reshape(t, W, B, WORDS) for b in buckets)), c)
     return curve.decode(out)
+
+
+bucket_plan.launches = 0
+bucket_plan.shapes = {}

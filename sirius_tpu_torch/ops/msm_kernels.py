@@ -20,7 +20,8 @@ bounds noted there).
 
 Each wrapper takes its plain twin for CPU tensors only; for CUDA tensors it
 launches its kernel or raises.  `<wrapper>.launches` counts kernel launches
-(`msm_combine` counts its Horner launches, by (t, W, B) shape also in
+(`msm_accumulate` also by (curve, points, chunks) in `msm_accumulate.shapes`;
+`msm_combine` counts its Horner launches, by (t, W, B) shape also in
 `msm_combine.shapes`; its window sums count on `msm_window_sums`).  Points
 are (., 8) int64 Montgomery words; `entries` holds `point_index * 2 +
 negated`.
@@ -36,7 +37,8 @@ from ..curves.jpoint import Curve, Points
 
 REDUCE_MAX_SEG = 32  # csrc/msm.cu: the longest segment msm_reduce's tree takes
 WINDOW_THREADS = 128  # csrc/msm.cu: the most bucket segments of one window
-MSM_KERNELS = ("msm_accumulate", "msm_reduce", "msm_reduce_rolled", "msm_window_sums", "msm_horner")
+MSM_KERNELS = ("msm_accumulate", "msm_reduce", "msm_reduce_rolled", "msm_window_sums", "msm_horner",
+               "msm_bucket_count", "msm_bucket_scatter")
 
 
 def _points_on(n: int, like: torch.Tensor) -> list[torch.Tensor]:
@@ -196,6 +198,7 @@ def msm_accumulate(curve: Curve, entries, chunk_start, chunk_len, px, py) -> Poi
 
     ins = [t.contiguous() for t in (entries, chunk_start, chunk_len, px, py)]
     _build.require_cuda(*ins)
+    _build.require_aligned(*ins[3:])
     n_chunks = chunk_start.shape[0]
     out = _points_on(n_chunks, px)
     if n_chunks:
@@ -204,6 +207,8 @@ def msm_accumulate(curve: Curve, entries, chunk_start, chunk_len, px, py) -> Poi
             *(t.data_ptr() for t in out), n_chunks, _build.stream_of(px))
         _build.check(err, "msm_accumulate")
         msm_accumulate.launches += 1
+        shape = (curve.spec.name, px.shape[0], n_chunks)
+        msm_accumulate.shapes[shape] = msm_accumulate.shapes.get(shape, 0) + 1
     return Points(*out)
 
 
@@ -329,6 +334,7 @@ def msm_combine(curve: Curve, buckets: Points, c: int) -> Points:
 
 
 msm_accumulate.launches = 0
+msm_accumulate.shapes = {}
 msm_reduce.launches = 0
 msm_reduce_rolled.launches = 0
 msm_window_sums.launches = 0

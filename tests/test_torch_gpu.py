@@ -195,6 +195,88 @@ def test_msm_reduce_rolled_matches_reduce_at_the_primary_commit_shape(cuda_devic
     assert all(a["numRegs"] > 0 for a in attrs)
 
 
+def _tiled_key(curve, device, n):
+    """(px, py) of n rows: a 2^14 key tiled (the memory of an n-point key;
+    repeated values run the same formulas, so kernel and twin still agree
+    word for word)."""
+    ck = CommitmentKey.setup(curve, 14, b"torch-gpu-test", use_cache=False, device=device)
+    reps = -(-n // len(ck))
+    return tuple(c.repeat(reps, 1)[:n].contiguous() for c in (ck.points.x, ck.points.y))
+
+
+def _random_scalars(device, shape, seed):
+    limbs = np.random.default_rng(seed).integers(0, 1 << 16, size=(*shape, 16), dtype=np.uint32)
+    limbs[..., 15] &= 0x0FFF
+    return torch.from_numpy(limbs_to_words(limbs)).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("curve,n", [(GRUMPKIN, 7 << 14), (BN256_G1, 7 << 17)], ids=["support_W", "primary_W"])
+def test_bucket_sort_and_accumulate_bit_exact_at_the_ivc_shapes(cuda_device, curve, n):
+    """B2 at the IVC path's two W-commit shapes (114,688 grumpkin and
+    917,504 bn256 scalars, c = 10), a third of the scalars repeated (long
+    segments): the counting sort equals bucket_plan_plain, the accumulate
+    equals its twin word for word."""
+    from sirius_tpu_torch.ops.msm import bucket_plan_plain
+
+    S = _random_scalars(cuda_device, (n,), n)
+    S[: n // 3] = S[0]
+    S[n // 3 : n // 3 + 100] = 0
+    px, py = _tiled_key(curve, cuda_device, n)
+    before = (bucket_plan.launches, mk.msm_accumulate.launches)
+    plan = bucket_plan(S)
+    want = bucket_plan_plain(S)
+    for k in ("entries", "chunk_start", "chunk_len", "seg_off"):
+        assert torch.equal(getattr(plan, k), getattr(want, k)), k
+    args = (curve, plan.entries, plan.chunk_start, plan.chunk_len, px, py)
+    got = mk.msm_accumulate(*args)
+    assert (bucket_plan.launches, mk.msm_accumulate.launches) == (before[0] + 1, before[1] + 1)
+    assert all(torch.equal(a, b) for a, b in zip(got, mk.msm_accumulate_plain(*args)))
+
+
+@pytest.mark.gpu
+def test_madd_buckets_bit_exact_at_msm_many_shape(cuda_device):
+    """B1's bucket walk at the support cross terms' (t = 5, 2^14 points,
+    256 groups, 4-bit windows), with zero and repeated scalars: word for
+    word its twin (the per-step loop), and msm_many through it equals
+    best_msm with one launch."""
+    from sirius_tpu_torch.ops.madd import madd_buckets, madd_buckets_plain, madd_kernel_attrs
+
+    t, n = 5, 1 << 14
+    ck = CommitmentKey.setup(GRUMPKIN, 14, b"torch-gpu-test", use_cache=False, device=cuda_device)
+    S = _random_scalars(cuda_device, (t, n), 5)
+    S[0, :300] = 0
+    S[1, 100:400] = S[1, 99]
+    px, py = ck.points.x.contiguous(), ck.points.y.contiguous()
+    before = madd_buckets.launches
+    got = madd_buckets(GRUMPKIN, S, px, py, 256, 4)
+    assert madd_buckets.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, madd_buckets_plain(GRUMPKIN, S, px, py, 256, 4)))
+    before = (madd_buckets.launches, madd_batch.launches)
+    assert msm_many(GRUMPKIN, S[:2], ck.points) == [best_msm(GRUMPKIN, S[i], ck.points) for i in range(2)]
+    assert (madd_buckets.launches, madd_batch.launches) == (before[0] + 1, before[1])
+    assert madd_kernel_attrs("madd_buckets")["numRegs"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("field", [FR, FQ], ids=["bn256_fr", "bn256_fq"])
+def test_cc_product_bit_exact(cuda_device, field):
+    """The carry-chain products (B1's, B2's and B4's, and its rolled form,
+    B3's) against the plain product, beside the C++ ones, on 2^17 random
+    elements and on the edge values 0, 1, p - 1 and R mod p (every pair),
+    K = 1 and 4."""
+    rng = np.random.default_rng(17)
+    a = field.random((1 << 17,), rng, cuda_device)
+    b = field.random((1 << 17,), rng, cuda_device)
+    edge = torch.from_numpy(ints_to_words([0, 1, field.p - 1, (1 << 256) % field.p])).to(cuda_device)
+    a[:16] = edge.repeat_interleave(4, 0)
+    b[:16] = edge.repeat(4, 1)
+    for K in (1, 4):
+        want = fk.mul_rows_plain(field, a, b, K)
+        for product in fk.PRODUCTS:
+            assert torch.equal(fk.mul_rows(field, a, b, K, product=product), want), product
+
+
 def _jacobian_points(curve, device, n, seed):
     """n Jacobian points (z != 1) of a 2^10 key, doubled, cycled."""
     ck = _key(curve, device)
