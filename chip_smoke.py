@@ -34,14 +34,21 @@
    check on a 64-point prefix, every stage against its twin at 2^20, the
    result against best_msm's, then the points/s of one warm MSM.
 5. The NTT at 2^20 on bn256 Fr (bench.py's inputs): B4 at both pass
-   shapes (1024 x 1024, forward and inverse tables) and the mid-twiddle
-   multiply (`mul_rows`, K = 1) bit-exact against their twins and timed
-   beside their bounds; then the NTT path (launch counts from here):
-   mid-twiddle set-up timed apart, forward, inverse and coset transforms,
-   round trips exact, spot values equal to the direct sums, k = 3 equal to
-   the reference vector (the R = 1 route), k = 12 equal to `gold.fft`, the
-   warm forward transform in elements/s; col_ntt and mul_rows must have
-   launched.
+   shapes (1024 x 1024, forward and inverse tables), its epilogue pass
+   (times the mid twiddle, transposed; also equal to col_ntt -> mul_rows ->
+   transpose on the card) and `mul_rows` at K = 1 at the shapes the NTT
+   path gives it (the coset powers: 2^20 rows against 3, and a doubling
+   step of the mid twiddle's build: 2^19 rows against 1024) and over 2^20
+   rows against 2^20 (rep = 1) and 2^18 (rep = 4), bit-exact against their
+   twins and timed beside their bounds; then
+   the NTT path (launch counts from here): mid-twiddle set-up timed apart,
+   the forward and the inverse transform must each launch exactly 2
+   col_ntt (one its epilogue pass) and no mul_rows, round trips of the
+   transforms and of the coset transforms exact, spot values equal to the
+   direct sums, k = 3 equal to the reference vector (the R = 1 route),
+   k = 12 equal to `gold.fft`, the warm forward transform in elements/s and
+   the warm forward and inverse on CUDA events; col_ntt, its epilogue pass
+   and mul_rows (the coset powers) must have launched.
 6. Drives the Cyclefold support-fold chain: 2 Sangria folds of the EC
    co-processor circuit at k = 14 on the grumpkin key; verify must replay
    the prover's accumulator, is_sat must be clean and must catch a flipped
@@ -63,17 +70,19 @@
    their twins and bounds.  S1, the rolled-product serial reduce (on no
    path): on that commit's level-0 partials it must equal B3 msm_reduce and
    its plain twin in affine form (msm_reduce equals the twin word for
-   word); both timed in turns.  Then every MSM and madd kernel's registers,
+   word); both timed in turns.  Then every MSM, madd and NTT kernel's registers,
    local (spill) bytes per thread, static shared bytes and SASS instruction
    count, and the SASS of mul_rows on each product by opcode (`cuobjdump`,
    where the toolkit has it).
 
 Ends with a JSON line of kernel results (time, plain twin's time, bound
 and what sets it, launches on the path that runs the kernel: B1's bucket
-walk, B2 and B3 on the IVC path, B4 and the K = 1 product on the NTT path;
+walk, B2 and B3 on the IVC path, B4, its epilogue pass (an entry of its
+own) and the K = 1 product on the NTT path;
 the probes S1-S4 and B1's batched madd run on no path but their own timed
 runs, which are counted; S2's kernel `mul_rows` has a second entry at the
-NTT's K = 1 shape and a third on the carry-chain product; B2's sort and
+NTT path's K = 1 shape (the coset powers) and a third on the carry-chain
+product; B2's sort and
 accumulate have one at the support W commit (the launches of every other
 size; grumpkin for the accumulate) and one at the primary (917,504 points;
 bn256); B3's combine has one at best_msm's shape (t = 1) and one at
@@ -139,6 +148,7 @@ CROSS_TERMS = 5  # gate degree of the support circuit
 CROSS_N = 1 << 14  # cross-term length (rows)
 W_COMMIT_N = 7 << 14  # support W commit length (7 advice columns x 2^14 rows)
 NTT_LOG = 20  # bench.py's ntt_elems_per_sec_2^20
+MID_REP = 4  # mul_rows K = 1 with each row of b repeated: the nested route's broadcast mid twiddle
 S2_N, S2_K = 1 << 17, 8  # scripts/tpu_microbench.py: (1024, 128) elements, K = 8
 S3_N, S3_REPS = 1 << 22, 64  # 2^22 values: the TPU's (512, 128) would not fill 132 SMs
 LONG_K, LONG_REPS = 256, 4096  # chains long enough that the rate, not the memory traffic, sets the time
@@ -659,43 +669,71 @@ def main() -> int:
     chk = NTT(FR, NTT_LOG, dev)  # a context of its own: the path below builds its mid twiddles itself
     n1, n2 = chk.n1, chk.n2
     half = n1 // 2
+    col_ntt, col_ntt_plain = ntt_kernels.col_ntt, ntt_kernels.col_ntt_plain
     for inverse in (False, True):
-        M = a.reshape(n1, n2, 8)
-        A = ntt_kernels.col_ntt(FR, M, chk.rev_n1, chk.inner[inverse])
-        err1 = word_err([A], [ntt_kernels.col_ntt_plain(FR, M, chk.rev_n1, chk.inner[inverse])])
-        T = chk.mid_twiddle(inverse)
+        M, inner, T = a.reshape(n1, n2, 8), chk.inner[inverse], chk.mid_twiddle(inverse)
+        A = col_ntt(FR, M, chk.rev_n1, inner)
+        err1 = word_err([A], [col_ntt_plain(FR, M, chk.rev_n1, inner)])
+        D = col_ntt(FR, M, chk.rev_n1, inner, T)  # the epilogue pass: times T, transposed
+        errd = word_err([D], [col_ntt_plain(FR, M, chk.rev_n1, inner, T)])
         B = fk.mul_rows(FR, A.reshape(n, 8), T)
         errm = word_err([B], [fk.mul_rows_plain(FR, A.reshape(n, 8), T)])
-        D = B.reshape(n1, n2, 8).transpose(0, 1).contiguous()
-        E = ntt_kernels.col_ntt(FR, D, chk.rev_n2, chk.outer[inverse])
-        err2 = word_err([E], [ntt_kernels.col_ntt_plain(FR, D, chk.rev_n2, chk.outer[inverse])])
-        check(err1 == err2 == errm == 0, f"B4 col_ntt / the mid multiply not bit-exact at ({n1}, {n2}), "
-              f"inverse={inverse}: {err1}, {errm}, {err2}")
+        rep = (FR, A.reshape(n, 8), T[: n // MID_REP], 1, MID_REP)  # b of n / 4 rows, each repeated 4 times
+        errr = word_err([fk.mul_rows(*rep)], [fk.mul_rows_plain(*rep)])
+        check(torch.equal(D, B.reshape(n1, n2, 8).transpose(0, 1).contiguous()),
+              "the epilogue pass differs from col_ntt -> mul_rows -> transpose on the card")
+        E = col_ntt(FR, D, chk.rev_n2, chk.outer[inverse])
+        err2 = word_err([E], [col_ntt_plain(FR, D, chk.rev_n2, chk.outer[inverse])])
+        check(err1 == errd == err2 == errm == errr == 0, f"B4 col_ntt / its epilogue / mul_rows K = 1 not bit-exact "
+              f"at ({n1}, {n2}), inverse={inverse}: {err1}, {errd}, {err2}, {errm}, {errr}")
         check(torch.equal(E.reshape(n, 8), chk.fft(a, inverse)), "the checked stages disagree with NTT.fft")
+        # mul_rows K = 1 at the NTT path's own shapes: the coset powers zeta^(i mod 3) (2^20 rows against 3)
+        # and the mid twiddle's last doubling step (its rows o1 < n1 / 2 times w^(+-n1 i2 / 2))
+        coset = (FR, a, (chk.zeta_inv_pows if inverse else chk.zeta_pows))
+        errc = word_err([fk.mul_rows(*coset)], [fk.mul_rows_plain(*coset)])
+        half_rows = n1 // 2 * n2
+        dbl = (FR, T[:half_rows], T[half_rows : half_rows + n2])  # row n1 / 2 of T: w^(+-n1 i2 / 2)
+        D2 = fk.mul_rows(*dbl)
+        errs = word_err([D2], [fk.mul_rows_plain(*dbl)])
+        check(errc == errs == 0, f"mul_rows K = 1 not bit-exact at the coset shape ({n} x 3) or the doubling step "
+              f"({half_rows} x {n2}), inverse={inverse}: {errc}, {errs}")
         if not inverse:
-            args = (FR, M, chk.rev_n1, chk.inner[False])
-            ms = gpu_ms(lambda: ntt_kernels.col_ntt(*args), reps=20)
-            plain = gpu_ms(lambda: ntt_kernels.col_ntt_plain(*args), reps=1)
+            # unscaled, the step gives T's upper rows (the inverse's T carries 1/n in both factors)
+            check(torch.equal(D2, T[half_rows:]), "the doubling step does not give the mid twiddle's upper rows")
+            args = (FR, M, chk.rev_n1, inner)
+            ms = gpu_ms(lambda: col_ntt(*args), reps=20)
+            plain = gpu_ms(lambda: col_ntt_plain(*args), reps=1)
             # every butterfly multiplies but those with twiddle w^0 = 1: n1 - 1 of them per column
             muls = (half * (n1.bit_length() - 1) - (n1 - 1)) * n2
             record("col_ntt", "sirius_tpu_torch/csrc/ntt.cu", "sirius_tpu/ops/pallas_ntt.py:82", err1, ms, plain,
                    muls, 2 * FE * n + FE * half + 4 * n1)
+            ms_d = gpu_ms(lambda: col_ntt(*args, T), reps=20)
+            plain_d = gpu_ms(lambda: col_ntt_plain(*args, T), reps=1)
+            record("col_ntt_mid", "sirius_tpu_torch/csrc/ntt.cu", "sirius_tpu/ops/pallas_ntt.py:82", errd, ms_d,
+                   plain_d, muls + n, 3 * FE * n + FE * half + 4 * n1)
+            ms_c = gpu_ms(lambda: fk.mul_rows(*coset), reps=20)
+            plain_c = gpu_ms(lambda: fk.mul_rows_plain(*coset), reps=1)
+            record("mul_rows", "sirius_tpu_torch/csrc/field_ops.cu", "scripts/tpu_microbench.py:74", errc, ms_c,
+                   plain_c, n, 2 * FE * n + 3 * FE)
+            ms_s = gpu_ms(lambda: fk.mul_rows(*dbl), reps=20)
             mid = (FR, A.reshape(n, 8), T)
             ms_mid = gpu_ms(lambda: fk.mul_rows(*mid), reps=20)
-            plain_mid = gpu_ms(lambda: fk.mul_rows_plain(*mid), reps=1)
-            record("mul_rows", "sirius_tpu_torch/csrc/field_ops.cu", "scripts/tpu_microbench.py:74", errm, ms_mid,
-                   plain_mid, n, 3 * FE * n)
-            b4, bm = kernels["col_ntt"], kernels["mul_rows"]
+            ms_rep = gpu_ms(lambda: fk.mul_rows(*rep), reps=20)
+            b4, b4d, bm = kernels["col_ntt"], kernels["col_ntt_mid"], kernels["mul_rows"]
             log(f"B4 col_ntt ({n1}, {n2}): kernel {ms:.6f} ms, plain {plain:.4f} ms, bound {b4['bound_ms']:.6f} ms "
-                f"({b4['bound_by']}); mid-twiddle multiply (mul_rows K=1, 2^20) {ms_mid:.6f} ms, plain "
-                f"{plain_mid:.4f} ms, bound {bm['bound_ms']:.6f} ms ({bm['bound_by']})  [{card}]")
-    log(f"B4 col_ntt at both pass shapes ({n1} x {n2}, {n2} x {n1}), forward and inverse tables, and the "
-        "mid-twiddle multiply: bit-exact against their twins")
+                f"({b4['bound_by']}); its epilogue pass (times T, transposed) {ms_d:.6f} ms, plain {plain_d:.4f} ms, "
+                f"bound {b4d['bound_ms']:.6f} ms ({b4d['bound_by']}); mul_rows K=1 at the coset shape (2^20 x 3) "
+                f"{ms_c:.6f} ms, plain {plain_c:.4f} ms, bound {bm['bound_ms']:.6f} ms ({bm['bound_by']}; at the "
+                f"int64 words {2 * 2 * FE * n / HBM_BYTES_PER_S * 1e3:.6f} ms); the doubling step ({half_rows} x {n2}) "
+                f"{ms_s:.6f} ms; 2^20 x 2^20 (rep = 1) {ms_mid:.6f} ms (int64 floor "
+                f"{6 * FE * n / HBM_BYTES_PER_S * 1e3:.6f} ms); rep = {MID_REP} {ms_rep:.6f} ms  [{card}]")
+    log(f"B4 col_ntt at both pass shapes ({n1} x {n2}, {n2} x {n1}) and its epilogue pass, forward and inverse "
+        f"tables, and mul_rows K = 1 (the coset shape, the doubling step, nb = n with rep 1 and {MID_REP}): "
+        f"bit-exact against their twins")
 
     # the NTT path (launch counts from here)
-    ntt_counters = (ntt_kernels.col_ntt, fk.mul_rows)
-    for fn in ntt_counters:
-        fn.launches = 0
+    counts = lambda: (col_ntt.launches, col_ntt.mid_launches, fk.mul_rows.launches)  # noqa: E731
+    col_ntt.launches = col_ntt.mid_launches = fk.mul_rows.launches = 0
     t0 = time.perf_counter()
     ctx = NTT(FR, NTT_LOG, dev)
     torch.cuda.synchronize()
@@ -704,6 +742,12 @@ def main() -> int:
     ctx.mid_twiddle(True)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    for inverse in (False, True):
+        before = counts()
+        ctx.fft(a, inverse)
+        got = tuple(x - y for x, y in zip(counts(), before))
+        check(got == (2, 1, 0), f"the 2^20 {'inverse' if inverse else 'forward'} transform launched (col_ntt, its "
+              f"epilogue, mul_rows) = {got}, not (2, 1, 0)")
     out = ctx.fft(a)
     check(torch.equal(ctx.ifft(out), a), "2^20 ifft(fft(a)) != a")
     coset = ctx.coset_fft(a)
@@ -729,11 +773,14 @@ def main() -> int:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t3
     fwd_ms = gpu_ms(lambda: ctx.fft(a), reps=10)
-    ntt_launches = {fn.__name__: fn.launches for fn in ntt_counters}
+    inv_ms = gpu_ms(lambda: ctx.ifft(a), reps=10)
+    ntt_launches = dict(zip(("col_ntt", "col_ntt_mid", "mul_rows"), counts()))
+    ntt_launches["col_ntt"] -= ntt_launches["col_ntt_mid"]  # the plain pass's launches
     log(f"NTT 2^20 bn256 Fr: context {t1 - t0:.4f} s, mid-twiddle set-up (both directions) {t2 - t1:.4f} s; "
-        f"fft/ifft and coset round trips exact, spot values equal the direct sums, k = 3 equals the reference "
-        f"vector, k = 12 equals gold.fft; warm forward {dt:.6f} s = {n / dt:.6e} elements/s "
-        f"(CUDA events {fwd_ms:.6f} ms = {n / (fwd_ms / 1e3):.6e} elements/s)  [{card}]")
+        f"the forward and inverse transforms launch 2 col_ntt (one its epilogue pass) and no mul_rows; fft/ifft and "
+        f"coset round trips exact, spot values equal the direct sums, k = 3 equals the reference vector, k = 12 "
+        f"equals gold.fft; warm forward {dt:.6f} s = {n / dt:.6e} elements/s (CUDA events forward {fwd_ms:.6f} ms "
+        f"= {n / (fwd_ms / 1e3):.6e} elements/s, inverse {inv_ms:.6f} ms)  [{card}]")
     log(f"launch counts on the NTT path: {ntt_launches}")
     for name, count in ntt_launches.items():
         check(count > 0, f"kernel {name} never launched on the NTT path")
@@ -899,11 +946,22 @@ def main() -> int:
         attrs["sassInstructions"] = (sum(sum(v.values()) for k, v in sass.items() if re.search(rf"\d{name}_kernel", k))
                                      if sass else "not measured")
         log(f"{name}: {attrs}")
-    for i, product in enumerate(fk.PRODUCTS):  # csrc/field_ops.cu mul_rows_kernel<false, i>: one product in its K loop
-        ops = sum((v for k, v in (sass or {}).items() if f"mul_rows_kernelILb0ELi{i}E" in k), Counter())
+    for name in ntt_kernels.KERNELS:  # csrc/ntt.cu col_ntt_kernel<2, MID>: a column of 1024
+        attrs = ntt_kernels.col_ntt_kernel_attrs(name)
+        tag = "ILi2ELb1E" if name == "col_ntt_mid" else "ILi2ELb0E"
+        attrs["sassInstructions"] = (sum(sum(v.values()) for k, v in sass.items() if f"col_ntt_kernel{tag}" in k)
+                                     if sass else "not measured")
+        log(f"{name}: {attrs}")
+    attrs = fk.mul_rows_kernel_attrs()  # csrc/field_ops.cu mul_rows_kernel<2, false, true, 0>
+    attrs["sassInstructions"] = (sum(sum(v.values()) for k, v in sass.items()
+                                     if "mul_rows_kernelILi2ELb0ELb1ELi0E" in k) if sass else "not measured")
+    log(f"mul_rows (the NTT path's K = 1 instance: 2 elements a thread, rep 1, the modulo, unrolled product): "
+        f"{attrs}")
+    for i, product in enumerate(fk.PRODUCTS):  # csrc/field_ops.cu mul_rows_kernel<1, false, false, i>: S2's
+        ops = sum((v for k, v in (sass or {}).items() if f"mul_rows_kernelILi1ELb0ELb0ELi{i}E" in k), Counter())
         imads = {op: v for op, v in ops.items() if op.startswith("IMAD")}
         muls = sum(v for op, v in imads.items() if not op.startswith(("IMAD.MOV", "IMAD.IADD", "IMAD.SHL")))
-        log(f"SASS of mul_rows on the {product} product (the K loop holds one product): "
+        log(f"SASS of mul_rows at K > 1 (S2's instance, one product in the K loop) on the {product} product: "
             + (f"{sum(ops.values())} instructions, {muls} integer multiplies (IMAD-class less moves, adds, "
                f"shifts); IMAD-class by opcode {dict(sorted(imads.items()))}" if ops else "not measured"))
 
@@ -916,8 +974,8 @@ def main() -> int:
     kernels["bucket_sort"]["launches"] = ivc_launches["bucket_plan"] - sort_shapes[PRIMARY_W_N]
     kernels["msm_combine"]["launches"] = sum(n for shape, n in combine_shapes.items() if shape[0] == 1)
     kernels["msm_combine_many"]["launches"] = sum(n for shape, n in combine_shapes.items() if shape[0] > 1)
-    kernels["col_ntt"]["launches"] = ntt_launches["col_ntt"]
-    kernels["mul_rows"]["launches"] = ntt_launches["mul_rows"]
+    for name in ("col_ntt", "col_ntt_mid", "mul_rows"):
+        kernels[name]["launches"] = ntt_launches[name]
     for name, count in probe_launches.items():
         check(count > 0, f"{name} never launched in its timed runs")
         kernels[name]["launches"] = count

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The MSM kernels (B1-B3), S1 and B4 of two checkouts of the port, timed in turns on one GPU.
+"""The MSM kernels (B1-B3), S1, S2 and the NTT's kernels of two checkouts of the port, timed in turns on one GPU.
 
     python3 msm_turns.py OLD_DIR NEW_DIR
     python3 msm_turns.py --turn DIR      (one turn alone: DIR's numbers)
@@ -23,15 +23,25 @@ from a fixed seed:
   grumpkin points, 4-bit windows, 256 groups): one `madd_buckets` launch
   where the checkout has it, else the per-step loop of B1 launches with the
   one-hot select and write-back; and the whole `msm_many` call (3 calls);
-- the field product's other kernels: S1 `msm_reduce_rolled` on the reduce
-  inputs above, and B4 `col_ntt` at the 2^20 NTT's first pass (size 1024
-  over R = 1024 columns of random bn256 Fr elements).
+- S1 `msm_reduce_rolled` on the reduce inputs above;
+- S2, the field-rate probe: `mul_chain` at K = 8 over 2^17 bn256 Fr
+  elements on the unrolled and the carry-chain product (mean of 50 calls),
+  and the latency probe: one element, K = 1024 dependent products, on each
+  of the four products (mean of 5 calls; microseconds per product);
+- the NTT at 2^20 on random bn256 Fr elements (mean of 20 calls): B4
+  `col_ntt` at the first pass's shape (size 1024 over R = 1024 columns),
+  its epilogue variant with the mid twiddle and transpose (where the
+  checkout has it), the field product `mul_rows` at K = 1 over 2^20 rows
+  (the coset powers: b of 3 rows; rep = 1, b the mid twiddle; rep = 4, b
+  its first 2^18 rows), and the whole forward and inverse transforms (mid
+  twiddles built first).
 The turns run OLD, NEW, NEW, OLD; each prints one JSON line, and the script
 prints the card (name, power limit) and a JSON summary last.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import subprocess
 import sys
@@ -72,48 +82,15 @@ def old_bucket_stage(curve, scalars, px, py, G, c):
     return table
 
 
-def turn() -> None:
-    """The child: time the kernels of the checkout on sys.path[0]."""
-    import numpy as np
-    import torch
-
+def msm_turn(out, rng, dev, ck, jacobian, scalars, gpu_ms) -> None:
+    """B1-B3 and S1 of the checkout on sys.path[0], into `out`."""
     from sirius_tpu_torch.curves.jpoint import BN256_G1, GRUMPKIN, Points
-    from sirius_tpu_torch.fields.jfield import FR
     from sirius_tpu_torch.ops import madd as madd_mod
     from sirius_tpu_torch.ops import msm_kernels as mk
     from sirius_tpu_torch.ops.commitment import CommitmentKey
     from sirius_tpu_torch.ops.msm import FAN_IN, MANY_GROUPS, MANY_WINDOW_BITS, bucket_plan, msm_many
     from sirius_tpu_torch.ops.msm import split_segments
-    from sirius_tpu_torch.ops.ntt import NTT
-    from sirius_tpu_torch.ops.ntt_kernels import col_ntt
-    from sirius_tpu_torch.util.interop import limbs_to_words
 
-    dev = torch.device("cuda:0")
-    rng = np.random.default_rng(SEED)
-    ck = CommitmentKey.setup(GRUMPKIN, 10, b"msm-turns", use_cache=False, device=dev)
-    pts = GRUMPKIN.dbl(Points(*(c.contiguous() for c in ck.points)))
-
-    def jacobian(n):
-        idx = torch.from_numpy(rng.integers(0, len(ck), size=n)).to(dev)
-        return Points(*(c[idx].contiguous() for c in pts))
-
-    def scalars(shape):
-        limbs = rng.integers(0, 1 << 16, size=(*shape, 16), dtype=np.uint32)
-        limbs[..., 15] &= 0x0FFF
-        return torch.from_numpy(limbs_to_words(limbs)).to(dev)
-
-    def gpu_ms(fn, reps=10):
-        fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
-    out = {}
     for name, (t, W, B, c) in SHAPES.items():
         bk = Points(*(a.reshape(t, W, B, 8) for a in jacobian(t * W * B)))
         out[name] = gpu_ms(lambda: mk.msm_combine(GRUMPKIN, bk, c))
@@ -147,9 +124,73 @@ def turn() -> None:
     out["msm_many"] = gpu_ms(lambda: msm_many(GRUMPKIN, S, key.points), reps=3)
 
     out["reduce_rolled_level0"] = gpu_ms(lambda: mk.msm_reduce_rolled(GRUMPKIN, sub_off, parts))
+
+
+def turn() -> None:
+    """The child: time the kernels of the checkout on sys.path[0]."""
+    import numpy as np
+    import torch
+
+    from sirius_tpu_torch.curves.jpoint import GRUMPKIN, Points
+    from sirius_tpu_torch.fields.jfield import FR
+    from sirius_tpu_torch.ops.commitment import CommitmentKey
+    from sirius_tpu_torch.ops.field_kernels import PRODUCTS, mul_rows
+    from sirius_tpu_torch.ops.microbench import mul_chain
+    from sirius_tpu_torch.ops.ntt import NTT
+    from sirius_tpu_torch.ops.ntt_kernels import col_ntt
+    from sirius_tpu_torch.util.interop import limbs_to_words
+
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(SEED)
+    ck = CommitmentKey.setup(GRUMPKIN, 10, b"msm-turns", use_cache=False, device=dev)
+    pts = GRUMPKIN.dbl(Points(*(c.contiguous() for c in ck.points)))
+
+    def jacobian(n):
+        idx = torch.from_numpy(rng.integers(0, len(ck), size=n)).to(dev)
+        return Points(*(c[idx].contiguous() for c in pts))
+
+    def scalars(shape):
+        limbs = rng.integers(0, 1 << 16, size=(*shape, 16), dtype=np.uint32)
+        limbs[..., 15] &= 0x0FFF
+        return torch.from_numpy(limbs_to_words(limbs)).to(dev)
+
+    def gpu_ms(fn, reps=10):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    out = {}
+    msm_turn(out, rng, dev, ck, jacobian, scalars, gpu_ms)
+
+    def elements(n):  # canonical Montgomery words below 2^252 (< p)
+        w = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.int64)
+        w[:, 7] &= 0x0FFFFFFF
+        return torch.from_numpy(w).to(dev)
+
+    a2, b2, a1, b1 = elements(1 << 17), elements(1 << 17), elements(1), elements(1)
+    for product in ("unrolled", "cc"):
+        out[f"s2_k8_{product}"] = gpu_ms(lambda: mul_chain(FR, a2, b2, 8, product=product), reps=50)
+    for product in PRODUCTS:
+        out[f"latency_us_{product}"] = gpu_ms(lambda: mul_chain(FR, a1, b1, 1024, product=product), reps=5) / 1024 * 1e3
     ntt = NTT(FR, 20, dev)
     M = FR.random((1 << 20,), rng, dev).reshape(ntt.n1, ntt.n2, 8)
-    out["col_ntt_1024"] = gpu_ms(lambda: col_ntt(FR, M, ntt.rev_n1, ntt.inner[False]))
+    T = ntt.mid_twiddle(False)
+    ntt.mid_twiddle(True)
+    a = M.reshape(-1, 8)
+    out["col_ntt_1024"] = gpu_ms(lambda: col_ntt(FR, M, ntt.rev_n1, ntt.inner[False]), reps=20)
+    if "mid" in inspect.signature(col_ntt).parameters:
+        out["col_ntt_mid_1024"] = gpu_ms(lambda: col_ntt(FR, M, ntt.rev_n1, ntt.inner[False], T), reps=20)
+    out["mul_rows_k1_2^20_coset"] = gpu_ms(lambda: mul_rows(FR, a, ntt.zeta_pows), reps=20)
+    out["mul_rows_k1_2^20"] = gpu_ms(lambda: mul_rows(FR, a, T), reps=20)
+    out["mul_rows_k1_2^20_rep4"] = gpu_ms(lambda: mul_rows(FR, a, T[: 1 << 18], rep=4), reps=20)
+    out["fft_2^20"] = gpu_ms(lambda: ntt.fft(a), reps=20)
+    out["ifft_2^20"] = gpu_ms(lambda: ntt.ifft(a), reps=20)
     print(json.dumps(out))
 
 

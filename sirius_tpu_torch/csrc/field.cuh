@@ -391,6 +391,18 @@ __device__ __forceinline__ Fe fe_load_ro(const long long* src, long long row) {
 #endif
 }
 
+// A field element into an (n, 8) int64 array whose rows are 16-byte
+// aligned, in four 16-byte stores (st.global.v2), zero-extended words.
+__device__ __forceinline__ void fe_store_v(long long* dst, long long row, const Fe& a) {
+#ifdef __CUDA_ARCH__
+  longlong2* d = reinterpret_cast<longlong2*>(dst + row * 8);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) d[k] = make_longlong2((long long)a.v[2 * k], (long long)a.v[2 * k + 1]);
+#else
+  fe_store(dst, row, a);
+#endif
+}
+
 // N independent rolled carry-chain products r[n] = a[n] * b[n] * R^-1
 // (B3's, through pt_add_ilp and pt_dbl_ilp): cc_round's
 // CIOS rounds, interleaved over the N products in one rolled loop, b's

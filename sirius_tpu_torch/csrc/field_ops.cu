@@ -1,25 +1,32 @@
 // The port's elementwise field product on the card: `mul_rows`.
 //
-// out_i = a_i * b_((i / rep) mod nb)^K by K chained Montgomery products per
-// element, one thread per element.  b holds nb rows broadcast over a's rows,
-// each repeated rep times, so K = 1 is the NTT's elementwise product (its
-// mid twiddle, over R columns at once with rep = R in a nested four-step,
-// coset powers zeta^(i mod 3) and 1/n), and K = 8 over 2^17 elements is S2,
-// the field-rate probe that replaces `scripts/tpu_microbench.py:mul_kernel`.
+// out_i = a_i * b_j^K with j = (i / rep) mod nb, by K chained Montgomery
+// products per element: b holds nb rows broadcast over a's rows, each
+// repeated rep times.  K = 1 is the NTT's elementwise product (coset powers
+// zeta^(i mod 3), the flat route's 1/n, a nested four-step's mid twiddle
+// over R columns at once with rep = R, the doubling build of the mid
+// twiddle), and K = 8 over 2^17 elements is S2, the field-rate probe that
+// replaces `scripts/tpu_microbench.py:mul_kernel`.
 //
 // What bounds it: K * ~136 wide integer multiply-adds per element against
-// 96 bytes of canonical elements.  At K = 1 it is byte-bound (the NTT's mid
-// multiply); at K = 8 integer-multiply bound, which is why S2 measures the
-// card's Montgomery-multiply rate with it, on each of the port's three
-// products (fe_mul_k).  The K loop is not unrolled, so a chain of any length
-// is one loop body.
+// 96 bytes of canonical elements.  At K = 1 it is byte-bound, and at the
+// port's int64 words it moves 192 bytes per element (2^20 elements: 0.060 ms
+// at 3.35 TB/s), so at K = 1 it runs as a bandwidth kernel: each thread
+// takes two elements (coalesced: the second sits a block width on), starts
+// all their loads (16-byte read-only loads) before any product and stores in
+// 16-byte stores.  At K > 1 it is integer-multiply bound, and each thread
+// takes one element, so S2 (the card's Montgomery-multiply rate, on each of
+// the port's four products: fe_mul_k, every rep) and the latency probe (one
+// element, a long K) run one chain a thread.  Index arithmetic is 32-bit (the wrapper refuses n >= 2^31),
+// with a division only in the REPEAT instance (rep > 1) and a modulo only in
+// the WRAP instance (nb * rep != n).  The K loop is not unrolled, so a chain
+// of any length is one loop body; a thread's chains run interleaved in it.
 
 #include "field.cuh"
 
-// The product by kind: 0 the unrolled CIOS (fe_mul: this kernel's own),
-// 1 the rolled one (S1's fe_mul_t<true>), 2 the carry-chain one (fe_mul_cc:
-// B1's, B2's and B4's), 3 the rolled carry-chain one (fe_mul_n: B3's); the
-// same words.
+// The product by kind: 0 the unrolled CIOS (fe_mul), 1 the rolled one
+// (S1's fe_mul_t<true>), 2 the carry-chain one (fe_mul_cc: B1's, B2's and
+// B4's), 3 the rolled carry-chain one (fe_mul_n: B3's); the same words.
 template <int PRODUCT>
 __device__ __forceinline__ Fe fe_mul_k(const Fe& a, const Fe& b, const FieldConst& fc) {
   if (PRODUCT == 3) {
@@ -31,48 +38,99 @@ __device__ __forceinline__ Fe fe_mul_k(const Fe& a, const Fe& b, const FieldCons
   return fe_mul_t<PRODUCT == 1>(a, b, fc);
 }
 
-// REPEAT: rep > 1 (a separate instance, so the rep = 1 code has no division).
-template <bool REPEAT, int PRODUCT>
-__device__ __forceinline__ void mul_rows_row(const FieldConst& fc, const long long* a, const long long* b,
-                                             long long* out, long long nb, long long rep, int K, long long i) {
-  Fe x = fe_load(a, i);
-  const Fe y = fe_load(b, (REPEAT ? i / rep : i) % nb);
+// Elements a thread: two at K = 1 (the bandwidth instance), one at K > 1.
+__host__ __device__ constexpr int mul_rows_ept(int K) { return K == 1 ? 2 : 1; }
+
+// The elements first, first + stride, ... (EPT of them, those below n) of
+// one thread; a row past n is a zero that is never stored.
+template <int EPT, bool REPEAT, bool WRAP, int PRODUCT>
+__device__ __forceinline__ void mul_rows_thread(const FieldConst& fc, const long long* a, const long long* b,
+                                                long long* out, unsigned n, unsigned nb, unsigned rep, int K,
+                                                unsigned first, unsigned stride) {
+  Fe x[EPT] = {}, y[EPT] = {};
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) {
+    const unsigned i = first + e * stride;
+    if (i < n) {
+      const unsigned j = REPEAT ? i / rep : i;
+      x[e] = fe_load_ro(a, i);
+      y[e] = fe_load_ro(b, WRAP ? j % nb : j);
+    }
+  }
 #pragma unroll 1
-  for (int k = 0; k < K; ++k) x = fe_mul_k<PRODUCT>(x, y, fc);
-  fe_store(out, i, x);
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) x[e] = fe_mul_k<PRODUCT>(x[e], y[e], fc);
+  }
+#pragma unroll
+  for (int e = 0; e < EPT; ++e)
+    if (first + e * stride < n) fe_store_v(out, first + e * stride, x[e]);
 }
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 
-template <bool REPEAT, int PRODUCT>
-__global__ void mul_rows_kernel(FieldConst fc, const long long* a, const long long* b, long long* out, long long n,
-                                long long nb, long long rep, int K) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) mul_rows_row<REPEAT, PRODUCT>(fc, a, b, out, nb, rep, K, i);
+template <int EPT, bool REPEAT, bool WRAP, int PRODUCT>
+__global__ void __launch_bounds__(128) mul_rows_kernel(FieldConst fc, const long long* a, const long long* b,
+                                                        long long* out, unsigned n, unsigned nb, unsigned rep, int K) {
+  mul_rows_thread<EPT, REPEAT, WRAP, PRODUCT>(fc, a, b, out, n, nb, rep, K,
+                                              blockIdx.x * (blockDim.x * EPT) + threadIdx.x, blockDim.x);
 }
 
-// product: fe_mul_k's kind (rep = 1 only for kinds 1 to 3).
+// ---- host launchers ----
+template <int EPT, int PRODUCT>
+static void mul_rows_launch(int threads, cudaStream_t st, const FieldConst& fc, const long long* a,
+                            const long long* b, long long* out, unsigned n, unsigned nb, unsigned rep, int K) {
+  const unsigned blocks = (unsigned)(((unsigned long long)n + threads * EPT - 1) / (threads * EPT));
+  const bool wrap = (unsigned long long)nb * rep != n;
+  if (rep > 1 && wrap)
+    mul_rows_kernel<EPT, true, true, PRODUCT><<<blocks, threads, 0, st>>>(fc, a, b, out, n, nb, rep, K);
+  else if (rep > 1)
+    mul_rows_kernel<EPT, true, false, PRODUCT><<<blocks, threads, 0, st>>>(fc, a, b, out, n, nb, rep, K);
+  else if (wrap)
+    mul_rows_kernel<EPT, false, true, PRODUCT><<<blocks, threads, 0, st>>>(fc, a, b, out, n, nb, rep, K);
+  else
+    mul_rows_kernel<EPT, false, false, PRODUCT><<<blocks, threads, 0, st>>>(fc, a, b, out, n, nb, rep, K);
+}
+
+template <int PRODUCT>
+static void mul_rows_launch_k(int threads, cudaStream_t st, const FieldConst& fc, const long long* a,
+                              const long long* b, long long* out, unsigned n, unsigned nb, unsigned rep, int K) {
+  if (mul_rows_ept(K) == 2)
+    mul_rows_launch<2, PRODUCT>(threads, st, fc, a, b, out, n, nb, rep, K);
+  else
+    mul_rows_launch<1, PRODUCT>(threads, st, fc, a, b, out, n, nb, rep, K);
+}
+
+// product: fe_mul_k's kind; n, nb and rep below 2^31.
 extern "C" int sirius_mul_rows(const uint32_t* consts, const void* a, const void* b, void* out, long long n,
                                long long nb, long long rep, int K, int product, void* stream) {
   const int threads = 128;
-  long long blocks = (n + threads - 1) / threads;
+  if (product < 0 || product > 3 || n >= (1LL << 31) || nb >= (1LL << 31) || rep >= (1LL << 31) || nb < 1 || rep < 1)
+    return (int)cudaErrorInvalidValue;
   const FieldConst fc = make_field_const(consts);
   cudaStream_t st = (cudaStream_t)stream;
   const long long* pa = (const long long*)a;
   const long long* pb = (const long long*)b;
   long long* po = (long long*)out;
-  if (product < 0 || product > 3 || (product != 0 && rep != 1)) return (int)cudaErrorInvalidValue;
-  if (product == 1)
-    mul_rows_kernel<false, 1><<<(unsigned)blocks, threads, 0, st>>>(fc, pa, pb, po, n, nb, rep, K);
-  else if (product == 2)
-    mul_rows_kernel<false, 2><<<(unsigned)blocks, threads, 0, st>>>(fc, pa, pb, po, n, nb, rep, K);
-  else if (product == 3)
-    mul_rows_kernel<false, 3><<<(unsigned)blocks, threads, 0, st>>>(fc, pa, pb, po, n, nb, rep, K);
-  else if (rep == 1)
-    mul_rows_kernel<false, 0><<<(unsigned)blocks, threads, 0, st>>>(fc, pa, pb, po, n, nb, rep, K);
-  else
-    mul_rows_kernel<true, 0><<<(unsigned)blocks, threads, 0, st>>>(fc, pa, pb, po, n, nb, rep, K);
+  const unsigned un = (unsigned)n, unb = (unsigned)nb, urep = (unsigned)rep;
+  if (product == 0) mul_rows_launch_k<0>(threads, st, fc, pa, pb, po, un, unb, urep, K);
+  if (product == 1) mul_rows_launch_k<1>(threads, st, fc, pa, pb, po, un, unb, urep, K);
+  if (product == 2) mul_rows_launch_k<2>(threads, st, fc, pa, pb, po, un, unb, urep, K);
+  if (product == 3) mul_rows_launch_k<3>(threads, st, fc, pa, pb, po, un, unb, urep, K);
   return (int)cudaGetLastError();
+}
+
+// Registers, local (spill) bytes, static shared bytes of the instance the
+// NTT path launches most (K = 1: rep = 1, the modulo, the unrolled product).
+extern "C" int sirius_mul_rows_attrs(void* out) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, mul_rows_kernel<2, false, true, 0>);
+  if (e != cudaSuccess) return (int)e;
+  long long* o = (long long*)out;
+  o[0] = fa.numRegs;
+  o[1] = (long long)fa.localSizeBytes;
+  o[2] = (long long)fa.sharedSizeBytes;
+  return 0;
 }
 #endif

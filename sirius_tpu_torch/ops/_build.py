@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of `csrc/`.
 
-The sources compile with `nvcc` for sm_90a into one shared library with a
-plain C interface, loaded with ctypes.  Nothing happens at import: the first
+The sources compile with `nvcc` for sm_90a, one process per source, all
+started together, and link into one shared library with a plain C
+interface, loaded with ctypes.  Nothing happens at import: the first
 CUDA launch calls `library()`, which builds into `sirius_tpu_torch/_build/`
 (git-ignored) under a name keyed by a hash of the sources and flags, so a
 fresh checkout builds once and an unchanged tree never rebuilds: a second
@@ -29,10 +30,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -47,8 +46,10 @@ _SIGNATURES = {
     "sirius_msm_window_sums": [P] * 7 + [LL, I, I, P],
     "sirius_msm_horner": [P] * 7 + [I, I, I, I, P],
     "sirius_msm_attrs": [I, P],
-    "sirius_col_ntt": [P] * 5 + [LL, LL, P],
+    "sirius_col_ntt": [P] * 6 + [LL, LL, LL, P],
+    "sirius_col_ntt_attrs": [I, P],
     "sirius_mul_rows": [P] * 4 + [LL, LL, LL, I, I, P],
+    "sirius_mul_rows_attrs": [P],
     "sirius_raw_u32": [P] * 2 + [LL, I, I, P],
     "sirius_add_one": [P] * 2 + [LL, P],
 }
@@ -79,11 +80,24 @@ def library() -> ctypes.CDLL:
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(SRC_DIR.glob("*.cu")))]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (BUILD_DIR / "ptxas.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        srcs = sorted(SRC_DIR.glob("*.cu"))
+        objs = [tmp.with_name(f"{tmp.stem}.{src.stem}.o") for src in srcs]
+        try:
+            procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)], stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True) for src, obj in zip(srcs, objs)]
+            logs = [proc.communicate()[0] for proc in procs]
+            (BUILD_DIR / "ptxas.log").write_text("".join(logs))
+            for src, proc, text in zip(srcs, procs, logs):
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{text[-4000:]}")
+            proc = subprocess.run([_nvcc(), *ARCH, "-shared", "-o", str(tmp), *map(str, objs)], capture_output=True,
+                                  text=True)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
         os.replace(tmp, so)
         _BUILT_HERE = True
     lib = ctypes.CDLL(str(so))

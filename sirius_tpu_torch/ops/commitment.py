@@ -5,7 +5,10 @@ generators from a Shake256 XOF over the label through SVDW hash-to-curve;
 commits are MSMs over the first len(v) generators (`ops/msm.py`).  Keys
 cache as `CACHE_DIR/<curve>-<label>-<k>.npz` with the JAX package's packed
 format ((n, 8) uint32 Montgomery words `xw`, `yw`; z = 1 implied), so a key
-written by either package loads in the other.
+written by either package loads in the other.  A legacy cache of the JAX
+package ((n, 16) 16-bit limb arrays `x`, `y`, `z`) loads too: the limbs pack
+into the same Montgomery words (R = 2^256 at both widths), and points with
+z != 1 are normalized to affine on the device.
 """
 
 from __future__ import annotations
@@ -41,6 +44,31 @@ class TooLongInput(CommitmentError):
         super().__init__(f"input len {input_len} > key size {limit}")
 
 
+def _limb_words(limbs: np.ndarray) -> torch.Tensor:
+    """(n, 16) 16-bit limbs -> (n, 8) int64 32-bit words (the same value)."""
+    a = limbs.astype(np.int64)
+    return torch.from_numpy(a[:, 0::2] | (a[:, 1::2] << 16))
+
+
+def _load_cached(curve: Curve, path: str, device) -> Points:
+    """The key points of a cache file, packed (`xw`, `yw`) or legacy limb
+    arrays (`x`, `y`, `z`), as a Jacobian batch with z = 1 on `device`."""
+    f = curve.fb
+    with np.load(path) as data:
+        if "xw" in data:
+            px, py = (torch.from_numpy(data[c].astype(np.int64)).to(device) for c in ("xw", "yw"))
+            return Points(px, py, f.ones((px.shape[0],), device))
+        px, py, pz = (_limb_words(data[c]).to(device) for c in ("x", "y", "z"))
+    one = f.ones((px.shape[0],), device)
+    if f.eq(pz, one).all():
+        return Points(px, py, one)
+    if f.is_zero(pz).any():
+        raise CommitmentError(f"{path}: a key point at infinity (z = 0) cannot be a generator")
+    zi = f.batch_inv(pz)
+    zi2 = f.square(zi)
+    return Points(f.mul(px, zi2), f.mul(py, f.mul(zi2, zi)), one)
+
+
 @dataclass
 class CommitmentKey:
     """2^k generators on `points.device` as a Jacobian batch with z = 1."""
@@ -67,11 +95,7 @@ class CommitmentKey:
         device = resolve(device)
         path = CommitmentKey.cache_file(curve, k, label)
         if use_cache and os.path.exists(path):
-            with np.load(path) as data:
-                xw, yw = data["xw"], data["yw"]
-            px = torch.from_numpy(xw.astype(np.int64)).to(device)
-            py = torch.from_numpy(yw.astype(np.int64)).to(device)
-            return CommitmentKey(curve, Points(px, py, curve.fb.ones((n,), device)), label, k)
+            return CommitmentKey(curve, _load_cached(curve, path, device), label, k)
 
         stream = hashlib.shake_256(label).digest(64 * n)
         if n >= DEVICE_SETUP_MIN:

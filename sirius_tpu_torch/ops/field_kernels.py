@@ -3,8 +3,9 @@
 `mul_rows(field, a, b, K=1, rep=1)`: (n, 8) a and (nb, 8) b in Montgomery
 form -> a_i * b_((i // rep) mod nb)^K, by K chained Montgomery products, b
 broadcast over a's rows with each row repeated rep times.  K = 1 is the
-NTT's elementwise product (mid twiddle, over R columns at once with
-rep = R in a nested four-step; coset powers; 1/n); K = 8 is the field-rate
+NTT's elementwise product (coset powers; the flat route's 1/n; the mid
+twiddle where a four-step's first pass is itself nested, over R columns at
+once with rep = R; the doubling build of the mid twiddle); K = 8 is the field-rate
 probe S2 (`ops/microbench.mul_chain`), which replaces
 `scripts/tpu_microbench.py:mul_kernel`; at one element and a long K it is
 the latency probe of one dependent product.  `product` picks one of the
@@ -13,9 +14,11 @@ words: "unrolled" (fe_mul: this kernel's own, the NTT's elementwise
 product), "rolled" (S1's), "cc" (the PTX carry-chain product of B1, B2 and
 B4) and "cc_rolled" (its rolled form, fe_mul_n: B3's).
 
-Kernel: `csrc/field_ops.cu` (what bounds it is noted there).  The wrapper
-takes its plain twin for CPU tensors only; for CUDA tensors it launches its
-kernel or raises.  `mul_rows.launches` counts kernel launches.
+Kernel: `csrc/field_ops.cu`, a bandwidth kernel at K = 1 (2 elements per
+thread, 16-byte loads and stores, 32-bit index arithmetic), one chain per
+thread at K > 1 (design and bound noted there).  The wrapper takes its
+plain twin for CPU tensors only; for CUDA tensors it launches its kernel
+or raises.  `mul_rows.launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -46,20 +49,22 @@ def mul_rows_plain(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 1, r
 def mul_rows(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 1, rep: int = 1,
              product: str = "unrolled") -> torch.Tensor:
     """a_i * b_((i // rep) mod nb)^K per row, by K chained Montgomery products
-    (on `product`, one of PRODUCTS: the same words; rep = 1 only for the
-    rolled and the carry-chain products)."""
+    (on `product`, one of PRODUCTS: the same words)."""
     _check_words(a, "mul_rows a")
     _check_words(b, "mul_rows b")
     if product not in PRODUCTS:
         raise ValueError(f"product {product!r} is not one of {PRODUCTS}")
-    if b.shape[0] == 0 or K < 0 or rep < 1 or (product != "unrolled" and rep > 1):
-        raise ValueError("mul_rows needs at least one row of b, K >= 0, rep >= 1, and rep = 1 off the unrolled product")
+    if b.shape[0] == 0 or K < 0 or rep < 1:
+        raise ValueError("mul_rows needs at least one row of b, K >= 0 and rep >= 1")
+    if max(a.shape[0], b.shape[0], rep) >= 1 << 31:
+        raise ValueError("mul_rows indexes rows in 32 bits: n, nb and rep below 2^31")
     if a.device.type == "cpu":
         return mul_rows_plain(field, a, b, K, rep, product)
     from . import _build
 
     a, b = a.contiguous(), b.contiguous()
     _build.require_cuda(a, b)
+    _build.require_aligned(a, b)
     out = torch.empty_like(a)
     if a.shape[0]:
         err = _build.library().sirius_mul_rows(_build.field_consts(field), a.data_ptr(), b.data_ptr(),
@@ -71,3 +76,16 @@ def mul_rows(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 1, rep: in
 
 
 mul_rows.launches = 0
+
+
+def mul_rows_kernel_attrs() -> dict[str, int]:
+    """Registers and local (spill) bytes per thread, static shared bytes per
+    block, of the instance the NTT path launches most (K = 1, rep = 1, the
+    modulo, the unrolled product) as the loaded library was built."""
+    import ctypes
+
+    from . import _build
+
+    out = (ctypes.c_longlong * 3)()
+    _build.check(_build.library().sirius_mul_rows_attrs(out), "mul_rows_attrs")
+    return {"numRegs": int(out[0]), "localSizeBytes": int(out[1]), "sharedSizeBytes": int(out[2])}

@@ -9,23 +9,27 @@ Counterpart of `sirius_tpu/ops/ntt.py`, with its semantics (reference
 
 Routes (no switches):
 - k >= 10, the four-step (Bailey) transform: n = n1 * n2 with
-  n1 = 2^ceil(k/2), n2 = 2^floor(k/2); pass 1 runs the column NTT (B4,
-  `ops/ntt_kernels.py`) of size n1 over n2 columns, then every element is
-  multiplied by the mid twiddle T[o1, i2] = w^(+-o1*i2) (times 1/n for the
-  inverse), the (n1, n2) block is transposed, and pass 2 runs the column NTT
-  of size n2 over n1 columns:
+  n1 = 2^ceil(k/2), n2 = 2^floor(k/2); every element of the column NTT of
+  size n1 over n2 columns is multiplied by the mid twiddle
+  T[o1, i2] = w^(+-o1*i2) (times 1/n for the inverse), the (n1, n2) block
+  is transposed, and pass 2 runs the column NTT of size n2 over n1 columns:
       X[o2*n1 + o1] = sum_i2 w^(n1*i2*o2) T[o1,i2] sum_i1 x[i1*n2 + i2] w^(n2*i1*o1)
+  Pass 1, the product by T and the transpose are one launch of B4's
+  epilogue variant (`ntt_kernels.col_ntt(..., mid=T)`), so a k <= 24
+  transform is two kernel launches.
 - k < 10, the flat transform: one column (R = 1) of size n through the same
   kernel, then 1/n for the inverse.
 A column pass longer than `ntt_kernels.MAX_SIZE` (what one thread block's
 shared memory holds) is itself a four-step over its R columns at once: an
 unscaled transform of size s = s1 * s2 along axis 0 of an (s, R) block
-runs the two shorter passes around the mid twiddle broadcast over R.  So
-k = 25..28 (columns of 2^13..2^14) run as columns of at most 128.
-Every elementwise product (mid twiddle, coset powers, 1/n) is the field
-product `field_kernels.mul_rows` with its factor broadcast over rows, so on
-a CUDA tensor no plain torch arithmetic runs; on the CPU every step takes
-the plain twin.  The route depends on k and MAX_SIZE alone, on every device.
+runs the two shorter passes around the mid twiddle broadcast over R (B4's
+epilogue with rep = R where its first pass fits a kernel column, else the
+field product `field_kernels.mul_rows(..., rep=R)` and a transpose).  So
+k = 25..28 (columns of 2^13..2^14) run as columns of at most 128.  Every
+other elementwise product (coset powers, 1/n) is `mul_rows` with its
+factor broadcast over rows, so on a CUDA tensor no plain torch arithmetic
+runs; on the CPU every step takes the plain twin, in the same order.  The
+route depends on k and MAX_SIZE alone, on every device.
 
 The mid twiddle is built on the device once per direction (and scaling),
 by doubling (rows o1 < s times w^(s*i2) give rows s..2s-1), and cached:
@@ -127,16 +131,10 @@ class NTT:
             T = self._mid[(inverse, scaled)] = rows
         return T
 
-    def _pass(self, block: torch.Tensor, inner: bool, inverse: bool) -> torch.Tensor:
-        """One column pass over an (size, R, 8) block: B4 when the column fits
-        a kernel column, else a nested four-step."""
-        if (self.inner if inner else self.outer) is not None:
-            rev, table = (self.rev_n1, self.inner) if inner else (self.rev_n2, self.outer)
-            return col_ntt(self.f, block, rev, table[inverse])
-        size = block.shape[0]
+    def _nest(self, size: int) -> "NTT":
         if size not in self._nested:
             self._nested[size] = NTT(self.f, size.bit_length() - 1, self.device)
-        return self._nested[size]._columns(block, inverse, scaled=False)
+        return self._nested[size]
 
     def _columns(self, a: torch.Tensor, inverse: bool, scaled: bool) -> torch.Tensor:
         """The transform along axis 0 of an (n, R, 8) block, R columns at once
@@ -144,10 +142,18 @@ class NTT:
         broadcast over R."""
         f, n1, n2 = self.f, self.n1, self.n2
         R = a.shape[1]
-        A = self._pass(a.reshape(n1, n2 * R, WORDS), True, inverse)  # (o1, i2 R)
-        B = mul_rows(f, A.reshape(-1, WORDS), self.mid_twiddle(inverse, scaled), rep=R)
-        D = B.reshape(n1, n2, R, WORDS).transpose(0, 1).contiguous()  # (i2, o1, R)
-        E = self._pass(D.reshape(n2, n1 * R, WORDS), False, inverse)  # (o2, o1 R)
+        T = self.mid_twiddle(inverse, scaled)
+        A = a.reshape(n1, n2 * R, WORDS)
+        if self.inner is not None:  # pass 1, times T, transposed: (i2, o1 R)
+            D = col_ntt(f, A, self.rev_n1, self.inner[inverse], T, rep=R)
+        else:
+            A = self._nest(n1)._columns(A, inverse, scaled=False)  # (o1, i2 R)
+            B = mul_rows(f, A.reshape(-1, WORDS), T, rep=R)
+            D = B.reshape(n1, n2, R, WORDS).transpose(0, 1).reshape(n2, n1 * R, WORDS)
+        if self.outer is not None:
+            E = col_ntt(f, D, self.rev_n2, self.outer[inverse])  # (o2, o1 R)
+        else:
+            E = self._nest(n2)._columns(D, inverse, scaled=False)
         return E.reshape(self.n, R, WORDS)
 
     # -- public API -----------------------------------------------------------------

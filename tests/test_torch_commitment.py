@@ -15,7 +15,7 @@ from sirius_tpu.ops import commitment as jcommit
 from sirius_tpu_torch.curves.hash_to_curve import hash_bytes_to_point, hash_bytes_to_points_device
 from sirius_tpu_torch.curves.jpoint import BN256_G1, GRUMPKIN
 from sirius_tpu_torch.ops import commitment as tcommit
-from sirius_tpu_torch.util.interop import affine_from, key_from_numpy, to_numpy
+from sirius_tpu_torch.util.interop import affine_from, key_from_numpy, to_numpy, words_to_limbs
 
 torch.set_num_threads(1)  # small ops: more threads only contend with the other test workers
 
@@ -59,3 +59,52 @@ def test_npz_cache_shared_both_ways(tmp_path, monkeypatch):
     jck = jcommit.CommitmentKey.setup(J_BN256, 6, b"shared-b", use_cache=True)
     for t, j in zip(tck.points, jck.points):
         assert np.array_equal(to_numpy(t), np.asarray(j))
+
+
+def _save_legacy(path, x, y, z):
+    """The JAX package's legacy key cache: (n, 16) 16-bit limb arrays."""
+    np.savez(path, x=words_to_limbs(x), y=words_to_limbs(y), z=words_to_limbs(z))
+
+
+@pytest.mark.parametrize("jc,tc", PAIRS, ids=IDS)
+def test_legacy_limb_cache_loads_as_the_packed_cache(tmp_path, monkeypatch, jc, tc):
+    """A legacy (x, y, z) limb-array cache written from the JAX package's key
+    loads in the port to the same words as the packed cache of the same
+    label and as the JAX package's points."""
+    monkeypatch.setattr(jcommit, "CACHE_DIR", str(tmp_path))
+    monkeypatch.setattr(tcommit, "CACHE_DIR", str(tmp_path))
+    jck = jcommit.CommitmentKey.setup(jc, 5, b"legacy", use_cache=False)
+    path = tmp_path / f"{tc.spec.name}-legacy-5.npz"
+    np.savez(path, **{c: np.asarray(getattr(jck.points, c)) for c in ("x", "y", "z")})
+    got = tcommit.CommitmentKey.setup(tc, 5, b"legacy", use_cache=True, device="cpu")
+    fresh = tcommit.CommitmentKey.setup(tc, 5, b"legacy", use_cache=False, device="cpu")
+    path.unlink()
+    tcommit.CommitmentKey.setup(tc, 5, b"legacy", use_cache=True, device="cpu")  # writes the packed cache
+    with np.load(path) as data:
+        assert "xw" in data and "x" not in data
+    packed = tcommit.CommitmentKey.setup(tc, 5, b"legacy", use_cache=True, device="cpu")
+    for a, b, c in zip(got.points, fresh.points, packed.points):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    for t, j in zip(got.points, jck.points):
+        assert np.array_equal(to_numpy(t), np.asarray(j))
+
+
+def test_legacy_limb_cache_with_jacobian_points_is_normalized(tmp_path, monkeypatch):
+    """Legacy points with z != 1 (the key scaled to (l^2 x, l^3 y, l)) load
+    as the affine key (z = 1); a point at infinity is refused."""
+    monkeypatch.setattr(tcommit, "CACHE_DIR", str(tmp_path))
+    tc = BN256_G1
+    f = tc.fb
+    key = tcommit.CommitmentKey.setup(tc, 4, b"affine", use_cache=False, device="cpu").points
+    lam = f.encode([int(v) for v in np.random.default_rng(4).integers(2, 2**62, size=16)], "cpu")
+    lam[0] = f.ones((1,), "cpu")[0]  # a row with z = 1 among the others
+    lam2 = f.square(lam)
+    _save_legacy(tmp_path / "bn256_g1-jac-4.npz", f.mul(key.x, lam2), f.mul(key.y, f.mul(lam2, lam)), lam)
+    got = tcommit.CommitmentKey.setup(tc, 4, b"jac", use_cache=True, device="cpu").points
+    for a, b in zip(got, key):
+        assert torch.equal(a, b)
+    z = key.z.clone()
+    z[3] = 0
+    _save_legacy(tmp_path / "bn256_g1-inf-4.npz", key.x, key.y, z)
+    with pytest.raises(tcommit.CommitmentError, match="infinity"):
+        tcommit.CommitmentKey.setup(tc, 4, b"inf", use_cache=True, device="cpu")

@@ -110,6 +110,81 @@ def test_col_ntt_kernel_above_48kb_shared_memory(cuda_device, k):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k", [20, 21, 24], ids=["1024x1024", "2048x1024", "4096x4096"])
+def test_col_ntt_epilogue_bit_exact(cuda_device, k):
+    """B4's epilogue variant (pass 1 times the mid twiddle, transposed) at the
+    four-step's first-pass shapes of k = 20, 21 (odd k: n1 = 2 n2) and 24,
+    both directions, word for word its twin (the ladder, mul_rows_plain,
+    transpose)."""
+    ctx = NTT(FR, k, cuda_device)
+    M = FR.random((ctx.n1, ctx.n2), np.random.default_rng(k), cuda_device)
+    for inverse in (False, True):
+        T = ctx.mid_twiddle(inverse)
+        before = (ntt_kernels.col_ntt.launches, ntt_kernels.col_ntt.mid_launches)
+        got = ntt_kernels.col_ntt(FR, M, ctx.rev_n1, ctx.inner[inverse], T)
+        assert (ntt_kernels.col_ntt.launches, ntt_kernels.col_ntt.mid_launches) == (before[0] + 1, before[1] + 1)
+        assert got.shape == (ctx.n2, ctx.n1, 8)
+        assert torch.equal(got, ntt_kernels.col_ntt_plain(FR, M, ctx.rev_n1, ctx.inner[inverse], T))
+        del got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rep", [1, 4], ids=["rep1", "rep4"])
+def test_mul_rows_k1_bit_exact_every_product(cuda_device, rep):
+    """mul_rows at K = 1 (the NTT's product) at 2^20 rows, b of n / rep rows
+    (no modulo) and of 3 rows (the coset powers' wrap), on every product:
+    word for word its twin."""
+    n = 1 << 20
+    rng = np.random.default_rng(rep)
+    a = FR.random((n,), rng, cuda_device)
+    for nb in (n // rep, 3):
+        b = FR.random((nb,), rng, cuda_device)
+        want = fk.mul_rows_plain(FR, a, b, 1, rep)
+        for product in fk.PRODUCTS:
+            before = fk.mul_rows.launches
+            assert torch.equal(fk.mul_rows(FR, a, b, 1, rep, product=product), want), (nb, product)
+            assert fk.mul_rows.launches == before + 1
+    assert fk.mul_rows_kernel_attrs()["numRegs"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rep", [1, 4], ids=["rep1", "rep4"])
+def test_mul_rows_k3_bit_exact_every_product(cuda_device, rep):
+    """mul_rows at K = 3 (one chain a thread) on a ragged row count, b of
+    n / rep rows and of 3 rows, on every product: word for word its twin."""
+    n = 4000
+    rng = np.random.default_rng(10 + rep)
+    a = FR.random((n,), rng, cuda_device)
+    for nb in (n // rep, 3):
+        b = FR.random((nb,), rng, cuda_device)
+        want = fk.mul_rows_plain(FR, a, b, 3, rep)
+        for product in fk.PRODUCTS:
+            assert torch.equal(fk.mul_rows(FR, a, b, 3, rep, product=product), want), (nb, product)
+
+
+@pytest.mark.gpu
+def test_ntt_k20_is_two_col_ntt_launches(cuda_device):
+    """The 2^20 forward and inverse transforms (mid twiddles built first) are
+    two B4 launches each, the first its epilogue variant, and no mul_rows;
+    the coset transforms add one mul_rows each; round trips are exact."""
+    ctx = NTT(FR, 20, cuda_device)
+    ctx.mid_twiddle(False)
+    ctx.mid_twiddle(True)
+    a = FR.random((1 << 20,), np.random.default_rng(20), cuda_device)
+    counts = lambda: (ntt_kernels.col_ntt.launches, ntt_kernels.col_ntt.mid_launches, fk.mul_rows.launches)  # noqa: E731
+    before = counts()
+    out = ctx.fft(a)
+    assert counts() == (before[0] + 2, before[1] + 1, before[2])
+    back = ctx.ifft(out)
+    assert counts() == (before[0] + 4, before[1] + 2, before[2])
+    assert torch.equal(back, a)
+    assert torch.equal(ctx.coset_ifft(ctx.coset_fft(a)), a)
+    assert counts() == (before[0] + 8, before[1] + 4, before[2] + 2)
+    attrs = [ntt_kernels.col_ntt_kernel_attrs(name) for name in ntt_kernels.KERNELS]
+    assert all(x["numRegs"] > 0 for x in attrs)
+
+
+@pytest.mark.gpu
 def test_ntt_k21_round_trip_and_direct_sums(cuda_device):
     """The 2^21 transform (n1 = 2048) against direct sums at a few points."""
     k = 21

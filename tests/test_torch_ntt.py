@@ -129,3 +129,67 @@ def test_nested_four_step_k10_matches_jax(monkeypatch):
     coset = tctx.coset_fft(words)
     assert _same(coset, jctx.coset_fft(limbs))
     assert FR.decode(tctx.coset_ifft(coset)) == xs
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+def test_col_ntt_epilogue_twin_matches_pallas_mid_and_swap(inverse):
+    """The epilogue pass's twin (the ladder, times the mid twiddle,
+    transposed) on a (size 16, R 16) block equals the JAX four-step's
+    `col_ntt_pallas(..., interpret=True)`, `lf.mul(A, mid)` and `swapaxes`
+    (`sirius_tpu/ops/ntt.py:185-187`) on T[o1, i2] = w^(+-o1*i2), times 1/n
+    for the inverse, as `_mid_twiddle` builds it for n = 2^8."""
+    k, size, R = 8, 16, 16
+    p = J_FR_SPEC.modulus
+    xs = [int(x) for x in np.random.default_rng(80 + inverse).integers(0, 2**62, size=size * R)]
+    a = jnp.asarray(to_lf(J_FR.encode(xs))).reshape(16, size, R)
+    w = jntt.gold.omega_for_k(J_FR_SPEC, k)
+    w = pow(w, -1, p) if inverse else w
+    scale = pow(size * R, -1, p) if inverse else 1
+    w_in = pow(w, R, p)  # order `size`
+    table = np.asarray(J_FR.encode([pow(w_in, j, p) for j in range(size // 2)])).T.copy()  # (L, size/2)
+    mid = np.asarray(J_FR.encode([scale * pow(w, o1 * i2, p) % p for o1 in range(size) for i2 in range(R)]))
+    rev = _bit_reverse_indices(4)
+    lf = jntt.lf_for(J_FR)
+    A = col_ntt_pallas(lf, a, rev.astype(np.int32), table, interpret=True)
+    want = jnp.swapaxes(lf.mul(A, jnp.asarray(mid.T.copy()).reshape(16, size, R)), 1, 2)  # (L, i2, o1)
+
+    def words(lf_arr):  # (16, ...) limb-first -> (..., 8) words
+        return torch.from_numpy(limbs_to_words(np.moveaxis(np.asarray(lf_arr), 0, -1)))
+
+    before = ntt_kernels.col_ntt.launches
+    got = ntt_kernels.col_ntt(FR, words(a), torch.from_numpy(rev), words(table), to_torch(mid, "cpu"))
+    assert ntt_kernels.col_ntt.launches == before  # CPU tensors: the plain twin, no launch
+    assert got.shape == (R, size, 8)
+    assert torch.equal(got, words(want))
+
+
+@pytest.mark.parametrize("k", [10, 11], ids=["k10", "k11_n1_ne_n2"])
+def test_four_step_matches_jax_fft_ifft_coset(k):
+    """The four-step route (pass 1 with the mid twiddle and transpose in its
+    epilogue, then pass 2) equals the JAX package's fft_lf, ifft and
+    coset_fft bit for bit, at n1 = n2 and at n1 = 2 n2."""
+    xs, limbs, words = _inputs(J_FR, k, 100 + k)
+    tctx = NTT(FR, k, "cpu")
+    assert tctx.use_four_step and tctx.inner is not None and tctx.n1 == tctx.n2 << (k % 2)
+    jctx = jntt.NTT(J_FR, k)
+    out = tctx.fft(words)
+    assert _same(out, from_lf(jctx.fft_lf(jnp.asarray(to_lf(limbs)))))
+    assert _same(tctx.ifft(words), jctx.ifft(limbs))
+    assert _same(tctx.coset_fft(words), jctx.coset_fft(limbs))
+    assert FR.decode(tctx.ifft(out)) == xs
+
+
+def test_mul_rows_repeat_on_every_product_matches_jax():
+    """mul_rows with rep > 1 (the nested route's broadcast mid twiddle), now
+    on every product: each equals the unrolled one and the JAX package's
+    product on the repeated rows."""
+    from sirius_tpu_torch.ops import field_kernels as fk
+
+    rng = np.random.default_rng(31)
+    n, nb, rep = 60, 4, 5  # b row (i // 5) mod 4
+    a = np.asarray(J_FR.random((n,), rng))
+    b = np.asarray(J_FR.random((nb,), rng))
+    want = np.asarray(J_FR.mul(a, np.tile(np.repeat(b, rep, 0), (n // (nb * rep), 1))))
+    for product in fk.PRODUCTS:
+        got = fk.mul_rows(FR, to_torch(a, "cpu"), to_torch(b, "cpu"), rep=rep, product=product)
+        assert np.array_equal(to_numpy(got), want), product
