@@ -6,13 +6,20 @@
 1. Prints the card, its power limit, SM clock and the torch version;
    builds the CUDA kernels from `sirius_tpu_torch/csrc/` (nvcc, sm_90a) into
    one cached library.  S4: x + 1 on an (8, 128) tile, and a second Python
-   process must load the cached library without running nvcc.
+   process must load the cached library without running nvcc; the
+   wrapper's host time per call, the device time per launch from a CUDA
+   graph of 200 launches (a launch's latency: the tile is one block's
+   work) and `x32 + 1` on int32 words, the one PyTorch call computing it.
    S2/S3: the Montgomery-multiply rate (K = 8 chains on 2^17 bn256 Fr and Fq
    elements, bit-exact against the twin) on the unrolled C++ product (the
    NTT's elementwise multiply) and on the PTX carry-chain product (B1, B2,
    B4), every product on the edge values 0, 1, p - 1, R mod p, and the raw
-   u32 multiply/add rates (2^22 values x 64), each beside its paper rate
-   for the card's SM clock; the latency probe: one element, K = 1024
+   u32 multiply/add rates (2^22 int32-held words x 64 and x 4096), each
+   as a share of the paper rate in the instructions the card issues (the
+   op's opcode in the SASS per multiply of the mul chain: ptxas fuses two
+   dependent adds into one IADD3) for the card's max SM clock and the SM
+   clock read under the long chain, and the PyTorch calls that fold each chain (`a32 ** 65`,
+   `a32 * 65`), checked bit-equal; the latency probe: one element, K = 1024
    chained products, on each of the port's four products (unrolled,
    rolled, carry-chain, rolled carry-chain: B3's), microseconds per
    product.
@@ -67,21 +74,28 @@
    torch.profiler (device events, busy share) and a clean verify().
 8. B2 at the primary trace's 917,504-point W commit: the bucket sort equal
    to bucket_plan_plain and the accumulate bit-exact, both timed beside
-   their twins and bounds.  S1, the rolled-product serial reduce (on no
-   path): on that commit's level-0 partials it must equal B3 msm_reduce and
-   its plain twin in affine form (msm_reduce equals the twin word for
-   word); both timed in turns.  Then every MSM, madd and NTT kernel's registers,
-   local (spill) bytes per thread, static shared bytes and SASS instruction
-   count, and the SASS of mul_rows on each product by opcode (`cuobjdump`,
-   where the toolkit has it).
+   their twins and bounds.  S1, the rolled-product reduce (on no path): on
+   that commit's level-0 partials it must equal B3 msm_reduce and its plain
+   twin in affine form (msm_reduce equals the twin word for word), both
+   timed in turns and, kernels alone, on CUDA events around each launch
+   (`kernel_ms`, not the profiler, which on some machines saw no launch
+   of these kernels); on the unsplit
+   bucket segments it must equal msm_reduce's two levels, and is timed.
+   Then every MSM, madd and NTT kernel's registers, local (spill) bytes per
+   thread, shared bytes and SASS instruction count, the SASS of mul_rows on
+   each product and of S3's chains by opcode (`cuobjdump`, where the
+   toolkit has it).
 
 Ends with a JSON line of kernel results (time, plain twin's time, bound
 and what sets it, launches on the path that runs the kernel: B1's bucket
 walk, B2 and B3 on the IVC path, B4, its epilogue pass (an entry of its
 own) and the K = 1 product on the NTT path;
 the probes S1-S4 and B1's batched madd run on no path but their own timed
-runs, which are counted; S2's kernel `mul_rows` has a second entry at the
-NTT path's K = 1 shape (the coset powers) and a third on the carry-chain
+runs, which are counted, a CUDA graph's replays included (S1's time is its
+wrapper's on CUDA events, as every entry's but S3's and S4's: theirs, and
+their library calls', are the device time per launch from a CUDA graph);
+S2's kernel `mul_rows` has a second entry at the NTT path's
+K = 1 shape (the coset powers) and a third on the carry-chain
 product; B2's sort and
 accumulate have one at the support W commit (the launches of every other
 size; grumpkin for the accumulate) and one at the primary (917,504 points;
@@ -134,6 +148,8 @@ from sirius_tpu_torch.util.interop import limbs_to_words
 from sirius_tpu_torch.util.profiling import profiler
 from sirius_tpu_torch.util.testing import reference_msm
 
+from msm_turns import gpu_ms, graph_ms, kernel_ms
+
 DEVICE = "cuda:0"
 SEED = 20261016
 FOLDS = 2
@@ -168,7 +184,7 @@ GOLDEN_FFT8 = [
     21888242871839275204614721864072299718383108512864252727949815652902133356753,
     21819324486465344547821487577044723192426134441150200363949012713744408569955,
 ]
-MADD_MULS, ADD_MULS, DBL_MULS = 11, 16, 7  # Montgomery products: csrc/curve.cuh pt_madd, pt_add, pt_dbl
+MADD_MULS, ADD_MULS, DBL_MULS = 11, 16, 7  # Montgomery products: csrc/curve.cuh pt_madd, pt_add_ilp, pt_dbl_ilp
 ADD_LEVELS, DBL_LEVELS = 5, 3  # dependent product levels of csrc/curve.cuh pt_add_ilp, pt_dbl_ilp
 LATENCY_K = 1024  # the latency probe's chain of dependent products on one element
 MANY_SHAPE = (CROSS_TERMS, 64, 15, 4)  # msm_many's combine: (t, W, B, c) at 4-bit windows
@@ -184,19 +200,6 @@ def log(msg: str) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
-
-
-def gpu_ms(fn, reps: int = 3) -> float:
-    """Mean device milliseconds per call (CUDA events, after one warm call)."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def bound(muls: float, nbytes: float, imad_rate: float, per_mul: int = FE_MUL_IMADS) -> tuple[float, str]:
@@ -413,6 +416,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s (nvcc ran in this process: {_build.built_here()})")
+    sass = sass_opcodes()
     rng = np.random.default_rng(SEED)
     kernels = {}
 
@@ -435,14 +439,31 @@ def main() -> int:
     check(second.returncode == 0 and second.stdout.strip() == "nvcc ran: False",
           f"S4: a second process did not load the cached library: {second.stdout[-500:]} {second.stderr[-2000:]}")
     probe_launches = {}  # S1-S4 have no path but their own timed runs: counted there, after the twin checks
+    # one (8, 128) tile: the wrapper's host time per call, then the device's per launch without the host between
+    x32 = mb.words_of(x)  # the same words in int32, where x32 + 1 wraps mod 2^32 as the kernel does
+    check(torch.equal(mb.u32_of(x32 + 1), mb.probe_add_one(x)), "S4: x32 + 1 differs from probe_add_one")
     mb.probe_add_one.launches = 0
-    ms = gpu_ms(lambda: mb.probe_add_one(x), reps=200)
-    probe_launches["probe_add_one"] = mb.probe_add_one.launches
+    mb.probe_add_one(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        mb.probe_add_one(x)
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    eager_ms = gpu_ms(lambda: mb.probe_add_one(x), reps=200)
+    ms, replayed = graph_ms(lambda: mb.probe_add_one(x))
+    probe_launches["probe_add_one"] = mb.probe_add_one.launches + replayed
+    lib_ms, _ = graph_ms(lambda: x32 + 1)
+    lib_eager_ms = gpu_ms(lambda: x32 + 1, reps=200)
     plain = gpu_ms(lambda: mb.probe_add_one_plain(x), reps=200)
     record("probe_add_one", "sirius_tpu_torch/csrc/microbench.cu", "scripts/lower_dump.py:14", err, ms, plain,
            x.numel(), 8 * x.numel(), per_mul=1)
-    log(f"S4 probe_add_one (8, 128): equals x + 1 mod 2^32; a second process loaded the cached library without "
-        f"nvcc; kernel {ms:.6f} ms, plain {plain:.6f} ms  [{card}]")
+    kernels["probe_add_one"]["library_ms"] = lib_ms
+    log(f"S4 probe_add_one (8, 128): equals x + 1 mod 2^32 and x32 + 1; a second process loaded the cached library "
+        f"without nvcc; the wrapper's host time {host_us:.3f} us per call (200 calls); 200 calls back to back on "
+        f"CUDA events {eager_ms:.6f} ms per call; device per launch from a CUDA graph of 200 launches "
+        f"{ms:.6f} ms = {ms * 1e3:.3f} us (a launch's latency); x32 + 1 (int32, one PyTorch call) {lib_ms:.6f} ms "
+        f"per call from a graph, {lib_eager_ms:.6f} ms back to back; plain {plain:.6f} ms  [{card}]")
 
     # ---- S2/S3: field and integer rates against the paper rate --------------------------------
     def random_elements(gen, n):
@@ -485,26 +506,65 @@ def main() -> int:
                 check(torch.equal(fk.mul_rows(field, pairs, ea, K, product=product), want),
                       f"the {product} product on {field} differs from the twin on the edge values (K = {K})")
     log(f"every product {fk.PRODUCTS} equals the twin on 0, 1, p - 1, R mod p, all pairs, both fields")
-    a3 = torch.from_numpy(rng.integers(0, 1 << 32, size=S3_N, dtype=np.int64)).to(dev)
-    errs = {}
+    a3 = mb.words_of(torch.from_numpy(rng.integers(0, 1 << 32, size=S3_N, dtype=np.int64)).to(dev))  # u32 bits
+    errs, outs = {}, {}
     for op in ("mul", "add"):
-        errs[op] = word_err([mb.raw_u32(a3, op, S3_REPS)], [mb.raw_u32_plain(a3, op, S3_REPS)])
+        outs[op] = mb.raw_u32(a3, op, S3_REPS)
+        errs[op] = word_err([outs[op]], [mb.raw_u32_plain(a3, op, S3_REPS)])
         check(errs[op] == 0, f"S3 raw_u32 {op} disagrees with its twin")
+    # the one PyTorch call computing each function folds the chain the probe times: b = a + 64 a, b = a^65
+    library = {"mul": lambda: a3 ** (S3_REPS + 1), "add": lambda: a3 * (S3_REPS + 1)}
+    wraps = {op: torch.equal(fn(), outs[op]) for op, fn in library.items()}
+    # the SM clock and power while the long chain runs: ~0.4 s of launches queued, nvidia-smi read meanwhile
+    for _ in range(400):
+        mb.raw_u32(a3, "mul", LONG_REPS)
+    load = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits"],
+                          capture_output=True, text=True, check=True).stdout.split(",")
+    torch.cuda.synchronize()
+    load_mhz = float(load[0])
+    log(f"S3 under load (the mul chain x {LONG_REPS} queued): SM clock {load_mhz:.0f} MHz, power {load[1].strip()} W "
+        f"(the paper rate takes the max clock {clock_mhz:.0f} MHz)  [{card}]")
+    # the share of the paper rate counts the instructions the card issues: the op's opcode in the SASS of the
+    # instance that ran (FIXED: 64 reps, straight-line) over the source ops there, the mul instance's IMAD
+    # count (one IMAD a multiply); ptxas fuses two dependent adds into one IADD3
+    opcode = {"mul": "IMAD", "add": "IADD3"}
+    raw_sass = {(op, fixed): sum((v for k, v in (sass or {}).items() if f"raw_u32_kernelILi{i}ELb{int(fixed)}E" in k),
+                                 Counter()) for i, op in enumerate(mb.RAW_OPS) for fixed in (True, False)}
+
+    def share(rate, op, fixed):
+        src_ops = raw_sass["mul", fixed].get("IMAD", 0)
+        if not src_ops:
+            return "share of the paper rate not measured (no SASS)"
+        per_op = raw_sass[op, fixed].get(opcode[op], 0) / src_ops
+        r = rate * per_op / imad_rate
+        return (f"{rate * per_op:.6e} {opcode[op]}/s issued ({per_op:.4f} a {op}) = {100 * r:.2f}% of the "
+                f"paper rate {imad_rate:.6e} ({100 * r * clock_mhz / load_mhz:.2f}% at the clock under load)")
+
+    # the kernel at 64 reps takes about the wrapper's host time per call: timed from a CUDA graph of its launches
     mb.raw_u32.launches = 0
+    replayed = 0
     for op, err in errs.items():
-        ms = gpu_ms(lambda: mb.raw_u32(a3, op, S3_REPS), reps=50)
+        eager = gpu_ms(lambda: mb.raw_u32(a3, op, S3_REPS), reps=50)
+        ms, n = graph_ms(lambda: mb.raw_u32(a3, op, S3_REPS), launches=50)
+        replayed += n
         plain = gpu_ms(lambda: mb.raw_u32_plain(a3, op, S3_REPS), reps=3)
+        lib_ms = graph_ms(library[op], launches=50)[0] if wraps[op] else None
+        call = "a32 ** 65" if op == "mul" else "a32 * 65"
         rate = S3_N * S3_REPS / (ms / 1e3)
-        log(f"S3 raw_u32 {op} 2^22 x {S3_REPS}: exact; kernel {ms:.6f} ms = {rate:.6e} u32 {op}/s = "
-            f"{100 * rate / imad_rate:.2f}% of the paper rate {imad_rate:.6e}; plain {plain:.4f} ms  [{card}]")
+        log(f"S3 raw_u32 {op} 2^22 x {S3_REPS} (int32 words): exact; kernel {ms:.6f} ms per launch from a CUDA graph "
+            f"= {rate:.6e} u32 {op}/s, {share(rate, op, True)}; back to back {eager:.6f} ms per call; plain "
+            f"{plain:.4f} ms; "
+            + (f"{call} (one PyTorch call, folding the chain) bit-equal, {lib_ms:.6f} ms from a graph" if wraps[op]
+               else f"{call} is not bit-equal on the card: no PyTorch call computes this function") + f"  [{card}]")
         ms_long = gpu_ms(lambda: mb.raw_u32(a3, op, LONG_REPS), reps=10)
         rate = S3_N * LONG_REPS / (ms_long / 1e3)
-        log(f"S3 raw_u32 {op} 2^22 x {LONG_REPS}: {ms_long:.6f} ms = {rate:.6e} u32 {op}/s = "
-            f"{100 * rate / imad_rate:.2f}% of the paper rate  [{card}]")
+        log(f"S3 raw_u32 {op} 2^22 x {LONG_REPS}: {ms_long:.6f} ms = {rate:.6e} u32 {op}/s, "
+            f"{share(rate, op, False)}  [{card}]")
         if op == "mul":
             record("raw_u32", "sirius_tpu_torch/csrc/microbench.cu", "scripts/tpu_microbench.py:102", err, ms,
                    plain, S3_N * S3_REPS, 8 * S3_N, per_mul=1)
-    probe_launches["raw_u32"] = mb.raw_u32.launches
+            kernels["raw_u32"]["library_ms"] = lib_ms
+    probe_launches["raw_u32"] = mb.raw_u32.launches + replayed
 
     # the latency of one dependent product: one thread, K = LATENCY_K (S2's kernel)
     a1, b1 = random_elements(rng, 1), random_elements(rng, 1)
@@ -912,8 +972,8 @@ def main() -> int:
         f"bucket sort {ms_sort:.6f} ms (plain {plain_sort:.4f} ms, bound {sp['bound_ms']:.7f} ms, {sp['bound_by']}), "
         f"msm_accumulate {ms_acc:.6f} ms (plain {plain_acc:.4f} ms, bound {b2p['bound_ms']:.7f} ms, "
         f"{b2p['bound_by']})  [{card}]")
-    deep = int((plan.seg_off[1:] - plan.seg_off[:-1]).max()) > FAN_IN
-    sub_off = split_segments(plan.seg_off, FAN_IN)[0] if deep else plan.seg_off
+    longest = int((plan.seg_off[1:] - plan.seg_off[:-1]).max())
+    sub_off, nxt = split_segments(plan.seg_off, FAN_IN) if longest > FAN_IN else (plan.seg_off, None)
     args = (BN256_G1, sub_off, parts)
     rolled = mk.msm_reduce_rolled(*args)
     tree = mk.msm_reduce(*args)
@@ -921,25 +981,51 @@ def main() -> int:
           "B3 msm_reduce is not bit-exact against its twin at the primary commit's level 0")
     err = point_err(BN256_G1, rolled, tree)
     check(err == 0, "S1 msm_reduce_rolled differs from msm_reduce at the primary commit's level 0")
+    # unsplit: the commit's bucket segments whole, against msm_reduce's levels (the twin pads every segment to
+    # the longest, a bucket of ~1,000 partials here: too large for the card's memory)
+    whole = (BN256_G1, plan.seg_off, parts)
+    rolled_whole = mk.msm_reduce_rolled(*whole)
+    two = tree if nxt is None else mk.msm_reduce(BN256_G1, nxt, tree)
+    if nxt is not None:
+        check(word_err(two, mk.msm_reduce_plain(BN256_G1, nxt, tree)) == 0,
+              "B3 msm_reduce is not bit-exact against its twin at the primary commit's level 1")
+    check(point_err(BN256_G1, rolled_whole, two) == 0, "S1 on the unsplit segments differs from msm_reduce's levels")
+    # both wrappers read the longest segment on the host each call: in turns on CUDA events (the wrappers'
+    # time, S1's the kernels line's as every entry's), then each kernel's own device time (events around each
+    # launch)
     mk.msm_reduce_rolled.launches = 0
     ms_ref = gpu_ms(lambda: mk.msm_reduce(*args), reps=10)
     ms_rolled = gpu_ms(lambda: mk.msm_reduce_rolled(*args), reps=10)
     ms_rolled2 = gpu_ms(lambda: mk.msm_reduce_rolled(*args), reps=10)
     ms_ref2 = gpu_ms(lambda: mk.msm_reduce(*args), reps=10)
+    passes = len(mk.rolled_passes(plan.seg_off, longest))
+    ms_whole = gpu_ms(lambda: mk.msm_reduce_rolled(*whole), reps=10)
+    k_rolled = kernel_ms(lambda: mk.msm_reduce_rolled(*args), "sirius_msm_reduce_rolled")
+    k_whole = kernel_ms(lambda: mk.msm_reduce_rolled(*whole), "sirius_msm_reduce_rolled")
     probe_launches["msm_reduce_rolled"] = mk.msm_reduce_rolled.launches
     check(probe_launches["msm_reduce_rolled"] > 0, "S1 msm_reduce_rolled never launched in its timed runs")
+    k_ref = kernel_ms(lambda: mk.msm_reduce(*args), "sirius_msm_reduce")
     plain = gpu_ms(lambda: mk.msm_reduce_rolled_plain(*args), reps=1)
     n_parts, n_seg = parts.x.shape[0], sub_off.shape[0] - 1
     record("msm_reduce_rolled", "sirius_tpu_torch/csrc/msm.cu", "scripts/msm_lab2.py:18", err,
-           (ms_rolled + ms_rolled2) / 2, plain, ADD_MULS * seeded_adds(sub_off[1:] - sub_off[:-1]),
-           3 * FE * n_parts + 4 * (n_seg + 1) + 3 * FE * n_seg)
+           (ms_rolled + ms_rolled2) / 2, plain,
+           ADD_MULS * seeded_adds(sub_off[1:] - sub_off[:-1]), 3 * FE * n_parts + 4 * (n_seg + 1) + 3 * FE * n_seg)
     s1 = kernels["msm_reduce_rolled"]
+    bound_whole, by_whole = bound(ADD_MULS * seeded_adds(plan.seg_off[1:] - plan.seg_off[:-1]),
+                                  3 * FE * n_parts + 4 * plan.seg_off.shape[0] + 3 * FE * (plan.seg_off.shape[0] - 1),
+                                  imad_rate)
     log(f"S1 msm_reduce_rolled on the primary commit's level 0 ({W.shape[0]} scalars, {n_parts} partials -> "
-        f"{n_seg} segments): equals msm_reduce and its twin in affine form, msm_reduce equals the twin word for "
-        f"word; in turns msm_reduce {ms_ref:.6f} ms, rolled {ms_rolled:.6f} ms, rolled {ms_rolled2:.6f} ms, "
-        f"msm_reduce {ms_ref2:.6f} ms; plain {plain:.4f} ms; bound {s1['bound_ms']:.6f} ms ({s1['bound_by']})  "
-        f"[{card}]")
-    sass = sass_opcodes()
+        f"{n_seg} segments of at most {FAN_IN}): equals msm_reduce and its twin in affine form, msm_reduce equals "
+        f"the twin word for word; the wrappers in turns (CUDA events, each with its host read of the longest "
+        f"segment) msm_reduce {ms_ref:.6f} ms, S1 {ms_rolled:.6f} ms, S1 {ms_rolled2:.6f} ms, msm_reduce "
+        f"{ms_ref2:.6f} ms (S1's mean {s1['ms']:.6f} ms, the kernels line's); the kernels alone (events around "
+        f"each launch) msm_reduce_kernel {k_ref:.6f} ms, msm_reduce_rolled_kernel {k_rolled:.6f} ms; plain "
+        f"{plain:.4f} ms; "
+        f"bound {s1['bound_ms']:.6f} ms ({s1['bound_by']})  [{card}]")
+    log(f"S1 msm_reduce_rolled on the unsplit segments ({plan.seg_off.shape[0] - 1} buckets, the longest {longest} "
+        f"partials, {passes} launch(es)): equals msm_reduce's levels (each word for word its twin) in affine form; "
+        f"the kernels alone (events around each launch) {k_whole:.6f} ms, the wrapper {ms_whole:.6f} ms; bound "
+        f"{bound_whole:.6f} ms ({by_whole})  [{card}]")
     for name, attrs_of in [(k, mk.msm_kernel_attrs) for k in mk.MSM_KERNELS] + [
             (k, madd_mod.madd_kernel_attrs) for k in madd_mod.MADD_KERNELS]:
         attrs = attrs_of(name)
@@ -965,6 +1051,12 @@ def main() -> int:
             + (f"{sum(ops.values())} instructions, {muls} integer multiplies (IMAD-class less moves, adds, "
                f"shifts); IMAD-class by opcode {dict(sorted(imads.items()))}" if ops else "not measured"))
 
+    for (op, fixed), ops in raw_sass.items():  # csrc/microbench.cu raw_u32_kernel<OP, FIXED>: S3's chains
+        form = ("64 reps, straight-line: 4 chains x 64 and the ragged tail's one chain of 64" if fixed else
+                "other reps: a loop of the 64-rep body, a remainder step, for the 4 chains and the tail's one")
+        log(f"SASS of raw_u32 {op} ({form}): "
+            + (f"{sum(ops.values())} instructions, {ops.get(opcode[op], 0)} {opcode[op]}; by opcode "
+               f"{dict(sorted(ops.items()))}" if ops else "not measured"))
     kernels["madd_buckets"]["launches"] = ivc_launches["madd_buckets"]
     for key in ("msm_reduce", "msm_window_sums"):
         kernels[key]["launches"] = ivc_launches[key]

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The MSM kernels (B1-B3), S1, S2 and the NTT's kernels of two checkouts of the port, timed in turns on one GPU.
+"""The MSM kernels (B1-B3), S1, S2, S3 and the NTT's kernels of two checkouts of the port, timed in turns on one GPU.
 
     python3 msm_turns.py OLD_DIR NEW_DIR
     python3 msm_turns.py --turn DIR      (one turn alone: DIR's numbers)
@@ -23,7 +23,13 @@ from a fixed seed:
   grumpkin points, 4-bit windows, 256 groups): one `madd_buckets` launch
   where the checkout has it, else the per-step loop of B1 launches with the
   one-hot select and write-back; and the whole `msm_many` call (3 calls);
-- S1 `msm_reduce_rolled` on the reduce inputs above;
+- S1 `msm_reduce_rolled` on the reduce inputs above, and `msm_reduce` and
+  S1 on the first reduce level of the primary W commit (917,504 bn256
+  scalars, c = 10, over Jacobian partials from a 2^10 bn256 key), S1 also
+  on its unsplit bucket segments: each also as its kernel's own device
+  time per call (`*_kernel`: CUDA events around each launch, `kernel_ms`;
+  the wrappers read the segments on the host each call, which the events
+  around the whole call include);
 - S2, the field-rate probe: `mul_chain` at K = 8 over 2^17 bn256 Fr
   elements on the unrolled and the carry-chain product (mean of 50 calls),
   and the latency probe: one element, K = 1024 dependent products, on each
@@ -34,7 +40,13 @@ from a fixed seed:
   checkout has it), the field product `mul_rows` at K = 1 over 2^20 rows
   (the coset powers: b of 3 rows; rep = 1, b the mid twiddle; rep = 4, b
   its first 2^18 rows), and the whole forward and inverse transforms (mid
-  twiddles built first).
+  twiddles built first);
+- S3 `raw_u32`, mul and add, on 2^22 words (int32 where the checkout's
+  wrapper takes them, int64 before) at 64 reps, the device time per launch
+  from a CUDA graph of 50 launches replayed 5 times (`graph_ms`) and back
+  to back (mean of 50 calls), and at 4096 (mean of 10).
+`gpu_ms`, `graph_ms` and `kernel_ms` are also the timers of
+`chip_smoke.py`, which imports them from here.
 The turns run OLD, NEW, NEW, OLD; each prints one JSON line, and the script
 prints the card (name, power limit) and a JSON summary last.
 """
@@ -51,6 +63,7 @@ SEED = 20261016
 W_COMMIT_N = 7 << 14  # the support W commit: 7 advice columns x 2^14 rows
 PRIMARY_N = 7 << 17  # the primary W commit: 7 advice columns x 2^17 rows
 CROSS = (5, 1 << 14)  # msm_many at the support cross terms: (t, n)
+SLEEP_CYCLES = 1 << 20  # ~0.5 ms of device clock ahead of each span of kernel_ms
 SHAPES = {"combine_1x27x512": (1, 27, 512, 10), "combine_5x64x15": (5, 64, 15, 4)}
 
 
@@ -82,8 +95,92 @@ def old_bucket_stage(curve, scalars, px, py, G, c):
     return table
 
 
+def gpu_ms(fn, reps: int = 3) -> float:
+    """Mean device milliseconds per call (CUDA events, after one warm call)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, launches: int = 200, reps: int = 5) -> tuple[float, int]:
+    """(device milliseconds per call of fn without the host between calls,
+    the kernel launches its replays made that no wrapper counted): a CUDA
+    graph captures `launches` calls (a wrapper counts each at capture) and
+    is replayed once warm and `reps` times under CUDA events, after one warm
+    call on a side stream.  A wrapper that launches once a call has made
+    launches x reps more launches than its count says."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * launches), launches * reps
+
+
+def kernel_ms(fn, symbol: str, reps: int = 10) -> float:
+    """Device milliseconds per call of fn in the launches it makes through
+    the kernel library's entry `symbol`: CUDA events recorded on the stream
+    just before and after each launch (mean over `reps` calls, after one
+    warm call), so the host reads a wrapper makes between its launches fall
+    outside.  A device sleep queued ahead of each start event keeps the
+    stream busy while the host enqueues the event and the launch, so the
+    span holds the kernel and not the host's launch latency."""
+    import torch
+
+    from sirius_tpu_torch.ops import _build
+
+    lib = _build.library()
+    launch = getattr(lib, symbol)
+    spans = []
+
+    def timed(*args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        err = launch(*args)
+        end.record()
+        spans.append((start, end))
+        return err
+
+    fn()
+    setattr(lib, symbol, timed)
+    try:
+        for _ in range(reps):
+            fn()
+    finally:
+        setattr(lib, symbol, launch)
+    torch.cuda.synchronize()
+    if not spans:
+        raise SystemExit(f"kernel_ms: fn made no launch through {symbol}")
+    return sum(start.elapsed_time(end) for start, end in spans) / reps
+
+
 def msm_turn(out, rng, dev, ck, jacobian, scalars, gpu_ms) -> None:
     """B1-B3 and S1 of the checkout on sys.path[0], into `out`."""
+    import torch
+
     from sirius_tpu_torch.curves.jpoint import BN256_G1, GRUMPKIN, Points
     from sirius_tpu_torch.ops import madd as madd_mod
     from sirius_tpu_torch.ops import msm_kernels as mk
@@ -124,6 +221,20 @@ def msm_turn(out, rng, dev, ck, jacobian, scalars, gpu_ms) -> None:
     out["msm_many"] = gpu_ms(lambda: msm_many(GRUMPKIN, S, key.points), reps=3)
 
     out["reduce_rolled_level0"] = gpu_ms(lambda: mk.msm_reduce_rolled(GRUMPKIN, sub_off, parts))
+    out["reduce_rolled_level0_kernel"] = kernel_ms(lambda: mk.msm_reduce_rolled(GRUMPKIN, sub_off, parts),
+                                                   "sirius_msm_reduce_rolled")
+    ckb = CommitmentKey.setup(BN256_G1, 10, b"msm-turns", use_cache=False, device=dev)
+    ptsb = BN256_G1.dbl(Points(*(c.contiguous() for c in ckb.points)))
+    plan = bucket_plan(scalars((PRIMARY_N,)))
+    sub_off, _ = split_segments(plan.seg_off, FAN_IN)
+    idx = torch.from_numpy(rng.integers(0, len(ckb), size=int(plan.seg_off[-1]))).to(dev)
+    parts = Points(*(c[idx].contiguous() for c in ptsb))
+    for name, fn in (("reduce_primary_level0", lambda: mk.msm_reduce(BN256_G1, sub_off, parts)),
+                     ("reduce_rolled_primary_level0", lambda: mk.msm_reduce_rolled(BN256_G1, sub_off, parts)),
+                     ("reduce_rolled_primary_unsplit", lambda: mk.msm_reduce_rolled(BN256_G1, plan.seg_off, parts))):
+        out[name] = gpu_ms(fn)
+        out[f"{name}_kernel"] = kernel_ms(fn, "sirius_msm_reduce" if name == "reduce_primary_level0"
+                                          else "sirius_msm_reduce_rolled")
 
 
 def turn() -> None:
@@ -135,6 +246,7 @@ def turn() -> None:
     from sirius_tpu_torch.fields.jfield import FR
     from sirius_tpu_torch.ops.commitment import CommitmentKey
     from sirius_tpu_torch.ops.field_kernels import PRODUCTS, mul_rows
+    from sirius_tpu_torch.ops import microbench
     from sirius_tpu_torch.ops.microbench import mul_chain
     from sirius_tpu_torch.ops.ntt import NTT
     from sirius_tpu_torch.ops.ntt_kernels import col_ntt
@@ -154,19 +266,8 @@ def turn() -> None:
         limbs[..., 15] &= 0x0FFF
         return torch.from_numpy(limbs_to_words(limbs)).to(dev)
 
-    def gpu_ms(fn, reps=10):
-        fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
     out = {}
-    msm_turn(out, rng, dev, ck, jacobian, scalars, gpu_ms)
+    msm_turn(out, rng, dev, ck, jacobian, scalars, lambda fn, reps=10: gpu_ms(fn, reps))
 
     def elements(n):  # canonical Montgomery words below 2^252 (< p)
         w = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.int64)
@@ -191,6 +292,13 @@ def turn() -> None:
     out["mul_rows_k1_2^20_rep4"] = gpu_ms(lambda: mul_rows(FR, a, T[: 1 << 18], rep=4), reps=20)
     out["fft_2^20"] = gpu_ms(lambda: ntt.fft(a), reps=20)
     out["ifft_2^20"] = gpu_ms(lambda: ntt.ifft(a), reps=20)
+    words = torch.from_numpy(rng.integers(0, 1 << 32, size=1 << 22, dtype=np.int64)).to(dev)
+    if getattr(microbench, "RAW_WORDS", torch.int64) == torch.int32:  # the checkout's S3 takes int32 words
+        words = microbench.words_of(words)
+    for op in ("mul", "add"):
+        out[f"s3_{op}_64"] = graph_ms(lambda: microbench.raw_u32(words, op, 64), launches=50)[0]
+        out[f"s3_{op}_64_back_to_back"] = gpu_ms(lambda: microbench.raw_u32(words, op, 64), reps=50)
+        out[f"s3_{op}_4096"] = gpu_ms(lambda: microbench.raw_u32(words, op, 4096), reps=10)
     print(json.dumps(out))
 
 

@@ -45,65 +45,10 @@ __device__ __forceinline__ Pt pt_select(bool c, const Pt& a, const Pt& b) {
   return r;
 }
 
-// k_dbl: identity-safe (z3 = 2*y*z).  ROLLED: with S1's rolled product.
-template <bool ROLLED>
-__device__ __forceinline__ Pt pt_dbl_t(const Pt& P, const FieldConst& fc) {
-  Fe A = fe_square_t<ROLLED>(P.x, fc);
-  Fe B = fe_square_t<ROLLED>(P.y, fc);
-  Fe C = fe_square_t<ROLLED>(B, fc);
-  Fe T = fe_square_t<ROLLED>(fe_add(P.x, B, fc), fc);
-  Fe D = fe_double(fe_sub(fe_sub(T, A, fc), C, fc), fc);
-  Fe E = fe_add(fe_double(A, fc), A, fc);
-  Fe F = fe_square_t<ROLLED>(E, fc);
-  Pt r;
-  r.x = fe_sub(F, fe_double(D, fc), fc);
-  Fe C8 = fe_double(fe_double(fe_double(C, fc), fc), fc);
-  r.y = fe_sub(fe_mul_t<ROLLED>(E, fe_sub(D, r.x, fc), fc), C8, fc);
-  r.z = fe_double(fe_mul_t<ROLLED>(P.y, P.z, fc), fc);
-  return r;
-}
-
-__device__ __forceinline__ Pt pt_dbl(const Pt& P, const FieldConst& fc) { return pt_dbl_t<false>(P, fc); }
-
-// k_add_complete.  ROLLED: with S1's rolled product.
-template <bool ROLLED>
-__device__ __forceinline__ Pt pt_add_t(const Pt& P, const Pt& Q, const FieldConst& fc) {
-  Fe z1z1 = fe_square_t<ROLLED>(P.z, fc);
-  Fe z2z2 = fe_square_t<ROLLED>(Q.z, fc);
-  Fe u1 = fe_mul_t<ROLLED>(P.x, z2z2, fc);
-  Fe u2 = fe_mul_t<ROLLED>(Q.x, z1z1, fc);
-  Fe s1 = fe_mul_t<ROLLED>(fe_mul_t<ROLLED>(P.y, Q.z, fc), z2z2, fc);
-  Fe s2 = fe_mul_t<ROLLED>(fe_mul_t<ROLLED>(Q.y, P.z, fc), z1z1, fc);
-  Fe h = fe_sub(u2, u1, fc);
-  Fe r = fe_sub(s2, s1, fc);
-  Fe hh = fe_square_t<ROLLED>(h, fc);
-  Fe r2 = fe_square_t<ROLLED>(r, fc);
-  Fe hhh = fe_mul_t<ROLLED>(h, hh, fc);
-  Fe v = fe_mul_t<ROLLED>(u1, hh, fc);
-  Pt out;
-  out.x = fe_sub(fe_sub(r2, hhh, fc), fe_double(v, fc), fc);
-  out.y = fe_sub(fe_mul_t<ROLLED>(r, fe_sub(v, out.x, fc), fc), fe_mul_t<ROLLED>(s1, hhh, fc), fc);
-  out.z = fe_mul_t<ROLLED>(fe_mul_t<ROLLED>(P.z, Q.z, fc), h, fc);
-
-  bool p_inf = fe_is_zero(P.z);
-  bool q_inf = fe_is_zero(Q.z);
-  bool h_zero = fe_is_zero(h);
-  bool r_zero = fe_is_zero(r);
-  if (h_zero && r_zero && !p_inf && !q_inf) out = pt_dbl_t<ROLLED>(P, fc);
-  if (h_zero && !r_zero && !p_inf && !q_inf) out = pt_identity(fc);
-  if (q_inf) out = P;
-  if (p_inf) out = Q;
-  return out;
-}
-
-__device__ __forceinline__ Pt pt_add(const Pt& P, const Pt& Q, const FieldConst& fc) {
-  return pt_add_t<false>(P, Q, fc);
-}
-
-// k_dbl with its products in dependency levels (fe_mul_n: the rolled
-// carry-chain product) and the carry-chain adds: 3 + 3 + 1 products, so a
-// chain of doublings waits ~3 product latencies per doubling instead of 7.
-// The same words as pt_dbl.
+// k_dbl (identity-safe: z3 = 2*y*z) with its products in dependency levels
+// (fe_mul_n: the rolled carry-chain product) and the carry-chain adds:
+// 3 + 3 + 1 products, so a chain of doublings waits ~3 product latencies per
+// doubling instead of 7.
 __device__ __forceinline__ Pt pt_dbl_ilp(const Pt& P, const FieldConst& fc) {
   Fe o1[3];
   const Fe a1[3] = {P.x, P.y, P.y}, b1[3] = {P.x, P.y, P.z};
@@ -128,9 +73,10 @@ __device__ __forceinline__ Pt pt_dbl_ilp(const Pt& P, const FieldConst& fc) {
   return r;
 }
 
-// k_add_complete with its products in dependency levels (fe_mul_n) and the
-// carry-chain adds: 5 + 4 + 3 + 2 + 2 products, ~5 product latencies
-// instead of 16.  The same words as pt_add.
+// k_add_complete (general formula + selects over identity operands,
+// doubling and inverse pairs) with its products in dependency levels
+// (fe_mul_n) and the carry-chain adds: 5 + 4 + 3 + 2 + 2 products, ~5
+// product latencies instead of 16.
 __device__ __forceinline__ Pt pt_add_ilp(const Pt& P, const Pt& Q, const FieldConst& fc) {
   Fe o1[5];
   const Fe a1[5] = {P.z, Q.z, P.y, Q.y, P.z}, b1[5] = {P.z, Q.z, Q.z, P.z, Q.z};

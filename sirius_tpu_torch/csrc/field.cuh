@@ -170,11 +170,12 @@ __device__ __forceinline__ void cios_round(uint32_t* t, const Fe& a, uint32_t bi
   t[9] = 0u;
 }
 
-// CIOS Montgomery product a*b*R^-1 mod p.  ROLLED (S1's product, the
-// TPU's `KF(roll_mul=True)`) runs the eight rounds as a loop that is not
-// unrolled: b's words rotate by one per round, so every round reads word 0
-// and b stays in registers (the TPU variant rolls its limb array the same
-// way).  The default, unrolled, is every other kernel's product.
+// CIOS Montgomery product a*b*R^-1 mod p.  ROLLED (the TPU's
+// `KF(roll_mul=True)`: mul_rows' `rolled` product, and fe_mul_n's form off
+// the device) runs the eight rounds as a loop that is not unrolled: b's
+// words rotate by one per round, so every round reads word 0 and b stays in
+// registers (the TPU variant rolls its limb array the same way).  The
+// default, unrolled, is mul_rows' `unrolled` product.
 template <bool ROLLED>
 __device__ __forceinline__ Fe fe_mul_t(const Fe& a, const Fe& b, const FieldConst& fc) {
   uint32_t t[10];
@@ -200,15 +201,6 @@ __device__ __forceinline__ Fe fe_mul_t(const Fe& a, const Fe& b, const FieldCons
 
 __device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b, const FieldConst& fc) {
   return fe_mul_t<false>(a, b, fc);
-}
-
-template <bool ROLLED>
-__device__ __forceinline__ Fe fe_square_t(const Fe& a, const FieldConst& fc) {
-  return fe_mul_t<ROLLED>(a, a, fc);
-}
-
-__device__ __forceinline__ Fe fe_square(const Fe& a, const FieldConst& fc) {
-  return fe_mul(a, a, fc);
 }
 
 // ---- carry-chain arithmetic (B1, B2, B3 through fe_mul_n, B4) ----------------
@@ -404,7 +396,7 @@ __device__ __forceinline__ void fe_store_v(long long* dst, long long row, const 
 }
 
 // N independent rolled carry-chain products r[n] = a[n] * b[n] * R^-1
-// (B3's, through pt_add_ilp and pt_dbl_ilp): cc_round's
+// (B3's and S1's, through pt_add_ilp and pt_dbl_ilp): cc_round's
 // CIOS rounds, interleaved over the N products in one rolled loop, b's
 // words rotating by one per round so every round reads word 0 and b stays
 // in registers.  One thread's dependent carry chains overlap N ways, so N

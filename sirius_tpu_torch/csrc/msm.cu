@@ -54,13 +54,27 @@
 //                         (c K doublings per group).  The chain is c (W - 1)
 //                         doublings, as before, but (K - 1) + (G - 1) adds
 //                         instead of W - 1.
-//   msm_reduce_rolled (S1) one thread per segment walks its partials with
-//                         the complete add on the rolled CIOS product
-//                         (`csrc/field.cuh` fe_mul_t<true>): replaces
-//                         `scripts/msm_lab2.py:_merge_call_variant`, B3's
-//                         merge kept for its smaller code (the TPU's
-//                         `KF(roll_mul=True)`).  Its add order is serial, so
-//                         it equals msm_reduce in affine form only.
+//   msm_reduce_rolled (S1) replaces `scripts/msm_lab2.py:_merge_call_variant`,
+//                         B3's merge on the rolled product (the TPU's
+//                         `KF(roll_mul=True)`): here the rolled carry-chain
+//                         product `fe_mul_n` (`csrc/field.cuh`, B3's) under
+//                         pt_add_ilp.  Segments of any length are cut into
+//                         pieces of at most ROLLED_SPAN partials from their
+//                         start; a block of ROLLED_THREADS takes the pieces
+//                         that start in its span of ROLLED_SPAN partials (at
+//                         most 2 ROLLED_SPAN - 1 of them) into shared memory
+//                         and sums each by a pairwise tree, level h adding
+//                         offset o + h onto o = 0 mod 2h.  Each level's live
+//                         pairs are enumerated by warp ballots and a prefix
+//                         count in shared memory and handed to the warps 32
+//                         at a time, so a warp with no pair skips the level
+//                         (msm_reduce's idle lanes issue every level).  A
+//                         segment longer than ROLLED_SPAN leaves
+//                         ceil(len / ROLLED_SPAN) pieces, which a further
+//                         launch of the same kernel sums
+//                         (`ops/msm_kernels.py:rolled_passes`).  Its add
+//                         order differs from the plain twin's, so it equals
+//                         msm_reduce in affine form only.
 //
 // What bounds them on the H100: accumulate is ~W*n mixed adds of 11
 // products each (integer-multiply bound: each product issues 278 IMAD-class
@@ -87,7 +101,12 @@
 // combine's time by a quarter against the rolled C++ product, the unrolled
 // carry chains by a tenth).  The Horner's c (W - 1) doublings remain its
 // floor.  Dead (zero) digits never enter a chunk, so no padding reaches the
-// incomplete add.
+// incomplete add.  S1 does the reduce's adds (~102,000 at the primary W
+// commit's level 0) where its lab did: on the rolled product, whose
+// throughput bounds it (~15 G products/s under pt_add_ilp on an H100 80GB
+// HBM3 at 700 W, msm_turns.py's 747,410-partial level: half the unrolled
+// carry chain's S2 rate); the compacted tree keeps the warps that issue
+// busy, and at that shape a block's five levels of adds add their latency.
 
 #include "curve.cuh"
 
@@ -102,6 +121,10 @@ constexpr int REDUCE_MAX_SEG = 32;                    // longest segment the tre
 constexpr int REDUCE_THREADS = REDUCE_SPAN + REDUCE_MAX_SEG;  // 127 + 32 partials at most
 constexpr int WINDOW_THREADS = 128;                   // most segments per window
 constexpr int HORNER_GROUPS = 32;                     // most window groups per MSM
+constexpr int ROLLED_SPAN = 256;                      // S1: piece starts per block, the longest piece
+constexpr int ROLLED_THREADS = 128;                   // S1: threads per block
+constexpr int ROLLED_SLOTS = 2 * ROLLED_SPAN - 1;     // S1: partials a block holds at most
+constexpr int ROLLED_ROUNDS = (ROLLED_SLOTS + ROLLED_THREADS - 1) / ROLLED_THREADS;  // slots a thread enumerates
 
 // B2: chunk i's entries (point index * 2 + negated) summed in order.  The
 // first entry seeds the accumulator (a madd onto the identity gives the
@@ -187,13 +210,15 @@ __device__ __forceinline__ void chunk_row(const long long* seg_off, const long l
   chunk_len[q] = left < CHUNK ? left : CHUNK;
 }
 
-// S1: the serial walk of segment i with the rolled product.
-__device__ __forceinline__ void reduce_row_rolled(const FieldConst& fc, const long long* seg_off,
-                                                  const long long* px, const long long* py, const long long* pz,
-                                                  long long* ox, long long* oy, long long* oz, long long i) {
-  Pt acc = pt_identity(fc);
-  for (long long k = seg_off[i]; k < seg_off[i + 1]; ++k) acc = pt_add_t<true>(acc, pt_load(px, py, pz, k), fc);
-  pt_store(ox, oy, oz, i, acc);
+// S1: the first piece start at or after x in [seg_off[0], hi), hi =
+// seg_off[n_seg]: pieces are cut every ROLLED_SPAN partials from the start
+// of each segment (hi when there is none).
+__device__ __forceinline__ long long rolled_piece_from(const long long* seg_off, long long n_seg, long long hi,
+                                                       long long x) {
+  if (x >= hi) return hi;
+  const long long s = lower_bound(seg_off, n_seg + 1, x + 1) - 1;  // seg_off[s] <= x < seg_off[s + 1]
+  const long long c = seg_off[s] + (x - seg_off[s] + ROLLED_SPAN - 1) / ROLLED_SPAN * ROLLED_SPAN;
+  return c < seg_off[s + 1] ? c : seg_off[s + 1];
 }
 
 // n doublings (a rolled loop: one copy of the doubling's code).
@@ -353,11 +378,85 @@ __global__ void __launch_bounds__(REDUCE_THREADS) msm_reduce_kernel(FieldConst f
   if (live && p == start) pt_store(ox, oy, oz, s, x);
 }
 
-__global__ void msm_reduce_rolled_kernel(FieldConst fc, const long long* seg_off, const long long* px,
-                                         const long long* py, const long long* pz, long long* ox, long long* oy,
-                                         long long* oz, long long n_seg) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n_seg) reduce_row_rolled(fc, seg_off, px, py, pz, ox, oy, oz, i);
+// S1's shared memory: the partials, then per slot its piece's local start
+// and end (its piece's output row at the piece's start), then a level's
+// pair list.
+struct RolledSmem {
+  Pt pt[ROLLED_SLOTS];
+  long long out_row[ROLLED_SLOTS];
+  short first[ROLLED_SLOTS], last[ROLLED_SLOTS];
+  short pairs[ROLLED_SLOTS];
+  int counts[ROLLED_ROUNDS][ROLLED_THREADS / 32];
+};
+
+// piece_off: segment s's first output row (its pieces' rows follow), or
+// null when every segment is one piece (row s).  Blocks past the last
+// partial find no piece and only write empty segments' identities.
+__global__ void __launch_bounds__(ROLLED_THREADS, 3)
+    msm_reduce_rolled_kernel(FieldConst fc, const long long* seg_off, const long long* piece_off,
+                             const long long* px, const long long* py, const long long* pz, long long* ox,
+                             long long* oy, long long* oz, long long n_seg) {
+  extern __shared__ __align__(16) unsigned char rolled_smem[];
+  RolledSmem& sm = *reinterpret_cast<RolledSmem*>(rolled_smem);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // an empty segment is one piece: the identity
+  for (long long q = (long long)blockIdx.x * blockDim.x + tid; q < n_seg; q += (long long)gridDim.x * blockDim.x)
+    if (seg_off[q] == seg_off[q + 1]) pt_store(ox, oy, oz, piece_off ? piece_off[q] : q, pt_identity(fc));
+
+  const long long hi = seg_off[n_seg];
+  const long long span0 = seg_off[0] + (long long)blockIdx.x * ROLLED_SPAN;
+  const long long run0 = rolled_piece_from(seg_off, n_seg, hi, span0);
+  const int ns = (int)(rolled_piece_from(seg_off, n_seg, hi, span0 + ROLLED_SPAN) - run0);
+  for (int q = tid; q < ns; q += ROLLED_THREADS) {
+    const long long p = run0 + q;
+    const long long s = lower_bound(seg_off, n_seg + 1, p + 1) - 1;
+    const long long m = (p - seg_off[s]) / ROLLED_SPAN;  // the piece of segment s holding p
+    const long long ps = seg_off[s] + m * ROLLED_SPAN;
+    const long long pe = ps + ROLLED_SPAN < seg_off[s + 1] ? ps + ROLLED_SPAN : seg_off[s + 1];
+    sm.first[q] = (short)(ps - run0);
+    sm.last[q] = (short)(pe - run0);
+    if (p == ps) sm.out_row[q] = (piece_off ? piece_off[s] : s) + m;
+    sm.pt[q] = pt_load(px, py, pz, p);
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int h = 1;; h <<= 1) {
+    // the live pairs (q, q + h): q at an offset 0 mod 2h of its piece, q + h inside it
+    bool take[ROLLED_ROUNDS];
+    unsigned ball[ROLLED_ROUNDS];
+#pragma unroll
+    for (int k = 0; k < ROLLED_ROUNDS; ++k) {
+      const int q = k * ROLLED_THREADS + tid;
+      take[k] = q < ns && ((q - sm.first[q]) & (2 * h - 1)) == 0 && q + h < sm.last[q];
+      ball[k] = __ballot_sync(0xFFFFFFFFu, take[k]);
+      if (lane == 0) sm.counts[k][warp] = __popc(ball[k]);
+    }
+    __syncthreads();
+    int total = 0, pos[ROLLED_ROUNDS];
+#pragma unroll
+    for (int k = 0; k < ROLLED_ROUNDS; ++k)
+      for (int w = 0; w < ROLLED_THREADS / 32; ++w) {
+        if (w == warp) pos[k] = total + __popc(ball[k] & ((1u << lane) - 1u));
+        total += sm.counts[k][w];
+      }
+    if (total == 0) break;  // every piece summed (the same for the whole block)
+#pragma unroll
+    for (int k = 0; k < ROLLED_ROUNDS; ++k)
+      if (take[k]) sm.pairs[pos[k]] = (short)(k * ROLLED_THREADS + tid);
+    __syncthreads();
+    // reads at offsets h mod 2h, writes at 0 mod 2h: no hazard inside a level
+#pragma unroll 1
+    for (int j = warp * 32; j < total; j += ROLLED_THREADS) {  // warp-uniform: a warp past the list skips
+      if (j + lane < total) {
+        const int q = sm.pairs[j + lane];
+        const Pt a = sm.pt[q], b = sm.pt[q + h];
+        sm.pt[q] = pt_add_ilp(a, b, fc);
+      }
+    }
+    __syncthreads();
+  }
+  for (int q = tid; q < ns; q += ROLLED_THREADS)
+    if (sm.first[q] == q) pt_store(ox, oy, oz, sm.out_row[q], sm.pt[q]);
 }
 
 __global__ void __launch_bounds__(WINDOW_THREADS) msm_window_sums_kernel(FieldConst fc, const long long* bx,
@@ -430,6 +529,7 @@ __global__ void __launch_bounds__(HORNER_GROUPS) msm_horner_kernel(FieldConst fc
   }
 }
 
+// ---- host launchers ----
 // The bucket sort's first passes: (n, 8) scalars -> (W, n) packed signed
 // digits and the (W B, ntiles) live-digit counts per bucket and tile.
 extern "C" int sirius_msm_bucket_count(const void* scalars, void* digits, void* counts, long long n, int c,
@@ -491,14 +591,19 @@ extern "C" int sirius_msm_reduce(const uint32_t* consts, const void* seg_off, co
   return (int)cudaGetLastError();
 }
 
-extern "C" int sirius_msm_reduce_rolled(const uint32_t* consts, const void* seg_off, const void* px, const void* py,
-                                        const void* pz, void* ox, void* oy, void* oz, long long n_seg,
-                                        void* stream) {
-  const int threads = 128;
-  long long blocks = (n_seg + threads - 1) / threads;
-  msm_reduce_rolled_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      make_field_const(consts), (const long long*)seg_off, (const long long*)px, (const long long*)py,
-      (const long long*)pz, (long long*)ox, (long long*)oy, (long long*)oz, n_seg);
+// One pass of S1 over n_parts partials (seg_off[n_seg] - seg_off[0] <=
+// n_parts); piece_off as the kernel takes it.
+extern "C" int sirius_msm_reduce_rolled(const uint32_t* consts, const void* seg_off, const void* piece_off,
+                                        const void* px, const void* py, const void* pz, void* ox, void* oy,
+                                        void* oz, long long n_seg, long long n_parts, void* stream) {
+  long long blocks = (n_parts + ROLLED_SPAN - 1) / ROLLED_SPAN;
+  if (blocks < 1) blocks = 1;  // all segments empty: one block writes their identities
+  const int smem = (int)sizeof(RolledSmem);
+  cudaError_t e = cudaFuncSetAttribute(msm_reduce_rolled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  msm_reduce_rolled_kernel<<<(unsigned)blocks, ROLLED_THREADS, smem, (cudaStream_t)stream>>>(
+      make_field_const(consts), (const long long*)seg_off, (const long long*)piece_off, (const long long*)px,
+      (const long long*)py, (const long long*)pz, (long long*)ox, (long long*)oy, (long long*)oz, n_seg);
   return (int)cudaGetLastError();
 }
 
@@ -529,9 +634,9 @@ extern "C" int sirius_msm_horner(const uint32_t* consts, const void* tx, const v
 }
 
 // Registers, local (spill) bytes and static shared bytes per thread/block
-// of MSM kernel `k`: 0 accumulate, 1 reduce, 2 reduce_rolled (S1),
-// 3 window_sums, 4 horner, 5 the bucket sort's count, 6 its scatter ->
-// out[0], out[1], out[2].
+// of MSM kernel `k`: 0 accumulate, 1 reduce, 2 reduce_rolled (S1, its
+// dynamic shared memory included), 3 window_sums, 4 horner, 5 the bucket
+// sort's count, 6 its scatter -> out[0], out[1], out[2].
 extern "C" int sirius_msm_attrs(int k, long long* out) {
   cudaFuncAttributes attr;
   cudaError_t e;
@@ -548,7 +653,7 @@ extern "C" int sirius_msm_attrs(int k, long long* out) {
   if (e != cudaSuccess) return (int)e;
   out[0] = attr.numRegs;
   out[1] = (long long)attr.localSizeBytes;
-  out[2] = (long long)attr.sharedSizeBytes;
+  out[2] = (long long)attr.sharedSizeBytes + (k == 2 ? (long long)sizeof(RolledSmem) : 0);
   return 0;
 }
 #endif

@@ -42,7 +42,7 @@ _SIGNATURES = {
     "sirius_msm_bucket_count": [P] * 3 + [LL, I, LL, P],
     "sirius_msm_bucket_scatter": [P] * 8 + [LL, I, LL, LL, P],
     "sirius_msm_reduce": [P] * 8 + [LL, LL, P],
-    "sirius_msm_reduce_rolled": [P] * 8 + [LL, P],
+    "sirius_msm_reduce_rolled": [P] * 9 + [LL, LL, P],
     "sirius_msm_window_sums": [P] * 7 + [LL, I, I, P],
     "sirius_msm_horner": [P] * 7 + [I, I, I, I, P],
     "sirius_msm_attrs": [I, P],
@@ -128,16 +128,16 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
 
 
-def require_cuda(*tensors: torch.Tensor) -> None:
-    """Validate kernel operands: one CUDA device, int64, contiguous."""
+def require_cuda(*tensors: torch.Tensor, dtype: torch.dtype = torch.int64) -> None:
+    """Validate kernel operands: one CUDA device, `dtype`, contiguous."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"operands on {t.device} and {dev}")
         if t.device.type != "cuda":
             raise ValueError(f"kernel operand on {t.device}, not a CUDA device")
-        if t.dtype != torch.int64:
-            raise TypeError(f"kernel operand dtype {t.dtype}, expected int64")
+        if t.dtype != dtype:
+            raise TypeError(f"kernel operand dtype {t.dtype}, expected {dtype}")
         if not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
 

@@ -14,9 +14,12 @@ bounds noted there).
                            sum_v v B_v, from segments of L buckets
   msm_combine        (B3)  (t, W, B) bucket sums -> t Jacobian MSM results:
                            msm_window_sums, then the grouped Horner kernel
-  msm_reduce_rolled  (S1)  a serial walk of each segment with the rolled
-                           product: msm_reduce's function (equal in affine
-                           form); on no path of the library
+  msm_reduce_rolled  (S1)  msm_reduce's function (equal in affine form) for
+                           segments of any length, on the rolled product:
+                           pairwise trees over pieces of at most ROLLED_SPAN
+                           partials, one launch more per factor of
+                           ROLLED_SPAN in the longest segment
+                           (`rolled_passes`); on no path of the library
 
 Each wrapper takes its plain twin for CPU tensors only; for CUDA tensors it
 launches its kernel or raises.  `<wrapper>.launches` counts kernel launches
@@ -36,6 +39,7 @@ import torch
 from ..curves.jpoint import Curve, Points
 
 REDUCE_MAX_SEG = 32  # csrc/msm.cu: the longest segment msm_reduce's tree takes
+ROLLED_SPAN = 256  # csrc/msm.cu: S1's longest piece (and the piece starts one block takes)
 WINDOW_THREADS = 128  # csrc/msm.cu: the most bucket segments of one window
 MSM_KERNELS = ("msm_accumulate", "msm_reduce", "msm_reduce_rolled", "msm_window_sums", "msm_horner",
                "msm_bucket_count", "msm_bucket_scatter")
@@ -252,22 +256,54 @@ def msm_reduce(curve: Curve, seg_off, partials: Points) -> Points:
 msm_reduce_rolled_plain = msm_reduce_plain
 
 
+def rolled_piece_offsets(seg_off: torch.Tensor) -> torch.Tensor:
+    """Segment s's first output row of an S1 launch: the kernel cuts each
+    segment into pieces of at most ROLLED_SPAN partials from its start and
+    writes one row per piece, the pieces of segment s at rows [off[s],
+    off[s+1]) in order; an empty segment is one piece (the identity)."""
+    counts = ((seg_off[1:] - seg_off[:-1] + ROLLED_SPAN - 1) // ROLLED_SPAN).clamp(min=1)
+    return torch.cat([seg_off.new_zeros(1), torch.cumsum(counts, 0)])
+
+
+def rolled_passes(seg_off: torch.Tensor, longest: int) -> list[torch.Tensor | None]:
+    """The `piece_off` of each S1 launch for segments of at most `longest`
+    partials: launch i reads the rows of launch i - 1 (the partials first)
+    with seg_off the piece_off before it, and the last launch, None, leaves
+    one row per segment."""
+    plan: list[torch.Tensor | None] = []
+    while longest > ROLLED_SPAN:
+        seg_off = rolled_piece_offsets(seg_off)
+        plan.append(seg_off)
+        longest = -(-longest // ROLLED_SPAN)
+    return plan + [None]
+
+
 def msm_reduce_rolled(curve: Curve, seg_off, partials: Points) -> Points:
-    """S1: one thread walks each segment (any length) with the rolled product."""
+    """S1: one point per segment [seg_off[s], seg_off[s+1]) of any length
+    (the identity for an empty one), as msm_reduce in affine form.  The
+    plan of launches reads the longest segment on the host (one sync) and,
+    for more than one launch, their row counts (one more)."""
     ins = _reduce_args(curve, seg_off, partials)
     if ins is None:
         return msm_reduce_rolled_plain(curve, seg_off, partials)
     from . import _build
 
-    n_seg = seg_off.shape[0] - 1
-    out = _points_on(n_seg, partials.x)
-    if n_seg:
+    off, pts = ins[0], ins[1:]
+    n_seg = off.shape[0] - 1
+    if not n_seg:
+        return Points(*_points_on(0, pts[0]))
+    plan = rolled_passes(off, int((off[1:] - off[:-1]).max()))
+    rows = torch.stack([po[-1] for po in plan[:-1]]).tolist() if len(plan) > 1 else []
+    for piece_off, n_rows in zip(plan, [*rows, n_seg]):
+        out = _points_on(n_rows, pts[0])
         err = _build.library().sirius_msm_reduce_rolled(
-            _build.field_consts(curve.fb), *(t.data_ptr() for t in ins), *(t.data_ptr() for t in out), n_seg,
-            _build.stream_of(partials.x))
+            _build.field_consts(curve.fb), off.data_ptr(), None if piece_off is None else piece_off.data_ptr(),
+            *(t.data_ptr() for t in pts), *(t.data_ptr() for t in out), n_seg, pts[0].shape[0],
+            _build.stream_of(pts[0]))
         _build.check(err, "msm_reduce_rolled")
         msm_reduce_rolled.launches += 1
-    return Points(*out)
+        off, pts = piece_off, out
+    return Points(*pts)
 
 
 def msm_kernel_attrs(name: str) -> dict[str, int]:

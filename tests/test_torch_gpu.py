@@ -389,6 +389,34 @@ def test_msm_reduce_tree_segment_lengths(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("curve", CURVES, ids=IDS)
+def test_msm_reduce_rolled_segment_lengths(cuda_device, curve):
+    """S1 on segments of 0, 1, 2, 31, 32, 33, span - 1, span, span + 1 and
+    5,000 partials (the last in 20 pieces: two launches), with an equal
+    pair, an inverse pair and an identity partial: in affine form the plain
+    twin's, and msm_reduce's on the segments msm_reduce takes (at most 32)."""
+    span = mk.ROLLED_SPAN
+    lens = [0, 1, 2, 31, 32, 33, span - 1, span, span + 1, 5000, 3]
+    n = sum(lens)
+    parts = _jacobian_points(curve, cuda_device, n, 8)
+    # the 31-segment holds rows 3..33: its first level adds row 4 onto row 3
+    for c in parts:
+        c[4] = c[3]  # an equal pair: the doubling branch
+    neg = curve.neg(Points(*(c[40:41] for c in parts)))
+    ident = curve.identity((1,), cuda_device)
+    for c, v, z in zip(parts, neg, ident):
+        c[41] = v[0]  # an inverse pair (rows 40, 41 of the 32-segment): the identity
+        c[50] = z[0]  # an identity partial
+    seg_off = torch.tensor([0, *np.cumsum(lens)], dtype=torch.int64, device=cuda_device)
+    before = mk.msm_reduce_rolled.launches
+    got = mk.msm_reduce_rolled(curve, seg_off, parts)
+    assert mk.msm_reduce_rolled.launches == before + 2
+    assert curve.decode(got) == curve.decode(mk.msm_reduce_rolled_plain(curve, seg_off, parts))
+    short = seg_off[:6]  # lengths 0, 1, 2, 31, 32
+    assert curve.decode(mk.msm_reduce_rolled(curve, short, parts)) == curve.decode(mk.msm_reduce(curve, short, parts))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("curve,t,W,B,c", [(BN256_G1, 2, 27, 512, 10), (GRUMPKIN, 5, 64, 15, 4),
                                            (BN256_G1, 2, 5, 300, 9)],
                          ids=["best_msm_c10", "msm_many_c4", "ragged_B300"])
@@ -482,7 +510,30 @@ def test_mul_chain_kernel_bit_exact(cuda_device, field):
 @pytest.mark.gpu
 def test_raw_u32_and_probe_kernels_match_twins(cuda_device):
     a = torch.from_numpy(np.random.default_rng(3).integers(0, 1 << 32, size=1 << 16, dtype=np.int64)).to(cuda_device)
+    a32 = mb.words_of(a)
     for op in ("mul", "add"):
-        assert torch.equal(mb.raw_u32(a, op), mb.raw_u32_plain(a, op))
+        assert torch.equal(mb.raw_u32(a32, op), mb.raw_u32_plain(a32, op))
     x = a[:1024].reshape(8, 128)
     assert torch.equal(mb.probe_add_one(x), mb.probe_add_one_plain(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["mul", "add"])
+def test_raw_u32_kernel_bit_exact_at_a_ragged_length(cuda_device, op):
+    """S3 on 2^22 + 3 words (3 past the last group of 4), 0, 1 and
+    0xFFFFFFFF among them, at the timed 64 reps (the straight-line chain)
+    and the long run's 4096 (its loop), and on a view 4 bytes off 16-byte
+    alignment: word for word its twin."""
+    rng = np.random.default_rng(4)
+    u = rng.integers(0, 1 << 32, size=(1 << 22) + 4, dtype=np.int64)
+    u[:3] = [0, 1, 0xFFFFFFFF]
+    u[-3:] = [0xFFFFFFFF, 1, 0]
+    words = mb.words_of(torch.from_numpy(u).to(cuda_device))
+    a = words[:-1]
+    for reps in (64, 4096):
+        before = mb.raw_u32.launches
+        got = mb.raw_u32(a, op, reps)
+        assert mb.raw_u32.launches == before + 1 and got.dtype == torch.int32
+        assert torch.equal(got, mb.raw_u32_plain(a, op, reps))
+    off = words[1:]  # 4 bytes past the allocation's start
+    assert torch.equal(mb.raw_u32(off, op), mb.raw_u32_plain(off, op))

@@ -35,17 +35,23 @@ def test_mul_chain_twin_matches_jax_mul_chain(name, nb):
 
 @pytest.mark.parametrize("op", ["mul", "add"])
 def test_raw_u32_twin_matches_numpy_uint32(op):
+    """The twin on int32 words holding the u32 bits (the kernel's contract),
+    at the timed 64 reps and the long run's 4096, against numpy uint32."""
     rng = np.random.default_rng(3)
     a = rng.integers(0, 1 << 32, size=4096, dtype=np.uint64).astype(np.uint32)
     a[:3] = [0, 1, 0xFFFFFFFF]
-    b = a.copy()
-    with np.errstate(over="ignore"):
-        for _ in range(64):
-            b = b * a if op == "mul" else b + a
-    got = mb.raw_u32(torch.from_numpy(a.astype(np.int64)), op, reps=64)
-    assert np.array_equal(got.numpy(), b.astype(np.int64))
+    for reps in (64, 4096):
+        b = a.copy()
+        with np.errstate(over="ignore"):
+            for _ in range(reps):
+                b = b * a if op == "mul" else b + a
+        got = mb.raw_u32(torch.from_numpy(a.view(np.int32)), op, reps=reps)
+        assert got.dtype == torch.int32
+        assert np.array_equal(got.numpy().view(np.uint32), b)
     with pytest.raises(ValueError):
-        mb.raw_u32(torch.zeros(4, dtype=torch.int64), "sub")
+        mb.raw_u32(torch.zeros(4, dtype=torch.int32), "sub")
+    with pytest.raises(ValueError):  # u32 words come as int32 since the kernel moves 4-byte words
+        mb.raw_u32(torch.zeros(4, dtype=torch.int64), op)
 
 
 def test_probe_add_one_twin_is_x_plus_one():

@@ -72,3 +72,38 @@ def test_rolled_reduce_twin_matches_s1_body(curve, jcurve):
     assert mk.msm_reduce_rolled.launches == before  # CPU tensors: the plain twin, no launch
     assert curve.decode(got) == curve.decode(want)
     assert curve.decode(got) == curve.decode(mk.msm_reduce(curve, seg_off, J))
+
+
+SPAN = mk.ROLLED_SPAN
+
+
+@pytest.mark.parametrize("length", [0, 1, 2, 31, 32, 33, SPAN - 1, SPAN, SPAN + 1, 5000, 70000])
+def test_rolled_plan_covers_each_segment_once_in_order(length):
+    """The launches msm_reduce_rolled plans (`rolled_passes`): in every
+    launch each segment is cut into pieces of at most ROLLED_SPAN partials
+    from its start (an empty segment one empty piece), its pieces take the
+    rows [piece_off[s], piece_off[s+1]) of the launch's output in order, so
+    they cover its partials exactly once, in order; the next launch reads
+    those rows as its partials; the last leaves one row per segment, and
+    the launches number one more per factor of ROLLED_SPAN in the longest
+    segment."""
+    lens = [3, length, 0, length, 1]
+    seg_off = torch.tensor([0, *np.cumsum(lens)], dtype=torch.int64)
+    plan = mk.rolled_passes(seg_off, max(lens))
+    longest, launches = max(lens), 1
+    while longest > SPAN:
+        longest, launches = -(-longest // SPAN), launches + 1
+    assert len(plan) == launches and plan[-1] is None
+    off = seg_off
+    for piece_off in plan:
+        rows = 0
+        for s in range(len(lens)):
+            a, b = int(off[s]), int(off[s + 1])
+            pieces = [(p, min(p + SPAN, b)) for p in range(a, b, SPAN)] or [(a, a)]
+            assert [i for p, e in pieces for i in range(p, e)] == list(range(a, b))
+            if piece_off is None:
+                assert len(pieces) == 1
+            else:
+                assert (int(piece_off[s]), int(piece_off[s + 1])) == (rows, rows + len(pieces))
+            rows += len(pieces)
+        off = piece_off

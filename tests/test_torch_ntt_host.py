@@ -1,26 +1,18 @@
 """Host rehearsal of B4 (`csrc/ntt.cu`) and the field product `mul_rows`
 (`csrc/field_ops.cu`): the kernels' own code, built with g++ and run on the
-CPU through ctypes, against the plain torch twins.
-
-The device functions compile as host C++ (`__device__` empty; the PTX field
-ops and 16-byte loads take their C++ forms, the same words).  The
-`__global__` kernels (from `#include <cuda_runtime.h>` to the `host
-launchers` line) run whole: one `std::thread` per CUDA thread of a block,
-`threadIdx`/`blockIdx` thread-local, `__syncthreads()` a `std::barrier`,
-the blocks one after another.  So the kernels' order of operations, their
-shared-memory slots and their index arithmetic are checked here, and only
-the PTX asm is left to the card's checks (`tests/test_torch_gpu.py`).
-Skipped where g++ is absent.
+CPU through ctypes (`host_kernels.py`: one `std::thread` per CUDA thread,
+barriers and all), against the plain torch twins.  So the kernels' order
+of operations, their shared-memory slots and their index arithmetic are
+checked here, and only the PTX asm is left to the card's checks
+(`tests/test_torch_gpu.py`).  Skipped where g++ is absent.
 """
 
 import ctypes
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+from host_kernels import build, host_source
 
 from sirius_tpu_torch.fields import gold
 from sirius_tpu_torch.fields.constants import bn256_fr
@@ -32,44 +24,7 @@ from sirius_tpu_torch.ops.ntt import NTT, _bit_reverse_indices
 
 torch.set_num_threads(1)  # small ops: more threads only contend with the other test workers
 
-CSRC = Path(_build.__file__).resolve().parent.parent / "csrc"
-
-PRELUDE = r"""
-#include <barrier>
-#include <cstdint>
-#include <thread>
-#include <vector>
-#define __device__
-#define __host__
-#define __forceinline__ inline
-#define __global__
-#define __launch_bounds__(...)
-struct HostDim3 { unsigned x = 0, y = 0, z = 0; };
-static thread_local HostDim3 threadIdx, blockIdx;
-static HostDim3 blockDim;
-static std::barrier<>* host_barrier = nullptr;
-static inline void __syncthreads() { host_barrier->arrive_and_wait(); }
-"""
-
 LAUNCHER = r"""
-// Runs every block of a launch, one std::thread per CUDA thread.
-template <class F>
-static void run_grid(unsigned blocks, unsigned threads, F body) {
-  blockDim.x = threads;
-  for (unsigned b = 0; b < blocks; ++b) {
-    std::barrier<> bar(threads);
-    host_barrier = &bar;
-    std::vector<std::thread> ts;
-    for (unsigned t = 0; t < threads; ++t)
-      ts.emplace_back([=] {
-        threadIdx.x = t;
-        blockIdx.x = b;
-        body();
-      });
-    for (auto& th : ts) th.join();
-  }
-}
-
 extern "C" void host_col_ntt(const uint32_t* consts, const long long* a, const long long* rev,
                              const long long* table, const long long* mid, long long* out, long long size,
                              long long R, long long rep) {
@@ -127,29 +82,11 @@ extern "C" void host_mul_rows(const uint32_t* consts, const long long* a, const 
 """
 
 
-def _host_source(name: str) -> str:
-    """A kernel source as host C++: its device functions, then its kernels
-    (the `extern __shared__` array as a static one)."""
-    text = (CSRC / name).read_text()
-    device, rest = text.split("#ifdef __CUDACC__", 1)
-    kernels = rest.split("#include <cuda_runtime.h>", 1)[1].split("// ---- host launchers ----", 1)[0]
-    kernels = kernels.replace("extern __shared__ uint32_t col_ntt_smem[];", "static uint32_t col_ntt_smem[1 << 16];")
-    return device + kernels
-
-
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ for the host rehearsal of the CUDA kernels")
-    d = tmp_path_factory.mktemp("host_kernels")
-    src = d / "host_kernels.cpp"
-    src.write_text(PRELUDE + _host_source("field_ops.cu") + _host_source("ntt.cu") + LAUNCHER)
-    so = d / "libhost_kernels.so"
-    proc = subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", f"-I{CSRC}", "-o", str(so),
-                           str(src)], capture_output=True, text=True)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    lib = ctypes.CDLL(str(so))
+    shared = {"extern __shared__ uint32_t col_ntt_smem[];": "static uint32_t col_ntt_smem[1 << 16];"}
+    lib = build(tmp_path_factory, "host_kernels", host_source("field_ops.cu") + host_source("ntt.cu", shared)
+                + LAUNCHER)
     P, LL = ctypes.c_void_p, ctypes.c_longlong
     lib.host_col_ntt.argtypes = [P] * 6 + [LL] * 3
     lib.host_mul_rows.argtypes = [P] * 4 + [LL] * 3 + [ctypes.c_int] * 2
