@@ -11,24 +11,28 @@
    graph of 200 launches (a launch's latency: the tile is one block's
    work) and `x32 + 1` on int32 words, the one PyTorch call computing it.
    S2/S3: the Montgomery-multiply rate (K = 8 chains on 2^17 bn256 Fr and Fq
-   elements, bit-exact against the twin) on the unrolled C++ product (the
-   NTT's elementwise multiply) and on the PTX carry-chain product (B1, B2,
-   B4), every product on the edge values 0, 1, p - 1, R mod p, and the raw
+   elements, bit-exact against the twin, the device time per launch from a
+   CUDA graph of 50 launches, back to back beside) on the unrolled C++
+   product (the NTT's elementwise multiply), on the PTX carry-chain product
+   (B1's walk, B2, B4) and on the wide product (B1's batched madd), every
+   product on the edge values 0, 1, p - 1, R mod p, every product's K > 1
+   instance's registers and spills, and the raw
    u32 multiply/add rates (2^22 int32-held words x 64 and x 4096), each
    as a share of the paper rate in the instructions the card issues (the
    op's opcode in the SASS per multiply of the mul chain: ptxas fuses two
    dependent adds into one IADD3) for the card's max SM clock and the SM
    clock read under the long chain, and the PyTorch calls that fold each chain (`a32 ** 65`,
    `a32 * 65`), checked bit-equal; the latency probe: one element, K = 1024
-   chained products, on each of the port's four products (unrolled,
-   rolled, carry-chain, rolled carry-chain: B3's), microseconds per
+   chained products, on each of the port's five products (unrolled,
+   rolled, carry-chain, rolled carry-chain: B3's, wide), microseconds per
    product.
 2. Keys: the bn256 2^20 key (b"bench-primary") and the grumpkin 2^17 key
    (b"bench-support"), derived on the device.
 3. Holds every kernel against its plain torch twin on the card, on the same
    inputs: B1 madd bit-exact on 2^16 pairs per curve and at the cross-term
-   step shape (timed; off the main path since msm_many walks its buckets
-   in one launch); best_msm's stages (B2's bucket sort equal to
+   step shape (timed from a CUDA graph, beside its bytes at the int64
+   words; off the main path since msm_many walks its buckets in one
+   launch); best_msm's stages (B2's bucket sort equal to
    bucket_plan_plain, B2 accumulate and every B3 reduce level bit-exact,
    the B3 window sums and combine in affine form) at the support W-commit
    shape, with kernel and twin timed there, each beside its bound and the
@@ -83,8 +87,8 @@
    bucket segments it must equal msm_reduce's two levels, and is timed.
    Then every MSM, madd and NTT kernel's registers, local (spill) bytes per
    thread, shared bytes and SASS instruction count, the SASS of mul_rows on
-   each product and of S3's chains by opcode (`cuobjdump`, where the
-   toolkit has it).
+   each product (IMAD-class by opcode, IMAD.WIDE and IADD3 counts) and of
+   S3's chains by opcode (`cuobjdump`, where the toolkit has it).
 
 Ends with a JSON line of kernel results (time, plain twin's time, bound
 and what sets it, launches on the path that runs the kernel: B1's bucket
@@ -92,11 +96,11 @@ walk, B2 and B3 on the IVC path, B4, its epilogue pass (an entry of its
 own) and the K = 1 product on the NTT path;
 the probes S1-S4 and B1's batched madd run on no path but their own timed
 runs, which are counted, a CUDA graph's replays included (S1's time is its
-wrapper's on CUDA events, as every entry's but S3's and S4's: theirs, and
-their library calls', are the device time per launch from a CUDA graph);
-S2's kernel `mul_rows` has a second entry at the NTT path's
-K = 1 shape (the coset powers) and a third on the carry-chain
-product; B2's sort and
+wrapper's on CUDA events, as every entry's but S2's, S3's, S4's and the
+batched madd's: theirs, and S3's and S4's library calls', are the device
+time per launch from a CUDA graph); S2's kernel `mul_rows` has a second
+entry at the NTT path's K = 1 shape (the coset powers), a third on the
+carry-chain product and a fourth on the wide one; B2's sort and
 accumulate have one at the support W commit (the launches of every other
 size; grumpkin for the accumulate) and one at the primary (917,504 points;
 bn256); B3's combine has one at best_msm's shape (t = 1) and one at
@@ -166,6 +170,7 @@ W_COMMIT_N = 7 << 14  # support W commit length (7 advice columns x 2^14 rows)
 NTT_LOG = 20  # bench.py's ntt_elems_per_sec_2^20
 MID_REP = 4  # mul_rows K = 1 with each row of b repeated: the nested route's broadcast mid twiddle
 S2_N, S2_K = 1 << 17, 8  # scripts/tpu_microbench.py: (1024, 128) elements, K = 8
+S2_ENTRIES = {"unrolled": "mul_chain", "cc": "mul_chain_cc", "wide": "mul_chain_wide"}  # product: kernels-line name
 S3_N, S3_REPS = 1 << 22, 64  # 2^22 values: the TPU's (512, 128) would not fill 132 SMs
 LONG_K, LONG_REPS = 256, 4096  # chains long enough that the rate, not the memory traffic, sets the time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -472,22 +477,26 @@ def main() -> int:
         w[:, 7] &= 0x0FFFFFFF
         return torch.from_numpy(w).to(dev)
 
-    # S2 on the unrolled product (the NTT's multiply) and on the carry-chain one (B1, B2, B4): mul_chain, mul_chain_cc
+    # S2 on the unrolled product (the NTT's multiply), the carry-chain one (B1's walk, B2, B4) and the wide one
+    # (B1's batched madd): mul_chain, mul_chain_cc, mul_chain_wide
     for field in (FR, FQ):
         a2, b2 = random_elements(rng, S2_N), random_elements(rng, S2_N)
         want = mb.mul_chain_plain(field, a2, b2, S2_K)
-        for product, name in (("unrolled", "mul_chain"), ("cc", "mul_chain_cc")):
+        for product, name in S2_ENTRIES.items():
             err = word_err([mb.mul_chain(field, a2, b2, S2_K, product=product)], [want])
             check(err == 0, f"S2 mul_chain on {field}, {product} product, is not bit-exact")
+            # the kernel takes about the wrapper's host time per call: timed from a CUDA graph of its launches
             fk.mul_rows.launches = 0
-            ms = gpu_ms(lambda: mb.mul_chain(field, a2, b2, S2_K, product=product), reps=50)
+            ms, replayed = graph_ms(lambda: mb.mul_chain(field, a2, b2, S2_K, product=product), launches=50)
+            eager = gpu_ms(lambda: mb.mul_chain(field, a2, b2, S2_K, product=product), reps=50)
             if field is FR:
-                probe_launches[name] = fk.mul_rows.launches
+                probe_launches[name] = fk.mul_rows.launches + replayed
             plain = gpu_ms(lambda: mb.mul_chain_plain(field, a2, b2, S2_K), reps=3)
             rate, paper = S2_N * S2_K / (ms / 1e3), imad_rate / FE_MUL_IMADS
-            log(f"S2 mul_chain {field.spec.name} 2^17 x K={S2_K}, {product} product: bit-exact; kernel {ms:.6f} ms = "
-                f"{rate:.6e} Montgomery mul/s = {100 * rate / paper:.2f}% of the paper rate {paper:.6e} "
-                f"({FE_MUL_IMADS} multiply-adds per mul); plain {plain:.4f} ms  [{card}]")
+            log(f"S2 mul_chain {field.spec.name} 2^17 x K={S2_K}, {product} product: bit-exact; kernel {ms:.6f} ms "
+                f"per launch from a CUDA graph = {rate:.6e} Montgomery mul/s = {100 * rate / paper:.2f}% of the paper "
+                f"rate {paper:.6e} ({FE_MUL_IMADS} multiply-adds per mul); back to back {eager:.6f} ms per call; "
+                f"plain {plain:.4f} ms  [{card}]")
             ms_long = gpu_ms(lambda: mb.mul_chain(field, a2, b2, LONG_K, product=product), reps=10)
             rate = S2_N * LONG_K / (ms_long / 1e3)
             log(f"S2 mul_chain {field.spec.name} 2^17 x K={LONG_K}, {product} product: {ms_long:.6f} ms = {rate:.6e} "
@@ -506,6 +515,9 @@ def main() -> int:
                 check(torch.equal(fk.mul_rows(field, pairs, ea, K, product=product), want),
                       f"the {product} product on {field} differs from the twin on the edge values (K = {K})")
     log(f"every product {fk.PRODUCTS} equals the twin on 0, 1, p - 1, R mod p, all pairs, both fields")
+    for product in fk.PRODUCTS:
+        log(f"mul_rows at K > 1 (S2's instance, one element a thread) on the {product} product: "
+            f"{fk.mul_rows_kernel_attrs(product)}")
     a3 = mb.words_of(torch.from_numpy(rng.integers(0, 1 << 32, size=S3_N, dtype=np.int64)).to(dev))  # u32 bits
     errs, outs = {}, {}
     for op in ("mul", "add"):
@@ -628,13 +640,20 @@ def main() -> int:
     qx, qy = K.x[:lanes].contiguous(), K.y[:lanes].contiguous()
     err = word_err(madd_mod.madd_batch(GRUMPKIN, P, qx, qy), madd_mod.madd_plain(GRUMPKIN, P, qx, qy))
     check(err == 0, "B1 madd at the step shape is not bit-exact")
-    madd_mod.madd_batch.launches = 0  # off the main path since msm_many walks its buckets in one launch
-    ms = gpu_ms(lambda: madd_mod.madd_batch(GRUMPKIN, P, qx, qy), reps=20)
-    probe_launches["madd"] = madd_mod.madd_batch.launches
+    # off the main path since msm_many walks its buckets in one launch; the kernel takes about the wrapper's host
+    # time per call: timed from a CUDA graph of its launches
+    madd_mod.madd_batch.launches = 0
+    ms, replayed = graph_ms(lambda: madd_mod.madd_batch(GRUMPKIN, P, qx, qy), launches=20)
+    eager = gpu_ms(lambda: madd_mod.madd_batch(GRUMPKIN, P, qx, qy), reps=20)
+    probe_launches["madd"] = madd_mod.madd_batch.launches + replayed
     plain = gpu_ms(lambda: madd_mod.madd_plain(GRUMPKIN, P, qx, qy), reps=3)
     record("madd", "sirius_tpu_torch/csrc/madd.cu", "sirius_tpu/ops/pallas_madd.py:136", err, ms, plain,
            MADD_MULS * lanes, 8 * FE * lanes)
-    log(f"B1 madd {lanes} lanes: bit-exact; kernel {ms:.4f} ms, plain {plain:.4f} ms  [{card}]")
+    b1 = kernels["madd"]
+    log(f"B1 madd {lanes} lanes (the wide product): bit-exact; kernel {ms:.6f} ms per launch from a CUDA graph, "
+        f"back to back {eager:.6f} ms per call, plain {plain:.4f} ms, bound "
+        f"{b1['bound_ms']:.7f} ms ({b1['bound_by']}; the bytes at the int64 words, 8 x 64 B a lane: "
+        f"{8 * 2 * FE * lanes / HBM_BYTES_PER_S * 1e3:.7f} ms)  [{card}]")
 
     # ---- B2 + B3 at the support W-commit shape (7 x 2^14 grumpkin scalars) ----------------
     _, Sw = random_scalars(rng, (W_COMMIT_N,))
@@ -1047,9 +1066,12 @@ def main() -> int:
         ops = sum((v for k, v in (sass or {}).items() if f"mul_rows_kernelILi1ELb0ELb0ELi{i}E" in k), Counter())
         imads = {op: v for op, v in ops.items() if op.startswith("IMAD")}
         muls = sum(v for op, v in imads.items() if not op.startswith(("IMAD.MOV", "IMAD.IADD", "IMAD.SHL")))
+        wide = sum(v for op, v in imads.items() if op.startswith("IMAD.WIDE"))
+        iadd3 = sum(v for op, v in ops.items() if op.startswith("IADD3"))
         log(f"SASS of mul_rows at K > 1 (S2's instance, one product in the K loop) on the {product} product: "
             + (f"{sum(ops.values())} instructions, {muls} integer multiplies (IMAD-class less moves, adds, "
-               f"shifts); IMAD-class by opcode {dict(sorted(imads.items()))}" if ops else "not measured"))
+               f"shifts), {wide} IMAD.WIDE, {iadd3} IADD3; IMAD-class by opcode {dict(sorted(imads.items()))}"
+               if ops else "not measured"))
 
     for (op, fixed), ops in raw_sass.items():  # csrc/microbench.cu raw_u32_kernel<OP, FIXED>: S3's chains
         form = ("64 reps, straight-line: 4 chains x 64 and the ragged tail's one chain of 64" if fixed else

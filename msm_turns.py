@@ -23,6 +23,12 @@ from a fixed seed:
   grumpkin points, 4-bit windows, 256 groups): one `madd_buckets` launch
   where the checkout has it, else the per-step loop of B1 launches with the
   one-hot select and write-back; and the whole `msm_many` call (3 calls);
+- B1's batched `madd_batch` at 81,920 grumpkin lanes (an msm_many step's
+  5 x 64 x 256; Jacobian P doubled from a 2^10 key, affine Q of the 2^14
+  key at random indices): the device time per launch from a CUDA graph of
+  20 launches replayed 5 times (`graph_ms`: the kernel takes about its
+  wrapper's host time, so back-to-back events read the host) and back to
+  back (mean of 20 calls);
 - S1 `msm_reduce_rolled` on the reduce inputs above, and `msm_reduce` and
   S1 on the first reduce level of the primary W commit (917,504 bn256
   scalars, c = 10, over Jacobian partials from a 2^10 bn256 key), S1 also
@@ -31,9 +37,11 @@ from a fixed seed:
   the wrappers read the segments on the host each call, which the events
   around the whole call include);
 - S2, the field-rate probe: `mul_chain` at K = 8 over 2^17 bn256 Fr
-  elements on the unrolled and the carry-chain product (mean of 50 calls),
-  and the latency probe: one element, K = 1024 dependent products, on each
-  of the four products (mean of 5 calls; microseconds per product);
+  elements on the unrolled, the carry-chain and (where the checkout has
+  it) the wide product, from a CUDA graph of 50 launches and back to back
+  (mean of 50 calls), and the latency probe: one
+  element, K = 1024 dependent products, on each of the checkout's products
+  (mean of 5 calls; microseconds per product);
 - the NTT at 2^20 on random bn256 Fr elements (mean of 20 calls): B4
   `col_ntt` at the first pass's shape (size 1024 over R = 1024 columns),
   its epilogue variant with the mid twiddle and transpose (where the
@@ -219,6 +227,11 @@ def msm_turn(out, rng, dev, ck, jacobian, scalars, gpu_ms) -> None:
         stage = lambda: old_bucket_stage(GRUMPKIN, S, px, py, G, c)  # noqa: E731
     out["many_bucket_stage"] = gpu_ms(stage, reps=3)
     out["msm_many"] = gpu_ms(lambda: msm_many(GRUMPKIN, S, key.points), reps=3)
+    lanes = t * 64 * G  # an msm_many step: 5 terms x 64 windows x 256 groups
+    idx = torch.from_numpy(rng.integers(0, len(key), size=lanes)).to(dev)
+    P, qx, qy = jacobian(lanes), key.points.x[idx].contiguous(), key.points.y[idx].contiguous()
+    out["madd_81920"] = graph_ms(lambda: madd_mod.madd_batch(GRUMPKIN, P, qx, qy), launches=20)[0]
+    out["madd_81920_back_to_back"] = gpu_ms(lambda: madd_mod.madd_batch(GRUMPKIN, P, qx, qy), reps=20)
 
     out["reduce_rolled_level0"] = gpu_ms(lambda: mk.msm_reduce_rolled(GRUMPKIN, sub_off, parts))
     out["reduce_rolled_level0_kernel"] = kernel_ms(lambda: mk.msm_reduce_rolled(GRUMPKIN, sub_off, parts),
@@ -275,8 +288,9 @@ def turn() -> None:
         return torch.from_numpy(w).to(dev)
 
     a2, b2, a1, b1 = elements(1 << 17), elements(1 << 17), elements(1), elements(1)
-    for product in ("unrolled", "cc"):
-        out[f"s2_k8_{product}"] = gpu_ms(lambda: mul_chain(FR, a2, b2, 8, product=product), reps=50)
+    for product in [p for p in ("unrolled", "cc", "wide") if p in PRODUCTS]:
+        out[f"s2_k8_{product}"] = graph_ms(lambda: mul_chain(FR, a2, b2, 8, product=product), launches=50)[0]
+        out[f"s2_k8_{product}_back_to_back"] = gpu_ms(lambda: mul_chain(FR, a2, b2, 8, product=product), reps=50)
     for product in PRODUCTS:
         out[f"latency_us_{product}"] = gpu_ms(lambda: mul_chain(FR, a1, b1, 1024, product=product), reps=5) / 1024 * 1e3
     ntt = NTT(FR, 20, dev)

@@ -145,3 +145,44 @@ __device__ __forceinline__ Pt pt_madd(const Pt& P, const Fe& qx, const Fe& qy, c
   }
   return out;
 }
+
+// k_madd_incomplete as pt_madd computes it (the same words, the same select
+// for an identity P), its 11 products in madd-2007-bl's five dependency
+// levels on the wide product (fe_mul_wide_n): {z1^2, qy z1}, {u2, s2},
+// {h^2, (z1 + h)^2, r^2}, {h I, x1 I}, {r (v - x3), y1 J}, so a thread's
+// chains overlap 2-3 ways and the madd waits ~5 product latencies instead
+// of 11 (B1's batched madd).
+__device__ __forceinline__ Pt pt_madd_wide(const Pt& P, const Fe& qx, const Fe& qy, const FieldConst& fc) {
+  Fe o1[2];
+  const Fe a1[2] = {P.z, qy}, b1[2] = {P.z, P.z};
+  fe_mul_wide_n<2>(o1, a1, b1, fc);  // z1z1, qy z1
+  const Fe& z1z1 = o1[0];
+  Fe o2[2];
+  const Fe a2[2] = {qx, o1[1]}, b2[2] = {z1z1, z1z1};
+  fe_mul_wide_n<2>(o2, a2, b2, fc);  // u2, s2
+  const Fe h = fe_sub_cc(o2[0], P.x, fc);
+  const Fe rr = fe_double_cc(fe_sub_cc(o2[1], P.y, fc), fc);
+  Fe o3[3];
+  const Fe a3[3] = {h, fe_add_cc(P.z, h, fc), rr};
+  fe_mul_wide_n<3>(o3, a3, a3, fc);  // hh, (z1 + h)^2, r^2
+  const Fe& hh = o3[0];
+  const Fe i4 = fe_double_cc(fe_double_cc(hh, fc), fc);
+  Fe o4[2];
+  const Fe a4[2] = {h, P.x}, b4[2] = {i4, i4};
+  fe_mul_wide_n<2>(o4, a4, b4, fc);  // J = h I, V = x1 I
+  const Fe& j = o4[0];
+  const Fe& v = o4[1];
+  Pt out;
+  out.x = fe_sub_cc(fe_sub_cc(o3[2], j, fc), fe_double_cc(v, fc), fc);
+  Fe o5[2];
+  const Fe a5[2] = {rr, P.y}, b5[2] = {fe_sub_cc(v, out.x, fc), j};
+  fe_mul_wide_n<2>(o5, a5, b5, fc);  // r (v - x3), y1 J
+  out.y = fe_sub_cc(o5[0], fe_double_cc(o5[1], fc), fc);
+  out.z = fe_sub_cc(fe_sub_cc(o3[1], z1z1, fc), hh, fc);
+  if (fe_is_zero(P.z)) {
+    out.x = qx;
+    out.y = qy;
+    out.z = fe_one(fc);
+  }
+  return out;
+}

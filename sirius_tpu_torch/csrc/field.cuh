@@ -433,3 +433,212 @@ __device__ __forceinline__ void fe_mul_n(Fe* r, const Fe* a, const Fe* b, const 
 #endif
 }
 
+
+// ---- the wide product (S2's K = 8 chain, B1's batched madd) -----------------
+//
+// fe_mul_wide computes fe_mul's words (CIOS, fully reduced, no lazy
+// reduction) with every 32x32->64 product as an adjacent low/high pair in
+// one carry chain (mad.lo.cc then madc.hi.cc of the same operands, which
+// ptxas can issue as one wide multiply-add with carry).  The words of one
+// parity of a times b_i do not overlap (a_2k b_i fills words 2k and
+// 2k + 1), so a_even b_i is one chain of four pairs into an accumulator x,
+// and a_odd b_i another into y, one word up: the value is x + y 2^32, and
+// the two chains are independent.  m p is split the same way, m = x_0
+// n0inv.  Then x_0 = 0, and the division by 2^32 swaps the roles: the next
+// round adds the old x_1 into the new x's word 0 at the head of the chain
+// that shifts the old x down two words as it adds a_odd b_i into it (the
+// carry lands in that array's word 0: the same weight, 2^32), so no round
+// moves a word.  x's carry out goes into y's top word (the same weight,
+// 2^256); y never carries out: y 2^32 <= T + a b_i + m p < 2^33 p, so
+// y < 2p (CIOS keeps T < 2p; it needs 2p < 2^256, as fe_mul_cc does).
+// After eight rounds the arrays merge (x / 2^32 + y), and one conditional
+// subtraction of p finishes.  This is the layout of sppark's ff/mont_t.cuh
+// (mul_n, cmad_n, madc_n_rshift, mad_n_redc), the standard 256-bit
+// Montgomery product on NVIDIA GPUs.  Each chain is one asm statement on
+// the device; without __CUDA_ARCH__ each PTX op is emulated with an explicit
+// carry flag, in the same order, so a host rehearsal runs this algorithm's
+// own carries, folds and role swaps.
+
+#ifndef __CUDA_ARCH__
+// x + y + cf, the carry out into cf (add.cc / addc.cc / mad.lo.cc / madc.*.cc)
+__device__ __forceinline__ uint32_t wide_addc(uint32_t x, uint32_t y, uint32_t& cf) {
+  const unsigned long long s = (unsigned long long)x + y + cf;
+  cf = (uint32_t)(s >> 32);
+  return (uint32_t)s;
+}
+__device__ __forceinline__ uint32_t wide_lo(uint32_t a, uint32_t b) { return a * b; }
+__device__ __forceinline__ uint32_t wide_hi(uint32_t a, uint32_t b) {
+  return (uint32_t)(((unsigned long long)a * b) >> 32);
+}
+#endif
+
+// d = sum_k w_k b 2^(64 k): four products side by side, no carries.
+__device__ __forceinline__ void wide_mul4(uint32_t (&d)[8], const uint32_t (&w)[4], uint32_t b) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const unsigned long long s = (unsigned long long)w[k] * b;
+    d[2 * k] = (uint32_t)s;
+    d[2 * k + 1] = (uint32_t)(s >> 32);
+  }
+}
+
+// x += sum_k w_k b 2^(64 k), its carry out into top.
+__device__ __forceinline__ void wide_mad(uint32_t (&x)[8], uint32_t& top, const uint32_t (&w)[4], uint32_t b) {
+#ifdef __CUDA_ARCH__
+  asm("mad.lo.cc.u32 %0, %9, %13, %0;\n\t"
+      "madc.hi.cc.u32 %1, %9, %13, %1;\n\t"
+      "madc.lo.cc.u32 %2, %10, %13, %2;\n\t"
+      "madc.hi.cc.u32 %3, %10, %13, %3;\n\t"
+      "madc.lo.cc.u32 %4, %11, %13, %4;\n\t"
+      "madc.hi.cc.u32 %5, %11, %13, %5;\n\t"
+      "madc.lo.cc.u32 %6, %12, %13, %6;\n\t"
+      "madc.hi.cc.u32 %7, %12, %13, %7;\n\t"
+      "addc.u32 %8, %8, 0;"
+      : "+r"(x[0]), "+r"(x[1]), "+r"(x[2]), "+r"(x[3]), "+r"(x[4]), "+r"(x[5]), "+r"(x[6]), "+r"(x[7]),
+        "+r"(top)
+      : "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3]), "r"(b));
+#else
+  uint32_t cf = 0u;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    x[2 * k] = wide_addc(wide_lo(w[k], b), x[2 * k], cf);
+    x[2 * k + 1] = wide_addc(wide_hi(w[k], b), x[2 * k + 1], cf);
+  }
+  top = wide_addc(top, 0u, cf);
+#endif
+}
+
+// y += sum_k w_k b 2^(64 k), which never carries out (y < 2p throughout).
+__device__ __forceinline__ void wide_mad_nc(uint32_t (&y)[8], const uint32_t (&w)[4], uint32_t b) {
+#ifdef __CUDA_ARCH__
+  asm("mad.lo.cc.u32 %0, %8, %12, %0;\n\t"
+      "madc.hi.cc.u32 %1, %8, %12, %1;\n\t"
+      "madc.lo.cc.u32 %2, %9, %12, %2;\n\t"
+      "madc.hi.cc.u32 %3, %9, %12, %3;\n\t"
+      "madc.lo.cc.u32 %4, %10, %12, %4;\n\t"
+      "madc.hi.cc.u32 %5, %10, %12, %5;\n\t"
+      "madc.lo.cc.u32 %6, %11, %12, %6;\n\t"
+      "madc.hi.u32 %7, %11, %12, %7;"
+      : "+r"(y[0]), "+r"(y[1]), "+r"(y[2]), "+r"(y[3]), "+r"(y[4]), "+r"(y[5]), "+r"(y[6]), "+r"(y[7])
+      : "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3]), "r"(b));
+#else
+  uint32_t cf = 0u;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    y[2 * k] = wide_addc(wide_lo(w[k], b), y[2 * k], cf);
+    y[2 * k + 1] = wide_addc(wide_hi(w[k], b), y[2 * k + 1], cf);
+  }
+#endif
+}
+
+// The division by 2^32 and the next a_odd b_i in one chain: x_0 += y_1,
+// its carry into the shifted y, y = y / 2^64 + sum_k w_k b 2^(64 k) (y_0 is
+// 0 here: it was the reduced array; y_1 went into x_0).
+__device__ __forceinline__ void wide_fold_shift(uint32_t& x0, uint32_t (&y)[8], const uint32_t (&w)[4], uint32_t b) {
+#ifdef __CUDA_ARCH__
+  asm("add.cc.u32 %0, %0, %2;\n\t"
+      "madc.lo.cc.u32 %1, %9, %13, %3;\n\t"
+      "madc.hi.cc.u32 %2, %9, %13, %4;\n\t"
+      "madc.lo.cc.u32 %3, %10, %13, %5;\n\t"
+      "madc.hi.cc.u32 %4, %10, %13, %6;\n\t"
+      "madc.lo.cc.u32 %5, %11, %13, %7;\n\t"
+      "madc.hi.cc.u32 %6, %11, %13, %8;\n\t"
+      "madc.lo.cc.u32 %7, %12, %13, 0;\n\t"
+      "madc.hi.u32 %8, %12, %13, 0;"
+      : "+r"(x0), "+r"(y[0]), "+r"(y[1]), "+r"(y[2]), "+r"(y[3]), "+r"(y[4]), "+r"(y[5]), "+r"(y[6]), "+r"(y[7])
+      : "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3]), "r"(b));
+#else
+  uint32_t cf = 0u;
+  x0 = wide_addc(x0, y[1], cf);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    y[2 * k] = wide_addc(wide_lo(w[k], b), y[2 * k + 2], cf);
+    y[2 * k + 1] = wide_addc(wide_hi(w[k], b), y[2 * k + 3], cf);
+  }
+  y[6] = wide_addc(wide_lo(w[3], b), 0u, cf);
+  y[7] = wide_addc(wide_hi(w[3], b), 0u, cf);
+#endif
+}
+
+// The merge after the last round: y += x / 2^32 (x_0 is 0), below 2p.
+__device__ __forceinline__ void wide_merge(uint32_t (&y)[8], const uint32_t (&x)[8]) {
+#ifdef __CUDA_ARCH__
+  asm("add.cc.u32 %0, %0, %8;\n\t"
+      "addc.cc.u32 %1, %1, %9;\n\t"
+      "addc.cc.u32 %2, %2, %10;\n\t"
+      "addc.cc.u32 %3, %3, %11;\n\t"
+      "addc.cc.u32 %4, %4, %12;\n\t"
+      "addc.cc.u32 %5, %5, %13;\n\t"
+      "addc.cc.u32 %6, %6, %14;\n\t"
+      "addc.u32 %7, %7, 0;"
+      : "+r"(y[0]), "+r"(y[1]), "+r"(y[2]), "+r"(y[3]), "+r"(y[4]), "+r"(y[5]), "+r"(y[6]), "+r"(y[7])
+      : "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(x[4]), "r"(x[5]), "r"(x[6]), "r"(x[7]));
+#else
+  uint32_t cf = 0u;
+#pragma unroll
+  for (int k = 0; k < 7; ++k) y[k] = wide_addc(y[k], x[k + 1], cf);
+  y[7] = wide_addc(y[7], 0u, cf);
+#endif
+}
+
+// One round on the pair (x at weight 1, y at 2^32): first (round 0) sets
+// x = a_even b_i, y = a_odd b_i; every later one folds and shifts; then
+// m = x_0 n0inv and x + y 2^32 += m p, after which x_0 = 0.
+__device__ __forceinline__ void wide_round(uint32_t (&x)[8], uint32_t (&y)[8], const uint32_t (&ae)[4],
+                                           const uint32_t (&ao)[4], uint32_t bi, const uint32_t (&pe)[4],
+                                           const uint32_t (&po)[4], uint32_t n0inv, bool first) {
+  if (first) {
+    wide_mul4(y, ao, bi);
+    wide_mul4(x, ae, bi);
+  } else {
+    wide_fold_shift(x[0], y, ao, bi);
+    wide_mad(x, y[7], ae, bi);
+  }
+  const uint32_t m = x[0] * n0inv;
+  wide_mad_nc(y, po, m);
+  wide_mad(x, y[7], pe, m);
+}
+
+// N independent wide products r[n] = a[n] * b[n] * R^-1 mod p, their
+// rounds interleaved (B1's dependency levels): fe_mul's words.
+template <int N>
+__device__ __forceinline__ void fe_mul_wide_n(Fe* r, const Fe* a, const Fe* b, const FieldConst& fc) {
+  const uint32_t pe[4] = {fc.p[0], fc.p[2], fc.p[4], fc.p[6]};
+  const uint32_t po[4] = {fc.p[1], fc.p[3], fc.p[5], fc.p[7]};
+  uint32_t e[N][8], o[N][8], ae[N][4], ao[N][4];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      ae[n][k] = a[n].v[2 * k];
+      ao[n][k] = a[n].v[2 * k + 1];
+    }
+  }
+  // rounds of even i run on (e, o), of odd i on (o, e): the roles swap
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      if (i % 2 == 0)
+        wide_round(e[n], o[n], ae[n], ao[n], b[n].v[i], pe, po, fc.n0inv, i == 0);
+      else
+        wide_round(o[n], e[n], ae[n], ao[n], b[n].v[i], pe, po, fc.n0inv, false);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    wide_merge(e[n], o[n]);  // round 7 ran on (o, e): the value is o / 2^32 + e
+    const Fe w = {{e[n][0], e[n][1], e[n][2], e[n][3], e[n][4], e[n][5], e[n][6], e[n][7]}};
+#ifdef __CUDA_ARCH__
+    r[n] = fe_reduce_cc(w, 0u, fc);
+#else
+    r[n] = fe_reduce_once(w, 0u, fc);
+#endif
+  }
+}
+
+__device__ __forceinline__ Fe fe_mul_wide(const Fe& a, const Fe& b, const FieldConst& fc) {
+  Fe r;
+  fe_mul_wide_n<1>(&r, &a, &b, fc);
+  return r;
+}

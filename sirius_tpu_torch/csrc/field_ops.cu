@@ -16,8 +16,11 @@
 // all their loads (16-byte read-only loads) before any product and stores in
 // 16-byte stores.  At K > 1 it is integer-multiply bound, and each thread
 // takes one element, so S2 (the card's Montgomery-multiply rate, on each of
-// the port's four products: fe_mul_k, every rep) and the latency probe (one
-// element, a long K) run one chain a thread.  Index arithmetic is 32-bit (the wrapper refuses n >= 2^31),
+// the port's five products: fe_mul_k, every rep) and the latency probe (one
+// element, a long K) run one chain a thread.  The K > 1 instance is held to
+// 64 registers (__launch_bounds__(128, 8)): 8 blocks of 128 a SM, so S2's
+// 2^17 threads (1,024 blocks: 7 or 8 a SM) are all resident in one wave.
+// Index arithmetic is 32-bit (the wrapper refuses n >= 2^31),
 // with a division only in the REPEAT instance (rep > 1) and a modulo only in
 // the WRAP instance (nb * rep != n).  The K loop is not unrolled, so a chain
 // of any length is one loop body; a thread's chains run interleaved in it.
@@ -25,10 +28,14 @@
 #include "field.cuh"
 
 // The product by kind: 0 the unrolled CIOS (fe_mul), 1 the rolled one
-// (S1's fe_mul_t<true>), 2 the carry-chain one (fe_mul_cc: B1's, B2's and
-// B4's), 3 the rolled carry-chain one (fe_mul_n: B3's); the same words.
+// (S1's fe_mul_t<true>), 2 the carry-chain one (fe_mul_cc: B1's walk, B2's
+// and B4's), 3 the rolled carry-chain one (fe_mul_n: B3's), 4 the wide one
+// (fe_mul_wide: B1's batched madd); the same words.
+constexpr int MUL_ROWS_PRODUCTS = 5;
+
 template <int PRODUCT>
 __device__ __forceinline__ Fe fe_mul_k(const Fe& a, const Fe& b, const FieldConst& fc) {
+  if (PRODUCT == 4) return fe_mul_wide(a, b, fc);
   if (PRODUCT == 3) {
     Fe r;
     fe_mul_n<1>(&r, &a, &b, fc);
@@ -40,6 +47,10 @@ __device__ __forceinline__ Fe fe_mul_k(const Fe& a, const Fe& b, const FieldCons
 
 // Elements a thread: two at K = 1 (the bandwidth instance), one at K > 1.
 __host__ __device__ constexpr int mul_rows_ept(int K) { return K == 1 ? 2 : 1; }
+
+// Resident blocks of 128 a SM the instance is built for: the K > 1 one
+// (one element a thread) at most 64 registers, so 8.
+__host__ __device__ constexpr int mul_rows_min_blocks(int EPT) { return EPT == 1 ? 8 : 1; }
 
 // The elements first, first + stride, ... (EPT of them, those below n) of
 // one thread; a row past n is a zero that is never stored.
@@ -71,8 +82,9 @@ __device__ __forceinline__ void mul_rows_thread(const FieldConst& fc, const long
 #include <cuda_runtime.h>
 
 template <int EPT, bool REPEAT, bool WRAP, int PRODUCT>
-__global__ void __launch_bounds__(128) mul_rows_kernel(FieldConst fc, const long long* a, const long long* b,
-                                                        long long* out, unsigned n, unsigned nb, unsigned rep, int K) {
+__global__ void __launch_bounds__(128, mul_rows_min_blocks(EPT))
+    mul_rows_kernel(FieldConst fc, const long long* a, const long long* b, long long* out, unsigned n, unsigned nb,
+                    unsigned rep, int K) {
   mul_rows_thread<EPT, REPEAT, WRAP, PRODUCT>(fc, a, b, out, n, nb, rep, K,
                                               blockIdx.x * (blockDim.x * EPT) + threadIdx.x, blockDim.x);
 }
@@ -106,7 +118,8 @@ static void mul_rows_launch_k(int threads, cudaStream_t st, const FieldConst& fc
 extern "C" int sirius_mul_rows(const uint32_t* consts, const void* a, const void* b, void* out, long long n,
                                long long nb, long long rep, int K, int product, void* stream) {
   const int threads = 128;
-  if (product < 0 || product > 3 || n >= (1LL << 31) || nb >= (1LL << 31) || rep >= (1LL << 31) || nb < 1 || rep < 1)
+  if (product < 0 || product >= MUL_ROWS_PRODUCTS || n >= (1LL << 31) || nb >= (1LL << 31) || rep >= (1LL << 31) ||
+      nb < 1 || rep < 1)
     return (int)cudaErrorInvalidValue;
   const FieldConst fc = make_field_const(consts);
   cudaStream_t st = (cudaStream_t)stream;
@@ -118,14 +131,26 @@ extern "C" int sirius_mul_rows(const uint32_t* consts, const void* a, const void
   if (product == 1) mul_rows_launch_k<1>(threads, st, fc, pa, pb, po, un, unb, urep, K);
   if (product == 2) mul_rows_launch_k<2>(threads, st, fc, pa, pb, po, un, unb, urep, K);
   if (product == 3) mul_rows_launch_k<3>(threads, st, fc, pa, pb, po, un, unb, urep, K);
+  if (product == 4) mul_rows_launch_k<4>(threads, st, fc, pa, pb, po, un, unb, urep, K);
   return (int)cudaGetLastError();
 }
 
-// Registers, local (spill) bytes, static shared bytes of the instance the
-// NTT path launches most (K = 1: rep = 1, the modulo, the unrolled product).
-extern "C" int sirius_mul_rows_attrs(void* out) {
+// Registers, local (spill) bytes, static shared bytes of an instance:
+// product < 0 the one the NTT path launches most (K = 1: rep = 1, the
+// modulo, the unrolled product), else S2's on that product (K > 1, one
+// element a thread, rep = 1, nb = n).
+extern "C" int sirius_mul_rows_attrs(int product, void* out) {
   cudaFuncAttributes fa;
-  cudaError_t e = cudaFuncGetAttributes(&fa, mul_rows_kernel<2, false, true, 0>);
+  cudaError_t e;
+  switch (product) {
+    case -1: e = cudaFuncGetAttributes(&fa, mul_rows_kernel<2, false, true, 0>); break;
+    case 0: e = cudaFuncGetAttributes(&fa, mul_rows_kernel<1, false, false, 0>); break;
+    case 1: e = cudaFuncGetAttributes(&fa, mul_rows_kernel<1, false, false, 1>); break;
+    case 2: e = cudaFuncGetAttributes(&fa, mul_rows_kernel<1, false, false, 2>); break;
+    case 3: e = cudaFuncGetAttributes(&fa, mul_rows_kernel<1, false, false, 3>); break;
+    case 4: e = cudaFuncGetAttributes(&fa, mul_rows_kernel<1, false, false, 4>); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   if (e != cudaSuccess) return (int)e;
   long long* o = (long long*)out;
   o[0] = fa.numRegs;

@@ -7,8 +7,17 @@
 // a one-hot select of each lane's bucket and a masked write-back over the
 // whole bucket table: the TPU has no cheap gather or scatter).
 //
-//   madd          one thread per point: P + Q, Jacobian P (may be the
-//                 identity) and affine Q, in the port's (n, 8) int64 layout.
+//   madd          P + Q per lane, Jacobian P (may be the identity) and
+//                 affine Q, in the port's (n, 8) int64 layout: one lane a
+//                 thread, its rows in 16-byte loads and stores, its 11
+//                 products in madd-2007-bl's five dependency levels on the
+//                 wide product (pt_madd_wide), built for 3 blocks of 128 a
+//                 SM (160 registers, no spill: a lane's interleaved
+//                 products need them).  On the H100 (PERF.md section 6, labs C
+//                 and D) 4 blocks a SM spilled, a grid of the resident
+//                 blocks striding over the lanes with the next lane's loads
+//                 ahead was 11-16% slower, and blocks of 64 or 160 read
+//                 within 1%.
 //   madd_buckets  msm_many's bucket stage in one launch: lane (t, w, g)
 //                 walks group g's points in step order; a nonzero c-bit
 //                 digit d of scalar t at window w reads bucket d of the lane
@@ -21,9 +30,11 @@
 //                 laid out (t, W, B, G, 8): the G group partials of a bucket
 //                 are one segment for B3's reduce, with no permute.
 //
-// What bounds them on the H100: a madd is 11 Montgomery products (on the
-// carry-chain product of csrc/field.cuh, 256 multiply-adds each) against at
-// most 5 field elements of traffic, so both are integer-multiply bound; the
+// What bounds them on the H100: a madd is 11 Montgomery products (madd on
+// the wide product of csrc/field.cuh, madd_buckets on the carry-chain one)
+// against at most 5 field elements of traffic (8 with the output: 512 bytes
+// a lane at the int64 words, 0.0125 ms for 81,920 lanes at 3.35 TB/s),
+// so both are integer-multiply bound; the
 // bucket walk also moves its table through HBM (1.2e5 lanes x 15 buckets x
 // 192 bytes at msm_many's (5, 2^14) shape: more than the 50 MB L2), which
 // the madd's arithmetic hides.  One lane per thread in one launch replaces
@@ -33,15 +44,19 @@
 #include "curve.cuh"
 
 constexpr int MADD_THREADS = 128;
+constexpr int MADD_MIN_BLOCKS = 3;       // resident madd blocks per SM: at most 168 registers a thread
 constexpr int BUCKET_THREADS = 128;      // lanes per madd_buckets block
 constexpr int BUCKET_MIN_BLOCKS = 3;     // resident blocks per SM: at most 168 registers a thread
 
+// Lane i of madd: rows 16-byte aligned.
 __device__ __forceinline__ void madd_row(const FieldConst& fc, const long long* x, const long long* y,
                                          const long long* z, const long long* qx, const long long* qy,
                                          long long* ox, long long* oy, long long* oz, long long i) {
-  Pt P = pt_load(x, y, z, i);
-  Pt R = pt_madd(P, fe_load(qx, i), fe_load(qy, i), fc);
-  pt_store(ox, oy, oz, i, R);
+  const Pt P = {fe_load_ro(x, i), fe_load_ro(y, i), fe_load_ro(z, i)};
+  const Pt R = pt_madd_wide(P, fe_load_ro(qx, i), fe_load_ro(qy, i), fc);
+  fe_store_v(ox, i, R.x);
+  fe_store_v(oy, i, R.y);
+  fe_store_v(oz, i, R.z);
 }
 
 // Lane (t, w, g) of madd_buckets: scalars (t, n, 8), points (n, 8), table
@@ -83,10 +98,10 @@ __device__ __forceinline__ void bucket_lane(const FieldConst& fc, const long lon
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 
-__global__ void madd_kernel(FieldConst fc, const long long* x, const long long* y, const long long* z,
-                            const long long* qx, const long long* qy, long long* ox, long long* oy,
-                            long long* oz, long long n) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(MADD_THREADS, MADD_MIN_BLOCKS)
+    madd_kernel(FieldConst fc, const long long* x, const long long* y, const long long* z, const long long* qx,
+                const long long* qy, long long* ox, long long* oy, long long* oz, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) madd_row(fc, x, y, z, qx, qy, ox, oy, oz, i);
 }
 
@@ -98,6 +113,8 @@ __global__ void __launch_bounds__(BUCKET_THREADS, BUCKET_MIN_BLOCKS)
   if (lane < lanes) bucket_lane(fc, scalars, px, py, bx, by, bz, n, W, G, c, lane);
 }
 
+// ---- host launchers ----
+// Operands (n, 8) int64, rows 16-byte aligned.
 extern "C" int sirius_madd(const uint32_t* consts, const void* x, const void* y, const void* z,
                            const void* qx, const void* qy, void* ox, void* oy, void* oz, long long n,
                            void* stream) {

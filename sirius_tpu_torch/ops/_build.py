@@ -49,7 +49,7 @@ _SIGNATURES = {
     "sirius_col_ntt": [P] * 6 + [LL, LL, LL, P],
     "sirius_col_ntt_attrs": [I, P],
     "sirius_mul_rows": [P] * 4 + [LL, LL, LL, I, I, P],
-    "sirius_mul_rows_attrs": [P],
+    "sirius_mul_rows_attrs": [I, P],
     "sirius_raw_u32": [P] * 2 + [LL, I, I, P],
     "sirius_add_one": [P] * 2 + [LL, P],
 }

@@ -9,10 +9,12 @@ once with rep = R; the doubling build of the mid twiddle); K = 8 is the field-ra
 probe S2 (`ops/microbench.mul_chain`), which replaces
 `scripts/tpu_microbench.py:mul_kernel`; at one element and a long K it is
 the latency probe of one dependent product.  `product` picks one of the
-port's four Montgomery products (`csrc/field.cuh`), all giving the same
+port's five Montgomery products (`csrc/field.cuh`), all giving the same
 words: "unrolled" (fe_mul: this kernel's own, the NTT's elementwise
-product), "rolled" (S1's), "cc" (the PTX carry-chain product of B1, B2 and
-B4) and "cc_rolled" (its rolled form, fe_mul_n: B3's).
+product), "rolled" (S1's), "cc" (the PTX carry-chain product of B1's
+bucket walk, B2 and B4), "cc_rolled" (its rolled form, fe_mul_n: B3's) and
+"wide" (fe_mul_wide: each 32x32->64 product a low/high pair in one carry
+chain, even and odd words of a in two accumulators; B1's batched madd).
 
 Kernel: `csrc/field_ops.cu`, a bandwidth kernel at K = 1 (2 elements per
 thread, 16-byte loads and stores, 32-bit index arithmetic), one chain per
@@ -27,7 +29,7 @@ import torch
 
 from ..fields.jfield import WORDS, Field
 
-PRODUCTS = ("unrolled", "rolled", "cc", "cc_rolled")  # csrc/field_ops.cu fe_mul_k's kinds
+PRODUCTS = ("unrolled", "rolled", "cc", "cc_rolled", "wide")  # csrc/field_ops.cu fe_mul_k's kinds
 
 
 def _check_words(t: torch.Tensor, what: str) -> None:
@@ -78,14 +80,16 @@ def mul_rows(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 1, rep: in
 mul_rows.launches = 0
 
 
-def mul_rows_kernel_attrs() -> dict[str, int]:
+def mul_rows_kernel_attrs(product: str | None = None) -> dict[str, int]:
     """Registers and local (spill) bytes per thread, static shared bytes per
-    block, of the instance the NTT path launches most (K = 1, rep = 1, the
-    modulo, the unrolled product) as the loaded library was built."""
+    block, as the loaded library was built, of the instance the NTT path
+    launches most (K = 1, rep = 1, the modulo, the unrolled product), or
+    with `product` S2's instance on it (K > 1, one element a thread)."""
     import ctypes
 
     from . import _build
 
     out = (ctypes.c_longlong * 3)()
-    _build.check(_build.library().sirius_mul_rows_attrs(out), "mul_rows_attrs")
+    kind = -1 if product is None else PRODUCTS.index(product)
+    _build.check(_build.library().sirius_mul_rows_attrs(kind, out), "mul_rows_attrs")
     return {"numRegs": int(out[0]), "localSizeBytes": int(out[1]), "sharedSizeBytes": int(out[2])}

@@ -2,7 +2,7 @@
 
 Counterpart of `sirius_tpu/ops/limb_kernels.py`.  The `__device__` versions
 live in `csrc/field.cuh` (`fe_add`, `fe_sub`, `fe_mul`: 8x32-bit CIOS) and
-`csrc/curve.cuh` (`pt_dbl_ilp`, `pt_add_ilp`, `pt_madd`, `fe_is_zero`,
+`csrc/curve.cuh` (`pt_dbl_ilp`, `pt_add_ilp`, `pt_madd`, `pt_madd_wide`, `fe_is_zero`,
 `fe_select`).  Their plain torch twins, the reference each kernel is held
 against, are the port's field and curve methods, named here after the JAX
 functions; the point ones take the `Curve` context first.

@@ -5,7 +5,9 @@ Replaces `sirius_tpu/ops/pallas_madd.py:_madd_kernel` (core
 `sirius_tpu/ops/msm.py:_bucket_totals_onehot_pallas` around it.  Kernels:
 `csrc/madd.cu` (design and bounds noted there).
 
-  madd_batch    (n, 8) Jacobian P + affine Q, one thread per point
+  madd_batch    (n, 8) Jacobian P + affine Q, a lane per point on the
+                wide product (rows 16-byte aligned: an unaligned operand
+                is copied)
   madd_buckets  msm_many's bucket stage in one launch: (t, n) scalars over
                 n points in G groups -> the (t, W, B, G) bucket table, lane
                 (t, w, g) adding group g's points into the buckets its
@@ -84,6 +86,7 @@ def madd_batch(curve: Curve, P: Points, qx: torch.Tensor, qy: torch.Tensor) -> P
 
     ins = [t.contiguous() for t in (*P, qx, qy)]
     _build.require_cuda(*ins)
+    ins = [t.clone() if t.data_ptr() % 16 else t for t in ins]  # the kernel moves rows in 16-byte loads
     out = [torch.empty_like(ins[0]) for _ in range(3)]
     if n:
         lib = _build.library()

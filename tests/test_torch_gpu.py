@@ -352,6 +352,75 @@ def test_cc_product_bit_exact(cuda_device, field):
             assert torch.equal(fk.mul_rows(field, a, b, K, product=product), want), product
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("field", [FR, FQ], ids=["bn256_fr", "bn256_fq"])
+def test_wide_product_bit_exact(cuda_device, field):
+    """The wide product (B1's batched madd) against fe_mul's words (the
+    unrolled product) and the plain product on 2^16 random elements and the
+    edge values 0, 1, p - 1 and R mod p (every pair), K = 1, 3 and 8, and
+    S2's instance on it built with no spill."""
+    rng = np.random.default_rng(18)
+    a = field.random((1 << 16,), rng, cuda_device)
+    b = field.random((1 << 16,), rng, cuda_device)
+    edge = torch.from_numpy(ints_to_words([0, 1, field.p - 1, (1 << 256) % field.p])).to(cuda_device)
+    a[:16] = edge.repeat_interleave(4, 0)
+    b[:16] = edge.repeat(4, 1)
+    for K in (1, 3, 8):
+        want = fk.mul_rows_plain(field, a, b, K)
+        got = fk.mul_rows(field, a, b, K, product="wide")
+        assert torch.equal(got, want), K
+        assert torch.equal(got, fk.mul_rows(field, a, b, K, product="unrolled")), K
+    assert fk.mul_rows_kernel_attrs("wide")["localSizeBytes"] == 0
+
+
+def _madd_operands(curve, device, n, seed):
+    """n Jacobian P (doubled points of a 2^10 key, z != 1; rows 0-63 and the
+    last the identity) and affine Q of the same key at other indices."""
+    ck = _key(curve, device)
+    rng = np.random.default_rng(seed)
+    i = torch.from_numpy(rng.integers(0, len(ck), size=n)).to(device)
+    j = (i + torch.from_numpy(rng.integers(1, len(ck), size=n)).to(device)) % len(ck)
+    P = Points(*(c[j].contiguous() for c in curve.dbl(ck.points)))
+    for c, e in zip(P, curve.identity((1,), device)):
+        c[:64] = e
+        c[-1] = e[0]
+    return P, ck.points.x[i].contiguous(), ck.points.y[i].contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [81920, 81920 + 77], ids=["81920", "ragged"])
+@pytest.mark.parametrize("curve", CURVES, ids=IDS)
+def test_madd_batch_bit_exact_at_the_timed_shape(cuda_device, curve, n):
+    """B1's batched madd at the timed 81,920 lanes and at a ragged n (a last
+    block partly idle), identity rows included: one launch, word for word
+    madd_plain."""
+    from sirius_tpu_torch.ops.madd import madd_kernel_attrs
+
+    P, qx, qy = _madd_operands(curve, cuda_device, n, n)
+    before = madd_batch.launches
+    got = madd_batch(curve, P, qx, qy)
+    assert madd_batch.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, madd_plain(curve, P, qx, qy)))
+    assert madd_kernel_attrs("madd")["numRegs"] > 0
+
+
+@pytest.mark.gpu
+def test_madd_batch_copies_an_unaligned_operand(cuda_device):
+    """An operand whose rows start 8 bytes off 16-byte alignment (a view one
+    word into its storage) is copied, not refused and not read unaligned:
+    the result equals the twin's."""
+    P, qx, qy = _madd_operands(GRUMPKIN, cuda_device, 1000, 3)
+    store = torch.empty(1000 * 8 + 1, dtype=torch.int64, device=cuda_device)
+    off = store[1:].view(1000, 8)
+    off.copy_(qx)
+    assert off.data_ptr() % 16 == 8
+    want = madd_plain(GRUMPKIN, P, qx, qy)
+    before = madd_batch.launches
+    got = madd_batch(GRUMPKIN, Points(P.x, P.y, P.z), off, qy)
+    assert madd_batch.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def _jacobian_points(curve, device, n, seed):
     """n Jacobian points (z != 1) of a 2^10 key, doubled, cycled."""
     ck = _key(curve, device)

@@ -33,6 +33,23 @@ def test_mul_chain_twin_matches_jax_mul_chain(name, nb):
     assert np.array_equal(to_numpy(got), np.asarray(want))
 
 
+@pytest.mark.parametrize("product", fk.PRODUCTS)
+def test_mul_chain_twin_on_every_product_matches_jax(product):
+    """The wrapper on CPU tensors takes the plain twin whatever product it is
+    asked for (each kernel product gives the same words): K = 8 over bn256
+    Fr, against the JAX package's chain."""
+    J, T = jf._FIELDS["bn256_fr"], tf._FIELDS["bn256_fr"]
+    rng = np.random.default_rng(len(product))
+    a, b = np.asarray(J.random((16,), rng)), np.asarray(J.random((16,), rng))
+    want = a
+    for _ in range(8):
+        want = J.mul(want, b)
+    before = fk.mul_rows.launches
+    got = mb.mul_chain(T, to_torch(a, "cpu"), to_torch(b, "cpu"), K=8, product=product)
+    assert fk.mul_rows.launches == before
+    assert np.array_equal(to_numpy(got), np.asarray(want))
+
+
 @pytest.mark.parametrize("op", ["mul", "add"])
 def test_raw_u32_twin_matches_numpy_uint32(op):
     """The twin on int32 words holding the u32 bits (the kernel's contract),

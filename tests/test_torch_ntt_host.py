@@ -78,6 +78,7 @@ extern "C" void host_mul_rows(const uint32_t* consts, const long long* a, const 
   if (product == 1) host_mul_rows_p<1>(fc, a, b, out, n, nb, rep, K);
   if (product == 2) host_mul_rows_p<2>(fc, a, b, out, n, nb, rep, K);
   if (product == 3) host_mul_rows_p<3>(fc, a, b, out, n, nb, rep, K);
+  if (product == 4) host_mul_rows_p<4>(fc, a, b, out, n, nb, rep, K);
 }
 """
 
