@@ -26,8 +26,10 @@
    chained products, on each of the port's five products (unrolled,
    rolled, carry-chain, rolled carry-chain: B3's, wide), microseconds per
    product.
-2. Keys: the bn256 2^20 key (b"bench-primary") and the grumpkin 2^17 key
-   (b"bench-support"), derived on the device.
+2. Keys: the bn256 2^20 key (b"bench-primary") and the grumpkin 2^20 key
+   (b"bench-support"), derived on the device; the grumpkin key's first 2^17
+   points are the support key of the Cyclefold phases (a SHAKE-256 stream
+   over the label: the same points as a 2^17 setup).
 3. Holds every kernel against its plain torch twin on the card, on the same
    inputs: B1 madd bit-exact on 2^16 pairs per curve and at the cross-term
    step shape (timed from a CUDA graph, beside its bytes at the int64
@@ -73,7 +75,8 @@
    `util/profiling` per step; both accumulators' digests; B1's bucket walk,
    B2's sort and accumulate (on both curves' commits, the sort at the
    primary W commit's 917,504 points) and B3 must have launched on this
-   path, and the per-step madd must not have.  A flipped cell of the ProtoGalaxy accumulator's
+   path, and the per-step madd must not have; the digests must start
+   9f3739df / 13a63ce4, as every earlier run of this path.  A flipped cell of the ProtoGalaxy accumulator's
    witness must make verify() report it; then one more next under
    torch.profiler (device events, busy share) and a clean verify().
 8. B2 at the primary trace's 917,504-point W commit: the bucket sort equal
@@ -85,6 +88,22 @@
    (`kernel_ms`, not the profiler, which on some machines saw no launch
    of these kernels); on the unsplit
    bucket segments it must equal msm_reduce's two levels, and is timed.
+9. Sangria IVC, the second IVC construction: the k = 16 run on the mock keys on
+   the card (new, one fold_step) must equal the JAX package's digests
+   frozen in `util/golden.py`; then its path (launch counts from here):
+   `PublicParams(TrivialStepCircuit(1), TrivialStepCircuit(1), 17, 17)` on
+   the two keys above, z0 = [0x11] / [0x22], new, two fold_steps, verify()
+   == [], seconds of each and the spans per step (the secondary and
+   primary proves, each side's synthesis and SPS); B1's bucket walk
+   (the cross terms' msm_many), B2's sort and accumulate (the W commits),
+   B3's reduce and combine must have launched on both curves and the
+   batched madd not; a flipped cell of the primary accumulator's witness
+   must make verify() report a `primary:` error; one more fold_step under
+   torch.profiler.  On the first step's cross terms, (5, 2^17) on each
+   curve: `madd_buckets` bit-exact against its twin, msm_many equal to
+   best_msm and to the step's commits, the walk, msm_many and best_msm on
+   the same five vectors timed; B2 at grumpkin's 917,504-point W commit
+   against its twin, timed.
    Then every MSM, madd and NTT kernel's registers, local (spill) bytes per
    thread, shared bytes and SASS instruction count, the SASS of mul_rows on
    each product (IMAD-class by opcode, IMAD.WIDE and IADD3 counts) and of
@@ -92,8 +111,9 @@
 
 Ends with a JSON line of kernel results (time, plain twin's time, bound
 and what sets it, launches on the path that runs the kernel: B1's bucket
-walk, B2 and B3 on the IVC path, B4, its epilogue pass (an entry of its
-own) and the K = 1 product on the NTT path;
+walk, B2 and B3 on the Cyclefold IVC path, B4, its epilogue pass (an entry of its
+own) and the K = 1 product on the NTT path; the walk on each curve and B2 at
+grumpkin's W commit (entries of their own) on the Sangria path;
 the probes S1-S4 and B1's batched madd run on no path but their own timed
 runs, which are counted, a CUDA graph's replays included (S1's time is its
 wrapper's on CUDA events, as every entry's but S2's, S3's, S4's and the
@@ -136,10 +156,12 @@ from sirius_tpu_torch.fields import gold
 from sirius_tpu_torch.fields.constants import bn256_fr
 from sirius_tpu_torch.fields.jfield import FQ, FR, ints_to_words
 from sirius_tpu_torch.ivc.cyclefold_ivc import CyclefoldIVC, CyclefoldPublicParams
+from sirius_tpu_torch.ivc.sangria_ivc import IVC as SangriaIVC
+from sirius_tpu_torch.ivc.sangria_ivc import PublicParams as SangriaPublicParams
 from sirius_tpu_torch.ivc.step_circuit import TrivialStepCircuit
 from sirius_tpu_torch.ivc.support_fold import SupportFoldChain, random_input, support_structure
 from sirius_tpu_torch.nifs.protogalaxy import AccumulatorInstance
-from sirius_tpu_torch.nifs.sangria import RelaxedPlonkTrace, RelaxedPlonkWitness
+from sirius_tpu_torch.nifs.sangria import RelaxedPlonkTrace, RelaxedPlonkWitness, VanillaFS
 from sirius_tpu_torch.ops import _build, field_kernels as fk, madd as madd_mod, microbench as mb, msm_kernels as mk
 from sirius_tpu_torch.ops import ntt_kernels
 from sirius_tpu_torch.ops.commitment import CommitmentKey
@@ -147,10 +169,11 @@ from sirius_tpu_torch.ops.msm import FAN_IN, MANY_GROUPS, MANY_WINDOW_BITS, best
 from sirius_tpu_torch.ops.msm import msm_many
 from sirius_tpu_torch.ops.msm import split_segments
 from sirius_tpu_torch.ops.ntt import NTT
+from sirius_tpu_torch.util import golden
 from sirius_tpu_torch.util.golden import pg_acc_digest, sangria_acc_digest
 from sirius_tpu_torch.util.interop import limbs_to_words
 from sirius_tpu_torch.util.profiling import profiler
-from sirius_tpu_torch.util.testing import reference_msm
+from sirius_tpu_torch.util.testing import MockCommitmentKey, reference_msm
 
 from msm_turns import gpu_ms, graph_ms, kernel_ms
 
@@ -163,7 +186,8 @@ IVC_STEPS = 2
 B1_PAIRS = 1 << 16
 MSM_CHECK_LOG = 12
 PRIMARY_LOG = 20
-SUPPORT_KEY_LOG = 17
+SUPPORT_KEY_LOG = 17  # the support key: the first 2^17 points of the grumpkin key
+GRUMPKIN_KEY_LOG = 20  # the grumpkin key b"bench-support" (SHAKE-256 over the label: its prefix is the support key)
 CROSS_TERMS = 5  # gate degree of the support circuit
 CROSS_N = 1 << 14  # cross-term length (rows)
 W_COMMIT_N = 7 << 14  # support W commit length (7 advice columns x 2^14 rows)
@@ -195,7 +219,14 @@ LATENCY_K = 1024  # the latency probe's chain of dependent products on one eleme
 MANY_SHAPE = (CROSS_TERMS, 64, 15, 4)  # msm_many's combine: (t, W, B, c) at 4-bit windows
 PRIMARY_W_N = 7 << 17  # the primary trace's W commit (7 advice columns x 2^17 rows)
 PLAN_ARRAYS = ("entries", "chunk_start", "chunk_len", "seg_off")  # B2's bucket sort output
-B2_NAMES = ("msm_accumulate", "msm_accumulate_primary", "bucket_sort", "bucket_sort_primary")
+B2_NAMES = ("msm_accumulate", "msm_accumulate_primary", "bucket_sort", "bucket_sort_primary",
+            "msm_accumulate_sangria_grumpkin")
+CYCLEFOLD_DIGESTS = ("9f3739df", "13a63ce4")  # pg_acc_digest, sangria_acc_digest after 2 next, as every run had them
+SANGRIA_K = 17  # BASELINE.md:23, benches/sangria_poseidon.rs:29-31: the reference bench's table size
+SANGRIA_GOLDEN_K = 16  # the JAX package's run frozen in util/golden.py
+SANGRIA_Z0 = ([0x11], [0x22])  # examples/sangria_trivial.py:49-52
+SANGRIA_STEPS = 2
+SANGRIA_CROSS = (CROSS_TERMS, 1 << SANGRIA_K)  # msm_many on a step's cross terms: (t, n), both curves
 
 
 def log(msg: str) -> None:
@@ -407,6 +438,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; the port's smoke run needs an NVIDIA GPU")
 
+    started = time.perf_counter()
     dev = torch.device(DEVICE)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -609,10 +641,12 @@ def main() -> int:
     ck1 = CommitmentKey.setup(BN256_G1, PRIMARY_LOG, b"bench-primary", use_cache=False, device=dev)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    ck2 = CommitmentKey.setup(GRUMPKIN, SUPPORT_KEY_LOG, b"bench-support", use_cache=False, device=dev)
+    ck2 = CommitmentKey.setup(GRUMPKIN, GRUMPKIN_KEY_LOG, b"bench-support", use_cache=False, device=dev)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    log(f"keys: bn256 2^{PRIMARY_LOG} {t1 - t0:.2f} s, grumpkin 2^{SUPPORT_KEY_LOG} {t2 - t1:.2f} s  [{card}]")
+    sup = Points(*(c[: 1 << SUPPORT_KEY_LOG] for c in ck2.points))  # the support key: the Cyclefold phases' points
+    log(f"keys: bn256 2^{PRIMARY_LOG} {t1 - t0:.2f} s, grumpkin 2^{GRUMPKIN_KEY_LOG} {t2 - t1:.2f} s (its first "
+        f"2^{SUPPORT_KEY_LOG} points are the support key)  [{card}]")
     # spot-check the device hash-to-curve against the host map
     for ck, curve in ((ck1, BN256_G1), (ck2, GRUMPKIN)):
         stream = hashlib.shake_256(ck.label).digest(64 * 4)
@@ -635,7 +669,7 @@ def main() -> int:
 
     # B1 at the support cross-term step shape: one lane per (term, window, group)
     lanes = CROSS_TERMS * (256 // MANY_WINDOW_BITS) * MANY_GROUPS
-    K = ck2.points
+    K = sup
     P = GRUMPKIN.dbl(Points(*(c[-lanes:] for c in K)))
     qx, qy = K.x[:lanes].contiguous(), K.y[:lanes].contiguous()
     err = word_err(madd_mod.madd_batch(GRUMPKIN, P, qx, qy), madd_mod.madd_plain(GRUMPKIN, P, qx, qy))
@@ -662,8 +696,8 @@ def main() -> int:
     check(GRUMPKIN.decode(res)[0] == best_msm(GRUMPKIN, Sw, pw), "W-commit stages disagree with best_msm")
     # B3's combine at msm_many's shape, on doubled key points as bucket sums
     t, W, B, c = MANY_SHAPE
-    idx = torch.from_numpy(rng.integers(0, len(ck2), size=t * W * B)).to(dev)
-    many = Points(*(a.reshape(t, W, B, 8) for a in GRUMPKIN.dbl(Points(*(k[idx] for k in ck2.points)))))
+    idx = torch.from_numpy(rng.integers(0, 1 << SUPPORT_KEY_LOG, size=t * W * B)).to(dev)
+    many = Points(*(a.reshape(t, W, B, 8) for a in GRUMPKIN.dbl(Points(*(k[idx] for k in sup)))))
     many_stage, _ = combine_stage(GRUMPKIN, many, c, timed=True)
     stage["msm_combine_many"] = many_stage["msm_combine"]
     for name, (err, ms, plain, muls, nbytes) in stage.items():
@@ -946,9 +980,11 @@ def main() -> int:
     check(sort_shapes.get(PRIMARY_W_N, 0) > 0, f"no bucket sort at the primary W commit's {PRIMARY_W_N} points")
     check(any(shape[0] == 1 for shape in combine_shapes) and any(shape[0] > 1 for shape in combine_shapes),
           f"msm_combine did not launch at both best_msm's and msm_many's shapes: {combine_shapes}")
-    log(f"IVC digests after {IVC_STEPS} steps: pg_acc_digest "
-        f"{pg_acc_digest(AccumulatorInstance.from_acc(ivc.self_acc))}, "
-        f"sangria_acc_digest {sangria_acc_digest(ivc.support_acc.U)}, pp digest {pp.digest_hex()}")
+    digests = (pg_acc_digest(AccumulatorInstance.from_acc(ivc.self_acc)), sangria_acc_digest(ivc.support_acc.U))
+    log(f"IVC digests after {IVC_STEPS} steps: pg_acc_digest {digests[0]}, sangria_acc_digest {digests[1]}, pp digest "
+        f"{pp.digest_hex()}")
+    check(all(d.startswith(want) for d, want in zip(digests, CYCLEFOLD_DIGESTS)),
+          f"the Cyclefold digests moved: {digests}, not {CYCLEFOLD_DIGESTS}...")
 
     # corruption probe: one flipped cell of the PG accumulator's witness
     W0 = ivc.self_acc.trace.w.W[0]
@@ -1045,6 +1081,176 @@ def main() -> int:
         f"partials, {passes} launch(es)): equals msm_reduce's levels (each word for word its twin) in affine form; "
         f"the kernels alone (events around each launch) {k_whole:.6f} ms, the wrapper {ms_whole:.6f} ms; bound "
         f"{bound_whole:.6f} ms ({by_whole})  [{card}]")
+    # ---- Sangria IVC, the second IVC construction (its path: launch counts from here) -----------------
+    # against the JAX package: the k = 16 run on the mock keys, on the card, equals the digests frozen from it
+    t0 = time.perf_counter()
+    mpp = SangriaPublicParams(TrivialStepCircuit(arity=1), TrivialStepCircuit(arity=1), SANGRIA_GOLDEN_K,
+                              SANGRIA_GOLDEN_K, MockCommitmentKey(BN256_G1, dev), MockCommitmentKey(GRUMPKIN, dev))
+    mivc = SangriaIVC(mpp, *SANGRIA_Z0)
+    accs = lambda v: (sangria_acc_digest(v.primary_relaxed.U), sangria_acc_digest(v.secondary_relaxed.U))  # noqa: E731
+    got_new = accs(mivc)
+    mivc.fold_step()
+    got_step = accs(mivc)
+    dt = synced() - t0
+    check((mpp.digest_coords(1), mpp.digest_coords(2)) == (golden.SANGRIA_IVC_K16_PP_DIGEST_1,
+                                                          golden.SANGRIA_IVC_K16_PP_DIGEST_2),
+          "Sangria k = 16 mock-key pp digests differ from the JAX package's frozen ones")
+    check(got_new == golden.SANGRIA_IVC_K16_NEW and got_step == golden.SANGRIA_IVC_K16_STEP,
+          f"Sangria k = 16 mock-key accumulators differ from the JAX package's frozen digests: {got_new} {got_step}")
+    log(f"Sangria IVC k={SANGRIA_GOLDEN_K} on the mock keys, on the card: both pp digest points and both "
+        f"accumulators' sangria_acc_digest after new and after one fold_step equal the JAX package's, frozen in "
+        f"util/golden.py; pp + new + fold_step {dt:.4f} s  [{card}]")
+    del mivc, mpp
+
+    profiler.enable()
+    span_seconds()
+    for fn in (*counters, madd_mod.madd_batch):
+        fn.launches = 0
+    madd_mod.madd_buckets.curves, mk.msm_reduce.curves, mk.msm_combine.curves = {}, {}, {}
+    mk.msm_combine.shapes, mk.msm_accumulate.shapes, bucket_plan.shapes = {}, {}, {}
+    t0 = time.perf_counter()
+    spp = SangriaPublicParams(TrivialStepCircuit(arity=1), TrivialStepCircuit(arity=1), SANGRIA_K, SANGRIA_K,
+                              ck1, ck2)
+    t1 = synced()
+    sivc = SangriaIVC(spp, *SANGRIA_Z0)
+    t2 = synced()
+    Sp, Ss = spp.primary.S, spp.secondary.S
+    log(f"Sangria IVC k={SANGRIA_K} (trivial step on both sides, bn256 2^{PRIMARY_LOG} / grumpkin "
+        f"2^{GRUMPKIN_KEY_LOG} keys): public parameters {t1 - t0:.4f} s (primary {Sp.num_advice_columns} advice "
+        f"columns, W round {Sp.round_sizes[0]}, {spp.primary_num_cross_terms} cross terms, "
+        f"{spp.primary_probe.num_challenges} challenges; secondary {Ss.num_advice_columns} columns, W round "
+        f"{Ss.round_sizes[0]}, {spp.secondary_num_cross_terms} cross terms), new {t2 - t1:.4f} s; spans: "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items()) + f"  [{card}]")
+    # the first step's cross terms (both curves) are kept for the walk's checks below
+    captured = []
+    cross_terms_fn = VanillaFS.commit_cross_terms
+
+    def recording(ck, *args):
+        out = cross_terms_fn(ck, *args)
+        captured.append((ck, out))
+        return out
+
+    VanillaFS.commit_cross_terms = staticmethod(recording)
+    for i in range(SANGRIA_STEPS):
+        t0 = synced()
+        sivc.fold_step()
+        dt = synced() - t0
+        VanillaFS.commit_cross_terms = staticmethod(cross_terms_fn)
+        log(f"Sangria fold_step {i + 1} (step {sivc.step - 1} -> {sivc.step}): {dt:.4f} s; spans: "
+            + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items()) + f"  [{card}]")
+    t0 = synced()
+    errors = sivc.verify()
+    dt = synced() - t0
+    check(errors == [], f"Sangria verify reported {errors}")
+    check(sivc.step == SANGRIA_STEPS + 1 and (sivc.primary_z_i, sivc.secondary_z_i) == SANGRIA_Z0,
+          f"Sangria state: step {sivc.step}, z_i {sivc.primary_z_i} / {sivc.secondary_z_i}")
+    log(f"Sangria verify: [] in {dt:.4f} s; spans: "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items()) + f"  [{card}]")
+    sangria_launches = {fn.__name__: fn.launches for fn in counters}
+    by_curve = {"madd_buckets": dict(madd_mod.madd_buckets.curves), "msm_reduce": dict(mk.msm_reduce.curves),
+                "msm_combine": dict(mk.msm_combine.curves)}
+    s_accumulate, s_sort = dict(mk.msm_accumulate.shapes), dict(bucket_plan.shapes)
+    log(f"launch counts on the Sangria path (pp, new, {SANGRIA_STEPS} x fold_step, verify): {sangria_launches}; "
+        f"madd (batched, off the path): {madd_mod.madd_batch.launches}; by curve {by_curve}; msm_accumulate by "
+        f"(curve, points, chunks): {s_accumulate}; bucket_plan by points: {s_sort}; msm_combine by (t, W, B): "
+        f"{dict(mk.msm_combine.shapes)}")
+    for name, count in sangria_launches.items():
+        check(count > 0, f"kernel {name} never launched on the Sangria path")
+    check(madd_mod.madd_batch.launches == 0, "the Sangria path launched the batched madd")
+    for curve in (BN256_G1, GRUMPKIN):
+        name = curve.spec.name
+        for kernel, counts in by_curve.items():
+            check(counts.get(name, 0) > 0, f"{kernel} never launched on {name} on the Sangria path")
+        check(any(c == name and n == PRIMARY_W_N for c, n, _ in s_accumulate),
+              f"msm_accumulate never ran a {PRIMARY_W_N}-point W commit on {name}: {s_accumulate}")
+    check(s_sort.get(PRIMARY_W_N, 0) >= 2, f"the bucket sort did not run both sides' W commits: {s_sort}")
+    check(any(shape[0] == CROSS_TERMS for shape in mk.msm_combine.shapes), "no msm_many combine on the Sangria path")
+    log(f"Sangria digests after {SANGRIA_STEPS} steps: sangria_acc_digest primary {accs(sivc)[0]}, secondary "
+        f"{accs(sivc)[1]}; pp digests {spp.digest_coords(1)} / {spp.digest_coords(2)}")
+
+    # corruption probe: one flipped cell of the primary accumulator's witness
+    W0 = sivc.primary_relaxed.W.W[0]
+    saved = W0[7].clone()
+    W0[7, 0] ^= 1
+    bad_errors = sivc.verify()
+    W0[7] = saved
+    check(any(e.startswith("primary:") for e in bad_errors), f"Sangria verify missed a flipped cell: {bad_errors}")
+    log(f"Sangria corruption probe: {len(bad_errors)} error(s): {bad_errors}")
+    span_seconds()
+    log(profiled("profiled fold_step", sivc.fold_step) + f"  [{card}]")
+    log("profiled fold_step spans: " + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items()))
+    check(sivc.verify() == [], "Sangria verify after the profiled fold_step")
+    profiler.enabled = False
+
+    # the walk at the Sangria path's shape, (5, 2^17), on each curve: the first step's cross terms
+    check(sorted(ck.curve.spec.name for ck, _ in captured) == ["bn256_g1", "grumpkin"],
+          f"the first fold_step's cross terms: {[ck.curve.spec.name for ck, _ in captured]}")
+    for ck, (terms, commits) in captured:
+        curve = ck.curve
+        name = curve.spec.name
+        t, n = len(terms), terms[0].shape[0]
+        check((t, n) == SANGRIA_CROSS, f"the {name} cross terms are {(t, n)}, not {SANGRIA_CROSS}")
+        Sx = curve.fs.from_mont(torch.stack(terms))
+        pts = Points(*(c[:n] for c in ck.points))
+        walk = (curve, Sx, pts.x.contiguous(), pts.y.contiguous(), MANY_GROUPS, MANY_WINDOW_BITS)
+        table = madd_mod.madd_buckets(*walk)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        plain_table = madd_mod.madd_buckets_plain(*walk)
+        end.record()
+        torch.cuda.synchronize()
+        plain = start.elapsed_time(end)  # one call: the twin walks 2^17 / 256 steps
+        err = word_err(table, plain_table)
+        check(err == 0, f"B1 madd_buckets is not bit-exact against its twin at {SANGRIA_CROSS} on {name}")
+        del plain_table
+        many = msm_many(curve, Sx, pts)
+        best = [best_msm(curve, Sx[i], pts) for i in range(t)]
+        check(many == best == list(commits), f"msm_many at {SANGRIA_CROSS} on {name} differs from best_msm or the "
+              f"step's cross-term commits")
+        ms = gpu_ms(lambda: madd_mod.madd_buckets(*walk), reps=5)
+        many_ms = gpu_ms(lambda: msm_many(curve, Sx, pts), reps=5)
+        best_ms = gpu_ms(lambda: [best_msm(curve, Sx[i], pts) for i in range(t)], reps=5)
+        dg = madd_mod.extract_digits(Sx, MANY_WINDOW_BITS).reshape(t, -1, MANY_GROUPS, n // MANY_GROUPS)
+        B_many = (1 << MANY_WINDOW_BITS) - 1
+        live = int((dg > 0).sum())
+        touched = sum(int((dg == v).any(-1).sum()) for v in range(1, B_many + 1))
+        entry = f"madd_buckets_sangria_{name}"
+        record(entry, "sirius_tpu_torch/csrc/madd.cu", "sirius_tpu/ops/pallas_madd.py:136", err, ms, plain,
+               MADD_MULS * (live - touched), FE * t * n + 2 * FE * n + 3 * FE * t * dg.shape[1] * B_many * MANY_GROUPS)
+        kernels[entry]["launches"] = by_curve["madd_buckets"][name]
+        e = kernels[entry]
+        log(f"B1 madd_buckets at the Sangria cross terms {SANGRIA_CROSS} on {name} ({n // MANY_GROUPS} points a "
+            f"lane at G = {MANY_GROUPS}; {live} live digits, {touched} buckets touched): bit-exact against its twin; "
+            f"kernel {ms:.6f} ms, plain {plain:.4f} ms (one call), bound {e['bound_ms']:.6f} ms ({e['bound_by']}); "
+            f"msm_many (walk, reduce, combine) {many_ms:.6f} ms, best_msm on the same five vectors {best_ms:.6f} ms; "
+            f"msm_many equals best_msm and the step's commits  [{card}]")
+
+    # B2 at grumpkin's 917,504-point W commit (the secondary trace's)
+    Sg = GRUMPKIN.fs.from_mont(sivc.secondary_trace.w.W[0])
+    check(Sg.shape[0] == PRIMARY_W_N, f"the secondary trace's W round holds {Sg.shape[0]} values")
+    plan = bucket_plan(Sg)
+    plain_plan = bucket_plan_plain(Sg)
+    check(all(torch.equal(getattr(plan, k), getattr(plain_plan, k)) for k in PLAN_ARRAYS),
+          "B2's bucket sort differs from bucket_plan_plain at grumpkin's W commit")
+    acc = (GRUMPKIN, plan.entries, plan.chunk_start, plan.chunk_len, ck2.points.x, ck2.points.y)
+    err = word_err(mk.msm_accumulate(*acc), mk.msm_accumulate_plain(*acc))
+    check(err == 0, "B2 msm_accumulate is not bit-exact against its twin at grumpkin's W commit")
+    ms_acc = gpu_ms(lambda: mk.msm_accumulate(*acc), reps=5)
+    plain_acc = gpu_ms(lambda: mk.msm_accumulate_plain(*acc), reps=1)
+    n_entries, n_chunks = plan.entries.shape[0], plan.chunk_start.shape[0]
+    record("msm_accumulate_sangria_grumpkin", "sirius_tpu_torch/csrc/msm.cu", "sirius_tpu/ops/pallas_msm.py:50", err,
+           ms_acc, plain_acc, MADD_MULS * seeded_adds(plan.chunk_len),
+           4 * n_entries + 8 * n_chunks + 2 * FE * PRIMARY_W_N + 3 * FE * n_chunks)
+    kernels["msm_accumulate_sangria_grumpkin"]["launches"] = sum(
+        n for (c, pts_n, _), n in s_accumulate.items() if c == GRUMPKIN.spec.name and pts_n == PRIMARY_W_N)
+    e = kernels["msm_accumulate_sangria_grumpkin"]
+    log(f"B2 at grumpkin's W commit ({PRIMARY_W_N} Fq scalars of the Sangria secondary trace, c={plan.c}: "
+        f"{n_entries} live digits, {n_chunks} chunks): the bucket sort equals bucket_plan_plain, msm_accumulate is "
+        f"bit-exact; msm_accumulate {ms_acc:.6f} ms (plain {plain_acc:.4f} ms, bound {e['bound_ms']:.7f} ms, "
+        f"{e['bound_by']})  [{card}]")
+    del sivc, spp, captured
+
     for name, attrs_of in [(k, mk.msm_kernel_attrs) for k in mk.MSM_KERNELS] + [
             (k, madd_mod.madd_kernel_attrs) for k in madd_mod.MADD_KERNELS]:
         attrs = attrs_of(name)
@@ -1093,6 +1299,7 @@ def main() -> int:
     for name, count in probe_launches.items():
         check(count > 0, f"{name} never launched in its timed runs")
         kernels[name]["launches"] = count
+    log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, the build included")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

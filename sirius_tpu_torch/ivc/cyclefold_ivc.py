@@ -27,9 +27,8 @@ from ..fields import gold
 from ..fields.constants import FieldSpec, bn256_fq, bn256_fr, bn256_g1, grumpkin
 from ..frontend.circuit import ConstraintSystemBuilder
 from ..frontend.runner import CircuitRunner, ConstraintSystemMetainfo
-from ..gadgets.big_uint_chip import BigUintCells, BigUintChip
-from ..gadgets.ecc_chip import AssignedPoint
-from ..gadgets.fold_chip import AssignedRelaxedPlonkInstance, FoldRelaxedPlonkInstanceChip
+from ..gadgets.big_uint_chip import BigUintChip
+from ..gadgets.fold_chip import FoldRelaxedPlonkInstanceChip
 from ..gadgets.main_gate import MainGate, RegionCtx
 from ..gadgets.poseidon_chip import PoseidonChip
 from ..gadgets.protogalaxy_chip import (
@@ -50,6 +49,7 @@ from ..poly.univariate import UnivariatePoly
 from ..util.digest import digest_ints_to_bits, into_curve_from_bits, structure_digest_stream
 from ..util.profiling import span
 from ..util.ro import MAX_BITS, NUM_CHALLENGE_BITS, default_ro_spec
+from .sangria_ivc import select_relaxed
 from .step_circuit import StepCircuit
 from .support_circuit import InstanceInput
 from .support_fold import SUPPORT_IO, SUPPORT_K, SupportFoldChain, support_structure
@@ -98,27 +98,6 @@ class CyclefoldStepInputs:
     support_acc: sg.RelaxedPlonkInstance  # Sangria accumulator of the support traces
     support_incoming: list[PlonkInstance]  # this step's support instances, one per primary W commitment
     support_cross_commits: list[list]  # grumpkin points, per support fold
-
-
-def _select_relaxed(ctx, mg: MainGate, cond, a: AssignedRelaxedPlonkInstance,
-                    b: AssignedRelaxedPlonkInstance) -> AssignedRelaxedPlonkInstance:
-    """cond ? a : b over every cell of two relaxed instances (the helper of
-    `sirius_tpu/ivc/sangria_ivc.py:StepFoldingCircuit._select_relaxed`)."""
-
-    def sel_pt(x, y):
-        return AssignedPoint(mg.conditional_select(ctx, cond, x.x, y.x), mg.conditional_select(ctx, cond, x.y, y.y))
-
-    def sel_bn(x, y):
-        return BigUintCells([mg.conditional_select(ctx, cond, l1, l2) for l1, l2 in zip(x.limbs, y.limbs)], x.width)
-
-    return AssignedRelaxedPlonkInstance(
-        W_commitments=[sel_pt(x, y) for x, y in zip(a.W_commitments, b.W_commitments)],
-        E_commitment=sel_pt(a.E_commitment, b.E_commitment),
-        consistency_markers=[sel_bn(x, y) for x, y in zip(a.consistency_markers, b.consistency_markers)],
-        challenges=[sel_bn(x, y) for x, y in zip(a.challenges, b.challenges)],
-        u=sel_bn(a.u, b.u),
-        sc_hash_acc=None if a.sc_hash_acc is None else mg.conditional_select(ctx, cond, a.sc_hash_acc, b.sc_hash_acc),
-    )
 
 
 class CyclefoldSFC:
@@ -229,7 +208,7 @@ class CyclefoldSFC:
             [sel_cells(a, b) for a, b in zip(acc_assigned.betas, folded_acc.betas)],
             sel_cells(acc_assigned.e, folded_acc.e),
         )
-        support_out = _select_relaxed(ctx, mg, is_zero_step, support_acc_assigned, folded_support)
+        support_out = select_relaxed(ctx, mg, is_zero_step, support_acc_assigned, folded_support)
 
         # the user step
         sc_ctx = RegionCtx(asn, ctx.offset)
@@ -476,8 +455,7 @@ class CyclefoldIVC:
         with span("verify_commitments"):
             pairs = (list(zip(self.self_acc.trace.w.W, self.self_acc.trace.u.W_commitments))
                      + list(zip(self.primary_trace.w.W, self.primary_trace.u.W_commitments)))
-            check = getattr(pp.ck1, "batched_commit_check", None)  # the test double commits one by one
-            bad = check(pairs) if check else [i for i, (W, C) in enumerate(pairs) if pp.ck1.commit_device(W) != C]
+            bad = pp.ck1.batched_commit_check(pairs)
             if bad:
                 errors.append(f"commitment mismatch (pair indices {bad})")
         return errors

@@ -25,6 +25,10 @@ class StepCircuit(Protocol):
 
     def synthesize_step(self, config, ctx: RegionCtx, z_i: Sequence[AssignedCell]) -> list[AssignedCell]: ...
 
+    def instances(self) -> list[list[int]]:
+        """The step circuit's own public instance columns."""
+        ...
+
     def process_step(self, z_i: Sequence[int], k_table_size: int, spec: FieldSpec) -> list[int]:
         """Off-circuit z_out."""
         ...
@@ -38,6 +42,9 @@ class TrivialStepCircuit:
 
     def configure(self, cs: ConstraintSystemBuilder):
         return None
+
+    def instances(self) -> list[list[int]]:
+        return []
 
     def synthesize_step(self, config, ctx, z_i):
         return list(z_i)

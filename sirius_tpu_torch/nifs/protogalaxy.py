@@ -490,8 +490,7 @@ class ProtoGalaxy:
     @staticmethod
     def is_sat_witness_commit(ck, acc: Accumulator) -> None:
         pairs = list(zip(acc.trace.w.W, acc.trace.u.W_commitments))
-        check = getattr(ck, "batched_commit_check", None)  # the test double commits one by one
-        bad = check(pairs) if check else [i for i, (W, C) in enumerate(pairs) if ck.commit_device(W) != C]
+        bad = ck.batched_commit_check(pairs)
         if bad:
             raise VerifyError(f"witness commitment mismatch rounds {bad}")
 

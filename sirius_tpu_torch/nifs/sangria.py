@@ -21,7 +21,7 @@ from ..ops.poseidon import PoseidonHash, poseidon_spec
 from ..plonk.eval import PlonkEvalDomain
 from ..plonk.permutation import device_perm_mismatches, perm_index_vector
 from ..plonk.satisfy import is_sat_log_derivative
-from ..plonk.sps import sps_verify
+from ..plonk.sps import run_sps_protocol, sps_verify
 from ..plonk.structure import PlonkInstance, PlonkStructure, PlonkTrace, PlonkWitness
 from ..util.profiling import span
 from ..util.ro import DEFAULT_R_F, DEFAULT_R_P, DEFAULT_RATE, DEFAULT_T, NUM_CHALLENGE_BITS
@@ -104,6 +104,28 @@ class RelaxedPlonkInstance:
             sc_instances_hash_acc=None if num_sc_instances == 0 else get_initial_sc_instances_accumulator(curve),
         )
 
+    @staticmethod
+    def from_instance(curve: CurveSpec, u: PlonkInstance,
+                      markers_len: int = CONSISTENCY_MARKERS_COUNT) -> "RelaxedPlonkInstance":
+        """The relaxation of a plain instance (u = 1, E the identity); the
+        step-circuit instance columns seed the hash accumulator (reference
+        `accumulator.rs:123-157`)."""
+        if len(u.instances[0]) != markers_len:
+            raise SangriaError("the first instance column must hold the consistency markers")
+        sc = u.instances[1:]
+        return RelaxedPlonkInstance(
+            W_commitments=list(u.W_commitments),
+            consistency_markers=list(u.instances[0]),
+            challenges=list(u.challenges),
+            E_commitment=gold.identity(curve),
+            u=1,
+            sc_instances_hash_acc=absorb_in_sc_instances_accumulator(curve, 0, sc) if sc else None,
+        )
+
+    def clone(self) -> "RelaxedPlonkInstance":
+        return RelaxedPlonkInstance(list(self.W_commitments), list(self.consistency_markers), list(self.challenges),
+                                    self.E_commitment, self.u, self.sc_instances_hash_acc)
+
     def fold(self, curve: CurveSpec, U2: PlonkInstance, cross_term_commits: Sequence, r: int) -> "RelaxedPlonkInstance":
         q = curve.scalar.modulus
         W = [w1.add(w2.mul(r)) for w1, w2 in zip(self.W_commitments, U2.W_commitments)]
@@ -135,6 +157,11 @@ class RelaxedPlonkWitness:
 
     W: list[torch.Tensor]
     E: torch.Tensor
+
+    @staticmethod
+    def from_regular(w: PlonkWitness, k: int, field) -> "RelaxedPlonkWitness":
+        """W's rounds and E = 0 over 2^k rows, on W's device."""
+        return RelaxedPlonkWitness(list(w.W), field.zeros((1 << k,), w.W[0].device))
 
     def fold(self, f, W2: PlonkWitness, cross_terms: Sequence[torch.Tensor], r: int) -> "RelaxedPlonkWitness":
         """W += r W2; E += sum_k r^k T_k."""
@@ -170,6 +197,16 @@ class VanillaFS:
         return ProverParam(S, coords), VerifierParam(coords)
 
     @staticmethod
+    def generate_plonk_trace(ck, instances, witness, pp: ProverParam, ro_nark: PoseidonHash,
+                             markers_len: int = CONSISTENCY_MARKERS_COUNT) -> PlonkTrace:
+        """The SPS trace of a synthesized witness, whose first instance
+        column must hold the consistency markers."""
+        tr = run_sps_protocol(pp.S, ck, instances, witness, ro_nark)
+        if len(tr.u.instances[0]) != markers_len:
+            raise SangriaError("the first instance column must hold the consistency markers")
+        return tr
+
+    @staticmethod
     def commit_cross_terms(ck, S: PlonkStructure, U1: RelaxedPlonkInstance, W1: RelaxedPlonkWitness,
                            U2: PlonkInstance, W2: PlonkWitness):
         """Cross terms T_1..T_D of P_homo(acc + X inc): Q(X) evaluated at
@@ -193,11 +230,7 @@ class VanillaFS:
             evals.append(PlonkEvalDomain(S, chX, WX, []).evaluate([expr])[0].expand_as(W1.E))
         vinv = _vandermonde_inv(p, D)
         cross_terms = [fold_witness(f, vinv[k], evals) for k in range(1, D + 1)]
-        if len(cross_terms) > 1 and hasattr(ck, "commit_device_many"):
-            commits = ck.commit_device_many(torch.stack(cross_terms))
-        else:
-            commits = [ck.commit_device(T) for T in cross_terms]
-        return cross_terms, commits
+        return cross_terms, ck.commit_device_many(torch.stack(cross_terms))
 
     @staticmethod
     def generate_challenge(pp_digest, ro_acc: PoseidonHash, U1: RelaxedPlonkInstance, U2: PlonkInstance,
@@ -278,19 +311,11 @@ class VanillaFS:
     @staticmethod
     def is_sat_witness_commit(ck, acc: RelaxedPlonkTrace) -> None:
         pairs = list(zip(acc.W.W, acc.U.W_commitments)) + [(acc.W.E, acc.U.E_commitment)]
-        check = getattr(ck, "batched_commit_check", None)
-        if check is not None:
-            bad = check(pairs)
-            if bad:
-                last = len(pairs) - 1
-                names = ["E" if i == last else f"round {i}" for i in bad]
-                raise VerifyError(f"witness commitment mismatch: {', '.join(names)}")
-            return
-        for i, (Wi, Ci) in enumerate(pairs[:-1]):
-            if ck.commit_device(Wi) != Ci:
-                raise VerifyError(f"witness commitment mismatch round {i}")
-        if ck.commit_device(acc.W.E) != acc.U.E_commitment:
-            raise VerifyError("E commitment mismatch")
+        bad = ck.batched_commit_check(pairs)
+        if bad:
+            last = len(pairs) - 1
+            names = ["E" if i == last else f"round {i}" for i in bad]
+            raise VerifyError(f"witness commitment mismatch: {', '.join(names)}")
 
     @staticmethod
     def is_sat_pub_instances(curve: CurveSpec, acc: RelaxedPlonkTrace, all_instances) -> None:

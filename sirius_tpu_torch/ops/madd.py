@@ -14,7 +14,8 @@ Replaces `sirius_tpu/ops/pallas_madd.py:_madd_kernel` (core
                 c-bit digits select, in step order
 
 Each wrapper takes its plain twin for CPU tensors only; for CUDA tensors it
-launches its kernel or raises.  `<wrapper>.launches` counts kernel launches.
+launches its kernel or raises.  `<wrapper>.launches` counts kernel launches
+(`madd_buckets` also by curve name in `madd_buckets.curves`).
 """
 
 from __future__ import annotations
@@ -128,6 +129,7 @@ def madd_buckets(curve: Curve, scalars_std: torch.Tensor, px: torch.Tensor, py: 
                                                    _build.stream_of(px))
         _build.check(err, "madd_buckets")
         madd_buckets.launches += 1
+        madd_buckets.curves[curve.spec.name] = madd_buckets.curves.get(curve.spec.name, 0) + 1
     return Points(*out)
 
 
@@ -146,3 +148,4 @@ def madd_kernel_attrs(name: str) -> dict[str, int]:
 
 madd_batch.launches = 0
 madd_buckets.launches = 0
+madd_buckets.curves = {}

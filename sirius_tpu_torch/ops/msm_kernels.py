@@ -25,7 +25,8 @@ Each wrapper takes its plain twin for CPU tensors only; for CUDA tensors it
 launches its kernel or raises.  `<wrapper>.launches` counts kernel launches
 (`msm_accumulate` also by (curve, points, chunks) in `msm_accumulate.shapes`;
 `msm_combine` counts its Horner launches, by (t, W, B) shape also in
-`msm_combine.shapes`; its window sums count on `msm_window_sums`).  Points
+`msm_combine.shapes`; its window sums count on `msm_window_sums`;
+`msm_reduce` and `msm_combine` also by curve name in `<wrapper>.curves`).  Points
 are (., 8) int64 Montgomery words; `entries` holds `point_index * 2 +
 negated`.
 """
@@ -249,6 +250,7 @@ def msm_reduce(curve: Curve, seg_off, partials: Points) -> Points:
             partials.x.shape[0], _build.stream_of(partials.x))
         _build.check(err, "msm_reduce")
         msm_reduce.launches += 1
+        msm_reduce.curves[curve.spec.name] = msm_reduce.curves.get(curve.spec.name, 0) + 1
     return Points(*out)
 
 
@@ -366,13 +368,16 @@ def msm_combine(curve: Curve, buckets: Points, c: int) -> Points:
         _build.check(err, "msm_horner")
         msm_combine.launches += 1
         msm_combine.shapes[(t, W, B)] = msm_combine.shapes.get((t, W, B), 0) + 1
+        msm_combine.curves[curve.spec.name] = msm_combine.curves.get(curve.spec.name, 0) + 1
     return Points(*out)
 
 
 msm_accumulate.launches = 0
 msm_accumulate.shapes = {}
 msm_reduce.launches = 0
+msm_reduce.curves = {}
 msm_reduce_rolled.launches = 0
 msm_window_sums.launches = 0
 msm_combine.launches = 0
 msm_combine.shapes = {}
+msm_combine.curves = {}

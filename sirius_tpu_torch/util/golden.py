@@ -69,3 +69,27 @@ def pg_acc_digest(acc_ins) -> str:
         _enc_int(h, b)
     _enc_int(h, acc_ins.e)
     return h.hexdigest()
+
+
+# Sangria IVC on `TrivialStepCircuit(1)` both sides, k1 = k2 = 16, mock keys
+# (`util/testing.MockCommitmentKey`), z0 = [0x11] / [0x22]: the JAX package's
+# `sirius_tpu/ivc/sangria_ivc.py` run on the CPU, frozen.  The pp digest
+# points (affine x, y on bn256 and on grumpkin) and `sangria_acc_digest` of
+# the (primary, secondary) relaxed instances after `IVC(...)` and after one
+# `fold_step()`.
+SANGRIA_IVC_K16_PP_DIGEST_1 = (
+    9819562387128035433135519526325461625769612566071672557755081981000565151781,
+    4909835317067816932168364630470844746129991275860918372998752337402559205112,
+)
+SANGRIA_IVC_K16_PP_DIGEST_2 = (
+    3654089299844383669813660638963876496266822595449127202762804346367441377620,
+    5598962449376080124067008313437006056691379627229200826787441529004200697003,
+)
+SANGRIA_IVC_K16_NEW = (
+    "7691f83193259a78ff91363075d579e1541eaf9edadadb0ee2b167393ddb51cf",
+    "bcbb0188e4c2e1846f96857824733f8d93ff6e2160b42abdf6306f67a11ff7e5",
+)
+SANGRIA_IVC_K16_STEP = (
+    "ae8fb95fa44177d8bb7205c179d4ab71ebc5ce045becf49774c7e1d8b1a0491f",
+    "79735c7f55ccf4423913b841aa40a9842b3fe6169f1079b998a59ef66bed3aae",
+)

@@ -10,8 +10,9 @@ affine point with `.curve.name`, `.x` and `.y` as the port's own.
 
 State carried across: the `*_from` functions rebuild the port's objects
 (plain and relaxed instances and traces, a ProtoGalaxy accumulator, the
-whole state of a `CyclefoldIVC`) from the JAX package's by value, so a
-test can start both packages from one state and step them side by side.
+whole state of a `CyclefoldIVC` or of a Sangria `IVC`) from the JAX
+package's by value, so a test can start both packages from one state and
+step them side by side.
 """
 
 from __future__ import annotations
@@ -138,4 +139,27 @@ def cyclefold_ivc_from(pp, ivc, device=None):
     out.support = SupportFoldChain(pp.ck2, pp.S_support, pp_digest=pp.digest)
     out.support.acc = relaxed_trace_from(ivc.support_acc, device)
     out.support.pub_instances = [[list(i) for i in inst] for inst in ivc.support_pub_instances]
+    return out
+
+
+def sangria_ivc_from(pp, ivc, device=None):
+    """The state of a Sangria `IVC` of either package (both relaxed traces,
+    the pending secondary trace, z_0 / z_i of both sides, step and the
+    public-instance lists) on the port's public parameters `pp`: a port
+    `IVC` that continues from it."""
+    from ..ivc.sangria_ivc import IVC
+    from ..nifs.sangria import VanillaFS
+
+    out = IVC.__new__(IVC)
+    out.pp = pp
+    out.step = ivc.step
+    out.primary_nifs_pp, _ = VanillaFS.setup_params(pp.digest_1, pp.primary.S)
+    out.secondary_nifs_pp, _ = VanillaFS.setup_params(pp.digest_2, pp.secondary.S)
+    out.primary_z_0, out.primary_z_i = list(ivc.primary_z_0), list(ivc.primary_z_i)
+    out.secondary_z_0, out.secondary_z_i = list(ivc.secondary_z_0), list(ivc.secondary_z_i)
+    out.primary_relaxed = relaxed_trace_from(ivc.primary_relaxed, device)
+    out.secondary_relaxed = relaxed_trace_from(ivc.secondary_relaxed, device)
+    out.secondary_trace = plonk_trace_from(ivc.secondary_trace, device)
+    out.primary_pub_instances = [[list(i) for i in inst] for inst in ivc.primary_pub_instances]
+    out.secondary_pub_instances = [[list(i) for i in inst] for inst in ivc.secondary_pub_instances]
     return out

@@ -37,6 +37,13 @@ class MockCommitmentKey:
         s = f.decode_one(f.sum_reduce(w_mont)) if w_mont.shape[0] else 0
         return gold.generator(self.curve.spec).mul(s)
 
+    def commit_device_many(self, w_monts):
+        return [self.commit_device(w) for w in w_monts]
+
+    def batched_commit_check(self, pairs) -> list[int]:
+        """The indices of the (W, C) pairs with commit(W) != C, one by one."""
+        return [i for i, (W, C) in enumerate(pairs) if self.commit_device(W) != C]
+
     def commit(self, v_ints):
         s = sum(v % self.curve.fs.p for v in v_ints) % self.curve.fs.p
         return gold.generator(self.curve.spec).mul(s)

@@ -606,3 +606,61 @@ def test_raw_u32_kernel_bit_exact_at_a_ragged_length(cuda_device, op):
         assert torch.equal(got, mb.raw_u32_plain(a, op, reps))
     off = words[1:]  # 4 bytes past the allocation's start
     assert torch.equal(mb.raw_u32(off, op), mb.raw_u32_plain(off, op))
+
+
+def _sangria_k16_digests(device, primary_sc=None):
+    """pp digest coordinates and both accumulators' digests after new and
+    after one fold_step of the k = 16 Sangria IVC on the mock keys."""
+    from sirius_tpu_torch.ivc.sangria_ivc import IVC, PublicParams
+    from sirius_tpu_torch.ivc.step_circuit import TrivialStepCircuit
+    from sirius_tpu_torch.util.golden import sangria_acc_digest
+    from sirius_tpu_torch.util.testing import MockCommitmentKey
+
+    pp = PublicParams(primary_sc or TrivialStepCircuit(1), TrivialStepCircuit(1), 16, 16,
+                      MockCommitmentKey(BN256_G1, device), MockCommitmentKey(GRUMPKIN, device))
+    ivc = IVC(pp, [0x11], [0x22])
+    accs = lambda: (sangria_acc_digest(ivc.primary_relaxed.U), sangria_acc_digest(ivc.secondary_relaxed.U))  # noqa: E731
+    new = accs()
+    ivc.fold_step()
+    assert ivc.verify() == []
+    return pp.digest_coords(1), pp.digest_coords(2), new, accs(), list(ivc.primary_z_i)
+
+
+@pytest.mark.gpu
+def test_sangria_ivc_k16_on_the_card_equals_the_frozen_jax_digests(cuda_device):
+    """The trivial step on both sides at k = 16 on the mock keys, on the
+    card: pp digests and both accumulators after new and one fold_step equal
+    the JAX package's run frozen in `util/golden.py`."""
+    from sirius_tpu_torch.util import golden
+
+    d1, d2, new, step, _ = _sangria_k16_digests(cuda_device)
+    assert (d1, d2) == (golden.SANGRIA_IVC_K16_PP_DIGEST_1, golden.SANGRIA_IVC_K16_PP_DIGEST_2)
+    assert new == golden.SANGRIA_IVC_K16_NEW and step == golden.SANGRIA_IVC_K16_STEP
+
+
+@pytest.mark.gpu
+def test_sangria_ivc_poseidon_step_on_the_card_equals_the_cpu(cuda_device):
+    """The Poseidon step circuit on the primary (6 cross terms, 1 challenge)
+    at k = 16 on the mock keys: the card's run equals the port's CPU run."""
+    from sirius_tpu_torch.gadgets.poseidon_step_circuit import PoseidonStepCircuit
+
+    card = _sangria_k16_digests(cuda_device, PoseidonStepCircuit(bn256_fr))
+    assert card == _sangria_k16_digests("cpu", PoseidonStepCircuit(bn256_fr))
+
+
+@pytest.mark.gpu
+def test_msm_many_at_the_sangria_cross_terms_shape_bn256(cuda_device):
+    """msm_many at a Sangria step's cross terms on bn256 (t = 5, 2^17
+    points: 512 points a lane at 256 groups) equals best_msm, in one
+    madd_buckets launch."""
+    from sirius_tpu_torch.ops.madd import madd_buckets
+
+    t, n = 5, 1 << 17
+    ck = CommitmentKey.setup(BN256_G1, 17, b"torch-gpu-test", use_cache=False, device=cuda_device)
+    S = _random_scalars(cuda_device, (t, n), 17)
+    S[0, : n // 2] = 0
+    S[3, 1000:9000] = S[3, 999]
+    before = (madd_buckets.launches, madd_batch.launches)
+    got = msm_many(BN256_G1, S, ck.points)
+    assert (madd_buckets.launches, madd_batch.launches) == (before[0] + 1, before[1])
+    assert got == [best_msm(BN256_G1, S[i], ck.points) for i in range(t)]
