@@ -27,9 +27,12 @@
    rolled, carry-chain, rolled carry-chain: B3's, wide), microseconds per
    product.
 2. Keys: the bn256 2^20 key (b"bench-primary") and the grumpkin 2^20 key
-   (b"bench-support"), derived on the device; the grumpkin key's first 2^17
-   points are the support key of the Cyclefold phases (a SHAKE-256 stream
-   over the label: the same points as a 2^17 setup).
+   (b"bench-support"), derived on the device in chunks of
+   `DEVICE_SETUP_CHUNK` points, each setup's seconds, peak device memory
+   (`max_memory_allocated` after `reset_peak_memory_stats`) and the host
+   seconds of its square roots (span `h2c_sqrt`); the grumpkin key's first
+   2^17 points are the support key of the Cyclefold phases (a SHAKE-256
+   stream over the label: the same points as a 2^17 setup).
 3. Holds every kernel against its plain torch twin on the card, on the same
    inputs: B1 madd bit-exact on 2^16 pairs per curve and at the cross-term
    step shape (timed from a CUDA graph, beside its bytes at the int64
@@ -104,6 +107,22 @@
    best_msm and to the step's commits, the walk, msm_many and best_msm on
    the same five vectors timed; B2 at grumpkin's 917,504-point W commit
    against its twin, timed.
+10. The lookup path: the K = 5 traces of `tests/test_lookup.py`'s range
+   (2-round SPS) and vector-range (3-round) circuits on the card must equal
+   the JAX package's digests frozen in `util/golden.py` (words, commitments,
+   challenges); then at k = 17 on the bn256 2^20 key (launch counts from
+   here, per circuit) the range circuit (a byte table, row % 256 over all
+   rows, and 2^17 seeded values: W1 4 x 2^17 scalars) and the fibo-xor
+   circuit (a 2^16-row XOR table of 8-bit values, a chain over all 2^17
+   rows: W rounds 3, 3 and 2 x 2^17): two SPS (m_count must launch once
+   each), is_sat clean, one changed advice value failing the log-derivative
+   check, a Sangria fold of the second trace into the relaxed first
+   (verify equal to the prover's instance, is_sat clean) and a ProtoGalaxy
+   fold with L = 1 (the same), seconds of each and the spans; m_count,
+   B1's bucket walk, B2 and B3 must have launched; m_count on the first
+   trace's l and t equal to `m_count_plain` and to the trace's m column,
+   timed from a CUDA graph and back to back beside its plain version and
+   its bound.
    Then every MSM, madd and NTT kernel's registers, local (spill) bytes per
    thread, shared bytes and SASS instruction count, the SASS of mul_rows on
    each product (IMAD-class by opcode, IMAD.WIDE and IADD3 counts) and of
@@ -114,6 +133,9 @@ and what sets it, launches on the path that runs the kernel: B1's bucket
 walk, B2 and B3 on the Cyclefold IVC path, B4, its epilogue pass (an entry of its
 own) and the K = 1 product on the NTT path; the walk on each curve and B2 at
 grumpkin's W commit (entries of their own) on the Sangria path;
+`m_count` (the scalar lookup's l and t, timed from a CUDA graph) and
+`m_count_vector` (the vector lookup's) on the lookup path, which replace no
+Pallas kernel (`replaces` names the JAX package's jitted sort);
 the probes S1-S4 and B1's batched madd run on no path but their own timed
 runs, which are counted, a CUDA graph's replays included (S1's time is its
 wrapper's on CUDA events, as every entry's but S2's, S3's, S4's and the
@@ -153,27 +175,33 @@ import torch
 from sirius_tpu_torch.curves.hash_to_curve import hash_bytes_to_point
 from sirius_tpu_torch.curves.jpoint import BN256_G1, GRUMPKIN, Points
 from sirius_tpu_torch.fields import gold
-from sirius_tpu_torch.fields.constants import bn256_fr
+from sirius_tpu_torch.fields.constants import bn256_fq, bn256_fr, bn256_g1
 from sirius_tpu_torch.fields.jfield import FQ, FR, ints_to_words
+from sirius_tpu_torch.frontend.runner import CircuitRunner
 from sirius_tpu_torch.ivc.cyclefold_ivc import CyclefoldIVC, CyclefoldPublicParams
 from sirius_tpu_torch.ivc.sangria_ivc import IVC as SangriaIVC
 from sirius_tpu_torch.ivc.sangria_ivc import PublicParams as SangriaPublicParams
 from sirius_tpu_torch.ivc.step_circuit import TrivialStepCircuit
 from sirius_tpu_torch.ivc.support_fold import SupportFoldChain, random_input, support_structure
-from sirius_tpu_torch.nifs.protogalaxy import AccumulatorInstance
-from sirius_tpu_torch.nifs.sangria import RelaxedPlonkTrace, RelaxedPlonkWitness, VanillaFS
+from sirius_tpu_torch.nifs.protogalaxy import AccumulatorInstance, ProtoGalaxy
+from sirius_tpu_torch.nifs.sangria import RelaxedPlonkInstance, RelaxedPlonkTrace, RelaxedPlonkWitness, VanillaFS
 from sirius_tpu_torch.ops import _build, field_kernels as fk, madd as madd_mod, microbench as mb, msm_kernels as mk
-from sirius_tpu_torch.ops import ntt_kernels
-from sirius_tpu_torch.ops.commitment import CommitmentKey
+from sirius_tpu_torch.ops import lookup_kernels, ntt_kernels
+from sirius_tpu_torch.ops.commitment import DEVICE_SETUP_CHUNK, CommitmentKey
 from sirius_tpu_torch.ops.msm import FAN_IN, MANY_GROUPS, MANY_WINDOW_BITS, best_msm, bucket_plan, bucket_plan_plain
 from sirius_tpu_torch.ops.msm import msm_many
 from sirius_tpu_torch.ops.msm import split_segments
 from sirius_tpu_torch.ops.ntt import NTT
+from sirius_tpu_torch.ops.poseidon import PoseidonHash, poseidon_spec
+from sirius_tpu_torch.plonk import satisfy
+from sirius_tpu_torch.ops.lookup_kernels import m_count_plain
+from sirius_tpu_torch.plonk.sps import run_sps_protocol
 from sirius_tpu_torch.util import golden
 from sirius_tpu_torch.util.golden import pg_acc_digest, sangria_acc_digest
 from sirius_tpu_torch.util.interop import limbs_to_words
 from sirius_tpu_torch.util.profiling import profiler
-from sirius_tpu_torch.util.testing import MockCommitmentKey, reference_msm
+from sirius_tpu_torch.util.testing import (FiboXorLookupCircuit, MockCommitmentKey, RangeCircuit, VectorRangeCircuit,
+                                           reference_msm)
 
 from msm_turns import gpu_ms, graph_ms, kernel_ms
 
@@ -227,6 +255,20 @@ SANGRIA_GOLDEN_K = 16  # the JAX package's run frozen in util/golden.py
 SANGRIA_Z0 = ([0x11], [0x22])  # examples/sangria_trivial.py:49-52
 SANGRIA_STEPS = 2
 SANGRIA_CROSS = (CROSS_TERMS, 1 << SANGRIA_K)  # msm_many on a step's cross terms: (t, n), both curves
+LOOKUP_GOLDEN_K, LOOKUP_GOLDEN_KEY_LOG = 5, 9  # tests/test_lookup.py's K and key, frozen in util/golden.py
+LOOKUP_K = 17  # the lookup phase's traces, on the bn256 2^20 key
+LOOKUP_TABLE = 256  # sirius_tpu/gadgets/range_step_circuit.py:19: the range check's byte table
+LOOKUP_XOR_BITS = 8  # the fibo-xor circuit's table: 2^16 rows of (x, y, x ^ y)
+
+
+def lookup_ro() -> PoseidonHash:
+    """The SPS and Sangria transcripts of the lookup phase (tests/test_lookup.py's)."""
+    return PoseidonHash(poseidon_spec(bn256_fq, 3, 2, 4, 3))
+
+
+def pg_ro() -> PoseidonHash:
+    """ProtoGalaxy's transcript over the scalar field (tests/test_protogalaxy.py's)."""
+    return PoseidonHash(poseidon_spec(bn256_fr, 3, 2, 4, 3))
 
 
 def log(msg: str) -> None:
@@ -637,16 +679,25 @@ def main() -> int:
         return [sum(int(v) << (16 * i) for i, v in enumerate(row)) for row in limbs]
 
     # ---- keys -------------------------------------------------------------------
-    t0 = time.perf_counter()
-    ck1 = CommitmentKey.setup(BN256_G1, PRIMARY_LOG, b"bench-primary", use_cache=False, device=dev)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    ck2 = CommitmentKey.setup(GRUMPKIN, GRUMPKIN_KEY_LOG, b"bench-support", use_cache=False, device=dev)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    # each setup's peak device memory (maps of DEVICE_SETUP_CHUNK points) and its square roots' span
+    profiler.enable()
+    keys = []
+    for curve, log_n, label in ((BN256_G1, PRIMARY_LOG, b"bench-primary"), (GRUMPKIN, GRUMPKIN_KEY_LOG,
+                                                                             b"bench-support")):
+        span_seconds()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = synced()
+        keys.append(CommitmentKey.setup(curve, log_n, label, use_cache=False, device=dev))
+        dt = synced() - t0
+        peak = torch.cuda.max_memory_allocated()
+        log(f"key {curve.spec.name} 2^{log_n}: {dt:.2f} s, peak device memory {peak} B = {peak / 2**30:.3f} GiB "
+            f"(max_memory_allocated; chunks of {DEVICE_SETUP_CHUNK} points); spans (host seconds): "
+            + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items()) + f"  [{card}]")
+    profiler.enabled = False
+    ck1, ck2 = keys
     sup = Points(*(c[: 1 << SUPPORT_KEY_LOG] for c in ck2.points))  # the support key: the Cyclefold phases' points
-    log(f"keys: bn256 2^{PRIMARY_LOG} {t1 - t0:.2f} s, grumpkin 2^{GRUMPKIN_KEY_LOG} {t2 - t1:.2f} s (its first "
-        f"2^{SUPPORT_KEY_LOG} points are the support key)  [{card}]")
+    log(f"keys: bn256 2^{PRIMARY_LOG}, grumpkin 2^{GRUMPKIN_KEY_LOG} (its first 2^{SUPPORT_KEY_LOG} points are the "
+        f"support key)")
     # spot-check the device hash-to-curve against the host map
     for ck, curve in ((ck1, BN256_G1), (ck2, GRUMPKIN)):
         stream = hashlib.shake_256(ck.label).digest(64 * 4)
@@ -1250,6 +1301,133 @@ def main() -> int:
         f"bit-exact; msm_accumulate {ms_acc:.6f} ms (plain {plain_acc:.4f} ms, bound {e['bound_ms']:.7f} ms, "
         f"{e['bound_by']})  [{card}]")
     del sivc, spp, captured
+
+    # ---- the lookup path: the 2- and 3-round SPS, Sangria and ProtoGalaxy over lookup traces ----------------
+    # against the JAX package: the K = 5 traces of tests/test_lookup.py, on the card, equal the digests frozen from it
+    t0 = time.perf_counter()
+    small_ck = CommitmentKey.setup(BN256_G1, LOOKUP_GOLDEN_KEY_LOG, b"lookup-test", use_cache=False, device=dev)
+    for circuit, frozen in ((RangeCircuit([3, 7, 15, 0, 1, 1, 5]), golden.LOOKUP_RANGE_K5_TRACE),
+                            (VectorRangeCircuit([2, 3, 5, 7, 11]), golden.LOOKUP_VECTOR_K5_TRACE)):
+        runner = CircuitRunner(LOOKUP_GOLDEN_K, bn256_fr, circuit, circuit.instances())
+        tr = run_sps_protocol(runner.collect_plonk_structure(), small_ck, circuit.instances(),
+                              runner.collect_witness(), lookup_ro())
+        got = golden.plonk_trace_digest([w.cpu().numpy() for w in tr.w.W], tr.u)
+        check(got == frozen, f"the K = {LOOKUP_GOLDEN_K} {type(circuit).__name__} trace on the card differs from the "
+              f"JAX package's frozen digest: {got}")
+    log(f"lookup traces at K = {LOOKUP_GOLDEN_K} (tests/test_lookup.py's RangeCircuit, 2 rounds, and "
+        f"VectorRangeCircuit, 3 rounds) on the card: every W round's words, the commitments and the challenges equal "
+        f"the JAX package's digests frozen in util/golden.py ({synced() - t0:.2f} s)  [{card}]")
+    del small_ck
+
+    n = 1 << LOOKUP_K
+    lrng = np.random.default_rng(SEED + LOOKUP_K)
+    draws = [lrng.integers(0, LOOKUP_TABLE, size=n).tolist() for _ in range(2)]
+    cases = [("range: scalar lookup, 2 rounds", "m_count", [RangeCircuit(v, LOOKUP_K, LOOKUP_TABLE) for v in draws],
+              (0, 7, LOOKUP_TABLE)),
+             ("fibo-xor: vector lookup, 3 rounds", "m_count_vector",
+              [FiboXorLookupCircuit(a, b, n, LOOKUP_XOR_BITS) for a, b in ((1, 2), (3, 5))], (2, 5, None))]
+    for label, entry, circuits, (col, row, value) in cases:
+        profiler.enable()
+        span_seconds()
+        for fn in (*counters, madd_mod.madd_batch, lookup_kernels.m_count):
+            fn.launches = 0
+        secs = {}
+        t0 = synced()
+        runners = [CircuitRunner(LOOKUP_K, bn256_fr, c, c.instances()) for c in circuits]
+        S = runners[0].collect_plonk_structure()
+        witnesses = [r.collect_witness() for r in runners]
+        secs["synthesis (2 traces)"] = synced() - t0
+        traces = []
+        for i, (c, w) in enumerate(zip(circuits, witnesses)):
+            t0 = synced()
+            traces.append(run_sps_protocol(S, ck1, c.instances(), w, lookup_ro()))
+            secs[f"sps {i + 1}"] = synced() - t0
+        tr1, tr2 = traces
+        check(lookup_kernels.m_count.launches == 2, f"{label}: m_count launched {lookup_kernels.m_count.launches} "
+              f"times in two SPS runs")
+        t0 = synced()
+        satisfy.is_sat(S, ck1, lookup_ro(), tr1.u, tr1.w)
+        secs["is_sat"] = synced() - t0
+        # one changed advice value: its row leaves the table, and the log-derivative sums differ
+        bad = [list(c) for c in witnesses[0]]
+        bad[col][row] = value if value is not None else bad[col][row] ^ 1
+        tr_bad = run_sps_protocol(S, ck1, circuits[0].instances(), bad, lookup_ro())
+        check(not satisfy.is_sat_log_derivative(S, tr_bad.w), f"{label}: a changed advice value passed the "
+              f"log-derivative check")
+        # Sangria: the relaxed first trace folds the second
+        acc = RelaxedPlonkTrace(RelaxedPlonkInstance.from_instance(bn256_g1, tr1.u),
+                                RelaxedPlonkWitness.from_regular(tr1.w, LOOKUP_K, S.field))
+        pp, vp = VanillaFS.setup_params(gold.identity(bn256_g1), S)
+        t0 = synced()
+        s_acc, cts = VanillaFS.prove(ck1, pp, lookup_ro(), acc, tr2)
+        secs["sangria prove"] = synced() - t0
+        t0 = synced()
+        s_ver = VanillaFS.verify(vp, bn256_g1, lookup_ro(), lookup_ro(), acc.U, tr2.u, cts)
+        secs["sangria verify"] = synced() - t0
+        check(s_ver == s_acc.U, f"{label}: Sangria verify differs from the prover's instance")
+        t0 = synced()
+        errors = VanillaFS.is_sat(ck1, S, s_acc, [tr1.u.instances, tr2.u.instances])
+        secs["sangria is_sat"] = synced() - t0
+        check(errors == [], f"{label}: Sangria is_sat reported {errors}")
+        # ProtoGalaxy, L = 1
+        gpp, gvp = ProtoGalaxy.setup_params(gold.identity(bn256_g1), S)
+        t0 = synced()
+        g_acc = ProtoGalaxy.new_accumulator(gpp, pg_ro(), tr1, bn256_g1)
+        secs["protogalaxy new"] = synced() - t0
+        t0 = synced()
+        g_new, proof = ProtoGalaxy.prove(ck1, gpp, pg_ro(), g_acc, [tr2])
+        secs["protogalaxy prove"] = synced() - t0
+        t0 = synced()
+        g_ver = ProtoGalaxy.verify(gvp, bn256_fr, lookup_ro(), pg_ro(), AccumulatorInstance.from_acc(g_acc),
+                                   [tr2.u], proof)
+        secs["protogalaxy verify"] = synced() - t0
+        check(g_ver == AccumulatorInstance.from_acc(g_new), f"{label}: ProtoGalaxy verify differs from the prover's "
+              f"instance")
+        t0 = synced()
+        errors = ProtoGalaxy.is_sat(ck1, S, g_new)
+        secs["protogalaxy is_sat"] = synced() - t0
+        check(errors == [], f"{label}: ProtoGalaxy is_sat reported {errors}")
+        spans = span_seconds()
+        profiler.enabled = False
+        path = {fn.__name__: fn.launches for fn in (*counters, lookup_kernels.m_count)}
+        for name, count in path.items():
+            check(count > 0, f"kernel {name} never launched on the lookup path ({label})")
+        check(madd_mod.madd_batch.launches == 0, f"the lookup path ({label}) launched the batched madd")
+        log(f"lookups k={LOOKUP_K}, {label} (W rounds {S.round_sizes}, {S.num_challenges} challenges, "
+            f"{S.get_degree_for_folding() - 1} Sangria cross terms): "
+            + ", ".join(f"{k} {v:.4f} s" for k, v in secs.items()) + "; spans: "
+            + ", ".join(f"{k} {v:.4f} s" for k, v in spans.items()) + f"; launch counts {path}  [{card}]")
+        log(f"  Sangria: verify equals the prover's instance, is_sat []; ProtoGalaxy L = 1: verify equals the "
+            f"prover's instance, is_sat []; a changed advice value (column {col}, row {row}) fails the log-derivative "
+            f"check; digests: sangria_acc_digest {sangria_acc_digest(s_ver)}, pg_acc_digest {pg_acc_digest(g_ver)}")
+
+        # the kernel against its plain version on the path's l and t (trace 1's), timed
+        W_lt = tr1.w.W[1] if S.has_vector_lookup() else tr1.w.W[0]
+        off = 0 if S.has_vector_lookup() else S.num_advice_columns * n
+        l, t, m = (W_lt[off + i * n : off + (i + 1) * n] for i in range(3))
+        got = lookup_kernels.m_count(l, t)
+        want = m_count_plain(l, t)
+        err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        check(err == 0, f"m_count disagrees with m_count_plain on the {label} path's l and t")
+        std = FR.from_mont(m)
+        check(bool((std[:, 0] == got.to(torch.int64)).all() and (std[:, 1:] == 0).all()),
+              f"the {label} trace's m column is not the kernel's counts")
+        ms, extra = graph_ms(lambda: lookup_kernels.m_count(l, t), launches=50)
+        back_to_back = gpu_ms(lambda: lookup_kernels.m_count(l, t), reps=20)
+        plain = gpu_ms(lambda: m_count_plain(l, t), reps=3)
+        cap = lookup_kernels.table_capacity(n)
+        record(entry, "sirius_tpu_torch/csrc/lookup.cu", "sirius_tpu/plonk/lookup.py:54", err, ms, plain, 0,
+               2 * FE * n + 4 * cap + 4 * n)
+        kernels[entry]["launches"] = path["m_count"]
+        e = kernels[entry]
+        distinct = int((want > 0).sum())
+        log(f"m_count (csrc/lookup.cu; no Pallas counterpart: the JAX package's jitted sort, "
+            f"sirius_tpu/plonk/lookup.py:54) on the {label} path's l and t ({n} rows each, {distinct} table rows "
+            f"earn counts, {int(want.sum())} of {n} l rows hit; table {cap} slots): equals m_count_plain and the "
+            f"trace's m column; {ms:.6f} ms a call from a CUDA graph of its launches (its insert and probe, and the "
+            f"table's and counts' fills), {back_to_back:.6f} ms back to back, plain {plain:.4f} ms, bound "
+            f"{e['bound_ms']:.7f} ms ({e['bound_by']}: 2 x {n} x 32 B read, {4 * cap} B of table, {4 * n} B of "
+            f"counts), library: none; launches on its path {path['m_count']}  [{card}]")
 
     for name, attrs_of in [(k, mk.msm_kernel_attrs) for k in mk.MSM_KERNELS] + [
             (k, madd_mod.madd_kernel_attrs) for k in madd_mod.MADD_KERNELS]:

@@ -7,7 +7,8 @@ output.
 
 Batched square roots: p = 3 (mod 4) uses a^((p+1)/4); p = 1 (mod 4)
 (grumpkin's base field, bn256 Fr, 2-adicity 28) uses a constant-iteration
-Tonelli-Shanks.  The whole key maps in one call.
+Tonelli-Shanks (one exponentiation a^((Q-1)/2) serves both of its
+starting values).  `ops/commitment.py` maps a key in chunks.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 from ..fields.constants import CurveSpec
 from ..fields.gold import AffinePoint
 from ..util.device import resolve
+from ..util.profiling import span
 from .jpoint import Curve, Points
 
 
@@ -146,8 +148,9 @@ def _sqrt_device(f, a):
     shape, dev = a.shape[:-1], a.device
     one = f.ones(shape, dev)
     c = f.const(pow(z, Q, p), shape, dev)
-    t = f.pow_int(a, Q)
-    R = f.pow_int(a, (Q + 1) // 2)
+    x = f.pow_int(a, (Q - 1) // 2)
+    R = f.mul(a, x)  # a^((Q + 1) / 2)
+    t = f.mul(R, x)  # a^Q
     for i in range(S - 1, 0, -1):
         b = t
         for _ in range(i - 1):  # b = t^(2^(i-1)) is +-1 for a residue
@@ -186,7 +189,8 @@ def svdw_map_device(curve: Curve, u_std: torch.Tensor) -> Points:
 
     xs = torch.cat([x1, x2, x3])
     gxs = g(xs)
-    ys = _sqrt_device(f, gxs)
+    with span("h2c_sqrt"):
+        ys = _sqrt_device(f, gxs)
     ok = f.eq(f.square(ys), gxs) | f.is_zero(gxs)
     sq1, sq2 = ok[:n], ok[n : 2 * n]
     x = f.select(sq1, x1, f.select(sq2, x2, x3))

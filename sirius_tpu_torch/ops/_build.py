@@ -52,6 +52,8 @@ _SIGNATURES = {
     "sirius_mul_rows_attrs": [I, P],
     "sirius_raw_u32": [P] * 2 + [LL, I, I, P],
     "sirius_add_one": [P] * 2 + [LL, P],
+    "sirius_lookup_insert": [P] * 2 + [LL, LL, P],
+    "sirius_lookup_probe": [P] * 4 + [LL, LL, LL, P],
 }
 _BUILT_HERE = False
 

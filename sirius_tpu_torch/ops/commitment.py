@@ -1,7 +1,8 @@
 """Pedersen vector commitments over a fixed generator key.
 
 Counterpart of `sirius_tpu/ops/commitment.py`.  `setup` derives 2^k
-generators from a Shake256 XOF over the label through SVDW hash-to-curve;
+generators from a Shake256 XOF over the label through SVDW hash-to-curve
+(on the device in chunks of `DEVICE_SETUP_CHUNK` points);
 commits are MSMs over the first len(v) generators (`ops/msm.py`).  Keys
 cache as `CACHE_DIR/<curve>-<label>-<k>.npz` with the JAX package's packed
 format ((n, 8) uint32 Montgomery words `xw`, `yw`; z = 1 implied), so a key
@@ -33,6 +34,11 @@ CACHE_DIR = os.environ.get("SIRIUS_TPU_CACHE", os.path.expanduser("~/.cache/siri
 
 # below this size the host map is cheaper than a batched device map
 DEVICE_SETUP_MIN = 4096
+# points per batched device map: its working set bounds the setup's peak
+# device memory whatever the key size (a field product over the 6 x chunk
+# rows of the square roots builds a (16, 16, 6 x chunk) int64 tensor: 0.8 GB
+# at 2^16); the JAX package maps in the same chunks
+DEVICE_SETUP_CHUNK = 1 << 16
 
 
 class CommitmentError(Exception):
@@ -99,7 +105,10 @@ class CommitmentKey:
 
         stream = hashlib.shake_256(label).digest(64 * n)
         if n >= DEVICE_SETUP_MIN:
-            pts = hash_bytes_to_points_device(curve, stream, device)
+            step = DEVICE_SETUP_CHUNK
+            parts = [hash_bytes_to_points_device(curve, stream[64 * i : 64 * (i + step)], device)
+                     for i in range(0, n, step)]
+            pts = Points(*(torch.cat(coords) for coords in zip(*parts)))
         else:
             affine = [hash_bytes_to_point(curve.spec, stream[64 * i : 64 * (i + 1)]) for i in range(n)]
             pts = curve.encode(affine, device)

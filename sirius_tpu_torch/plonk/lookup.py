@@ -1,9 +1,22 @@
-"""Protostar log-derivative lookup arguments: the structure-time part.
+"""Protostar log-derivative lookup arguments.
 
-Counterpart of the host half of `sirius_tpu/plonk/lookup.py`: compression of
-lookup/table expressions and the constraint expressions they add to the
-gates, which the runner and structure need.  The prover passes (multiplicity
-count, h/g vectors) belong to the 2/3-challenge SPS rounds, not ported yet.
+Counterpart of `sirius_tpu/plonk/lookup.py` (reference `src/plonk/lookup.rs`).
+Per lookup the five per-row vectors are (l, t, m, h, g):
+
+    l = L(x..)   the compressed input expression
+    t = T(y..)   the compressed table expression
+    m_i          the number of rows of l equal to t_i, at the first
+                 occurrence of t_i only
+    h = 1/(l + r),  g = m/(t + r)    (zeros where the denominator is 0)
+    sum h == sum g   (the log-derivative identity)
+
+The structure-time half compresses the expressions and adds their
+constraints to the gates.  The prover passes (`evaluate_coefficient_1`,
+`ArgumentCoefficient1.evaluate_coefficient_2`) keep every vector as an
+(n, 8) Montgomery tensor on the witness's device: l and t through the gate
+evaluator, m through `ops/lookup_kernels.m_count` (the hash-table kernel on
+a CUDA tensor, its plain version `m_count_plain` beside it on a CPU one), h
+and g by batch inversion.
 """
 
 from __future__ import annotations
@@ -11,7 +24,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
+import torch
+
+from ..fields.jfield import WORDS
+from ..ops.lookup_kernels import m_count, m_count_plain  # noqa: F401 (m's plain version, importable here)
 from ..poly.expression import Challenge, Constant, Expression, Poly, Query, compress_expression
+from ..util.profiling import span
 
 
 @dataclass
@@ -54,3 +72,55 @@ class LookupArguments:
 
     def to_expressions(self, lookup_offset: int) -> list[Expression]:
         return self.vanishing_lookup_polys(lookup_offset) + self.log_derivative_lhs_and_rhs(lookup_offset)
+
+    # -- prover passes (reference `lookup.rs:213-320`) -------------------------------
+    def evaluate_coefficient_1(self, S, advice: torch.Tensor, r: int) -> "ArgumentCoefficient1":
+        """l and t per row, then m.  `advice`: the advice columns as one
+        (num_advice * n, 8) Montgomery tensor (the first W round's head);
+        queries resolve to selectors, then fixed columns, then advice, and
+        every challenge to r (the vector lookups' compression challenge)."""
+        from .eval import PlonkEvalDomain
+
+        f, n = S.field, S.n
+        with span("lookup_l_t"):
+            outs = PlonkEvalDomain(S, [f.encode(r % f.p, advice.device)], [advice], []).evaluate(
+                self.lookup_polys + self.table_polys)
+            outs = [o.expand(n, WORDS).contiguous() for o in outs]
+        ls, ts = outs[: self.num_lookups()], outs[self.num_lookups() :]
+        with span("lookup_m"):
+            ms = []
+            for l, t in zip(ls, ts):
+                words = torch.zeros((n, WORDS), dtype=torch.int64, device=t.device)
+                words[:, 0] = m_count(l, t)
+                ms.append(f.to_mont(words))
+        return ArgumentCoefficient1(S, ls, ts, ms)
+
+
+@dataclass
+class ArgumentCoefficient1:
+    """The (l, t, m) vectors of each lookup, (n, 8) Montgomery tensors."""
+
+    S: object
+    ls: list[torch.Tensor]
+    ts: list[torch.Tensor]
+    ms: list[torch.Tensor]
+
+    def evaluate_coefficient_2(self, r: int) -> "ArgumentCoefficient2":
+        """h = 1/(l + r), g = m/(t + r), zeros where l + r or t + r is 0
+        (reference `evaluate_h_g`)."""
+        f = self.S.field
+        hs, gs = [], []
+        with span("lookup_h_g"):
+            for l, t, m in zip(self.ls, self.ts, self.ms):
+                rr = f.encode(r % f.p, l.device)
+                hs.append(f.batch_inv(f.add(l, rr)))
+                gs.append(f.mul(m, f.batch_inv(f.add(t, rr))))
+        return ArgumentCoefficient2(hs, gs)
+
+
+@dataclass
+class ArgumentCoefficient2:
+    """The (h, g) vectors of each lookup."""
+
+    hs: list[torch.Tensor]
+    gs: list[torch.Tensor]

@@ -1,9 +1,22 @@
 """Special-soundness protocol: witness commitment rounds + challenges.
 
-Counterpart of `sirius_tpu/plonk/sps.py` for 0 challenges (single gate, no
-lookup: commit(advice)) and 1 challenge (several gates, no lookup:
-[instances] [C1] ]r1[).  The 2/3-challenge lookup rounds are not ported yet
-and raise.  The transcript runs on the host between device commits.
+Counterpart of `sirius_tpu/plonk/sps.py` (reference `src/plonk/mod.rs:402-663`
+and `src/sps.rs`).  Round count = num_challenges (0..3):
+
+  0: single gate, no lookup:     commit(advice)
+  1: several gates, no lookup:   [instances] [C1] ]r1[
+  2: lookup, no vector lookup:   W1 = advice ++ (l, t, m) at r = 0;
+                                 [instances] [C1] ]r1[, W2 = (h, g) at r1,
+                                 [C2] ]r2[
+  3: vector lookup:              [instances], W1 = advice, [C1] ]r1[,
+                                 W2 = (l, t, m) at r1, [C2] ]r2[,
+                                 W3 = (h, g) at r2, [C3] ]r3[
+
+The transcript runs on the host between device commits; the lookup vectors
+stay on the key's device (`plonk/lookup.py`).  One lookup argument at most:
+with several, the JAX package writes them one after another (l0, l1, ..,
+t0, ..) while its witness index map and log-derivative check read them
+interleaved (l0, t0, m0, l1, ..); the port raises rather than inherit that.
 """
 
 from __future__ import annotations
@@ -43,20 +56,49 @@ def concat_with_padding(f: Field, cols: Sequence[Sequence[int]], n: int, device)
     return f.encode(flat, device)
 
 
+def _commit_and_squeeze(ck, ro_nark: PoseidonHash, W: torch.Tensor) -> tuple:
+    C = ck.commit_device(W)
+    ro_nark.absorb_point(C)
+    return C, ro_nark.squeeze(NUM_CHALLENGE_BITS)
+
+
 def run_sps_protocol(S: PlonkStructure, ck, instances, advice, ro_nark: PoseidonHash) -> PlonkTrace:
     """PlonkTrace of a synthesized witness; tensors live on the key's device."""
     f = S.field
     nc = S.num_challenges
-    if nc > 1:
-        raise SpsError(f"{nc}-challenge (lookup) SPS is not ported")
-    W1 = concat_with_padding(f, advice, S.n, ck.device)
-    C1 = ck.commit_device(W1)
-    challenges = []
+    if nc > 3:
+        raise SpsError(f"unsupported challenge count {nc}")
+    la = S.lookup_arguments
+    if nc >= 2 and la is None:
+        raise SpsError("lookup arguments required for >=2 challenges")
+    if nc >= 2 and la.num_lookups() > 1:
+        raise SpsError(f"{la.num_lookups()} lookup arguments: the rounds hold one (see the module docstring)")
+    adv = concat_with_padding(f, advice, S.n, ck.device)
+    insts = [list(i) for i in instances]
+    if nc == 0:
+        return PlonkTrace(PlonkInstance([ck.commit_device(adv)], insts, []), PlonkWitness([adv]))
     if nc == 1:
         _absorb_instances(ro_nark, instances)
-        ro_nark.absorb_point(C1)
-        challenges.append(ro_nark.squeeze(NUM_CHALLENGE_BITS))
-    return PlonkTrace(PlonkInstance([C1], [list(i) for i in instances], challenges), PlonkWitness([W1]))
+        C1, r1 = _commit_and_squeeze(ck, ro_nark, adv)
+        return PlonkTrace(PlonkInstance([C1], insts, [r1]), PlonkWitness([adv]))
+    if nc == 2:
+        c1 = la.evaluate_coefficient_1(S, adv, 0)
+        W1 = torch.cat([adv, *c1.ls, *c1.ts, *c1.ms])
+        _absorb_instances(ro_nark, instances)
+        C1, r1 = _commit_and_squeeze(ck, ro_nark, W1)
+        c2 = c1.evaluate_coefficient_2(r1)
+        W2 = torch.cat([*c2.hs, *c2.gs])
+        C2, r2 = _commit_and_squeeze(ck, ro_nark, W2)
+        return PlonkTrace(PlonkInstance([C1, C2], insts, [r1, r2]), PlonkWitness([W1, W2]))
+    _absorb_instances(ro_nark, instances)
+    C1, r1 = _commit_and_squeeze(ck, ro_nark, adv)
+    c1 = la.evaluate_coefficient_1(S, adv, r1)
+    W2 = torch.cat([*c1.ls, *c1.ts, *c1.ms])
+    C2, r2 = _commit_and_squeeze(ck, ro_nark, W2)
+    c2 = c1.evaluate_coefficient_2(r2)
+    W3 = torch.cat([*c2.hs, *c2.gs])
+    C3, r3 = _commit_and_squeeze(ck, ro_nark, W3)
+    return PlonkTrace(PlonkInstance([C1, C2, C3], insts, [r1, r2, r3]), PlonkWitness([adv, W2, W3]))
 
 
 def sps_verify(U: PlonkInstance, ro_nark: PoseidonHash) -> None:

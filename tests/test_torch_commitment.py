@@ -12,6 +12,7 @@ from sirius_tpu.curves import hash_to_curve as jh2c
 from sirius_tpu.curves.jpoint import BN256_G1 as J_BN256
 from sirius_tpu.curves.jpoint import GRUMPKIN as J_GRUMPKIN
 from sirius_tpu.ops import commitment as jcommit
+from sirius_tpu_torch.curves import hash_to_curve as h2c
 from sirius_tpu_torch.curves.hash_to_curve import hash_bytes_to_point, hash_bytes_to_points_device
 from sirius_tpu_torch.curves.jpoint import BN256_G1, GRUMPKIN
 from sirius_tpu_torch.ops import commitment as tcommit
@@ -108,3 +109,60 @@ def test_legacy_limb_cache_with_jacobian_points_is_normalized(tmp_path, monkeypa
     _save_legacy(tmp_path / "bn256_g1-inf-4.npz", key.x, key.y, z)
     with pytest.raises(tcommit.CommitmentError, match="infinity"):
         tcommit.CommitmentKey.setup(tc, 4, b"inf", use_cache=True, device="cpu")
+
+
+@pytest.mark.parametrize("jc,tc", PAIRS, ids=IDS)
+def test_chunked_device_setup_equals_one_map(monkeypatch, jc, tc):
+    """The device setup maps the stream in chunks of DEVICE_SETUP_CHUNK
+    points: lowered to 8 (and DEVICE_SETUP_MIN to 8) at 2^5 points, four
+    chunks and a boundary every 8 points, the key equals one map of the
+    whole stream and the JAX package's key word for word."""
+    n = 1 << 5
+    monkeypatch.setattr(tcommit, "DEVICE_SETUP_MIN", 8)
+    monkeypatch.setattr(tcommit, "DEVICE_SETUP_CHUNK", 8)
+    chunked = tcommit.CommitmentKey.setup(tc, 5, b"chunked", use_cache=False, device="cpu").points
+    stream = hashlib.shake_256(b"chunked").digest(64 * n)
+    whole = hash_bytes_to_points_device(tc, stream, "cpu")
+    for a, b in zip(chunked, whole):
+        assert a.shape == (n, 8) and torch.equal(a, b)
+    jck = jcommit.CommitmentKey.setup(jc, 5, b"chunked", use_cache=False)
+    for t, j in zip(chunked, jck.points):
+        assert np.array_equal(to_numpy(t), np.asarray(j))
+
+
+def _sqrt_two_exponentiations(f, a):
+    """The square root as it was: Tonelli-Shanks started from a^Q and
+    a^((Q + 1) / 2), two exponentiations."""
+    S, Q, z = h2c._ts_constants(f.p)
+    shape = a.shape[:-1]
+    one = f.ones(shape, "cpu")
+    c = f.const(pow(z, Q, f.p), shape, "cpu")
+    t = f.pow_int(a, Q)
+    R = f.pow_int(a, (Q + 1) // 2)
+    for i in range(S - 1, 0, -1):
+        b = t
+        for _ in range(i - 1):
+            b = f.square(b)
+        flag = ~f.eq(b, one)
+        R = f.select(flag, f.mul(R, c), R)
+        c = f.square(c)
+        t = f.select(flag, f.mul(t, c), t)
+    return R
+
+
+def test_sqrt_from_one_exponentiation_equals_the_two_exponentiation_form():
+    """grumpkin's base field (bn256 Fr, p = 1 mod 4, 2-adicity 28): the root
+    from x = a^((Q - 1) / 2), R = a x, t = R x gives the old words on
+    residues, non-residues and 0, and squares back on the residues."""
+    f = GRUMPKIN.fb
+    p = f.p
+    rng = np.random.default_rng(11)
+    vals = [int.from_bytes(rng.bytes(32), "little") % p for _ in range(12)]
+    vals += [v * v % p for v in vals[:6]] + [0, 1, p - 1]
+    residue = [v == 0 or pow(v, (p - 1) // 2, p) == 1 for v in vals]
+    assert any(residue) and not all(residue)
+    a = f.encode(vals, "cpu")
+    got = h2c._sqrt_device(f, a)
+    assert torch.equal(got, _sqrt_two_exponentiations(f, a))
+    sq = f.decode(f.square(got))
+    assert [s for s, ok in zip(sq, residue) if ok] == [v for v, ok in zip(vals, residue) if ok]

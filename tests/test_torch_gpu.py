@@ -664,3 +664,96 @@ def test_msm_many_at_the_sangria_cross_terms_shape_bn256(cuda_device):
     got = msm_many(BN256_G1, S, ck.points)
     assert (madd_buckets.launches, madd_batch.launches) == (before[0] + 1, before[1])
     assert got == [best_msm(BN256_G1, S[i], ck.points) for i in range(t)]
+
+
+def _m_count_inputs(name, device):
+    """(l, t) Montgomery words for the multiplicity count's cases."""
+    rng = np.random.default_rng(29)
+    if name == "n1":
+        return FR.encode([9], device), FR.encode([9], device)
+    if name == "range_table_2^17":  # the range circuit's column: a byte table repeated 512 times
+        n = 1 << 17
+        t = [row % 256 for row in range(n)]
+        l = [int(v) for v in rng.integers(0, 300, size=n)]  # misses above 255
+        return FR.encode(l, device), FR.encode(t, device)
+    n = {"dups_and_misses_4096": 4096, "ragged_5000": 5000}[name]
+    t = [int(v) for v in rng.integers(0, n // 16, size=n)]
+    l = [int(v) for v in rng.integers(0, n // 12, size=n)]
+    return FR.encode(l, device), FR.encode(t, device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["dups_and_misses_4096", "ragged_5000", "n1", "range_table_2^17"])
+def test_m_count_kernel_equals_the_plain_version(cuda_device, name):
+    from sirius_tpu_torch.ops import lookup_kernels
+    from sirius_tpu_torch.ops.lookup_kernels import m_count_plain
+
+    l, t = _m_count_inputs(name, cuda_device)
+    before = lookup_kernels.m_count.launches
+    got = lookup_kernels.m_count(l, t)
+    assert lookup_kernels.m_count.launches == before + 1
+    want = m_count_plain(l, t)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(want.cpu(), m_count_plain(l.cpu(), t.cpu()))
+    assert int(got.sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vector", [False, True], ids=["range_2_rounds", "vector_3_rounds"])
+def test_lookup_sps_on_the_card_equals_the_cpu(cuda_device, vector):
+    """The 2- and 3-round SPS of the lookup test circuits at K = 5 with a
+    real key: the card's trace (words, commitments, challenges) equals the
+    CPU's and the JAX package's frozen digest, and is_sat is clean."""
+    from sirius_tpu_torch.fields.constants import bn256_fq
+    from sirius_tpu_torch.frontend.runner import CircuitRunner
+    from sirius_tpu_torch.ops import lookup_kernels
+    from sirius_tpu_torch.ops.poseidon import PoseidonHash, poseidon_spec
+    from sirius_tpu_torch.plonk import satisfy
+    from sirius_tpu_torch.plonk.sps import run_sps_protocol
+    from sirius_tpu_torch.util import golden
+    from sirius_tpu_torch.util.testing import RangeCircuit, VectorRangeCircuit
+
+    c = VectorRangeCircuit([2, 3, 5, 7, 11]) if vector else RangeCircuit([3, 7, 15, 0, 1, 1, 5])
+    frozen = golden.LOOKUP_VECTOR_K5_TRACE if vector else golden.LOOKUP_RANGE_K5_TRACE
+    ro = lambda: PoseidonHash(poseidon_spec(bn256_fq, 3, 2, 4, 3))  # noqa: E731
+
+    def run(device):
+        ck = CommitmentKey.setup(BN256_G1, 9, b"lookup-test", use_cache=False, device=device)
+        runner = CircuitRunner(5, bn256_fr, c, c.instances())
+        S = runner.collect_plonk_structure()
+        tr = run_sps_protocol(S, ck, c.instances(), runner.collect_witness(), ro())
+        satisfy.is_sat(S, ck, ro(), tr.u, tr.w)
+        return tr
+
+    before = lookup_kernels.m_count.launches
+    card = run(cuda_device)
+    assert lookup_kernels.m_count.launches == before + 1
+    cpu = run("cpu")
+    assert (card.u.W_commitments, card.u.challenges) == (cpu.u.W_commitments, cpu.u.challenges)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(card.w.W, cpu.w.W))
+    assert golden.plonk_trace_digest([w.cpu().numpy() for w in card.w.W], card.u) == frozen
+
+
+@pytest.mark.gpu
+def test_chunked_device_setup_peaks_under_2_gb_at_2_20(cuda_device, monkeypatch):
+    """The bn256 2^20 key mapped in chunks of DEVICE_SETUP_CHUNK points
+    peaks under 2 GB of device memory, and equals one map of the whole
+    stream (DEVICE_SETUP_CHUNK raised to 2^20: the setup before it mapped in
+    chunks), which peaks far higher.  Prints both peaks (pytest -s)."""
+    from sirius_tpu_torch.ops import commitment as tcommit
+
+    chunked, whole = tcommit.DEVICE_SETUP_CHUNK, 1 << 20
+    points, peaks = {}, {}
+    for chunk in (chunked, whole):
+        monkeypatch.setattr(tcommit, "DEVICE_SETUP_CHUNK", chunk)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        key = CommitmentKey.setup(BN256_G1, 20, b"bench-primary", use_cache=False, device=cuda_device).points
+        torch.cuda.synchronize()
+        peaks[chunk] = torch.cuda.max_memory_allocated()
+        points[chunk] = [c.cpu() for c in key]
+        del key
+        print(f"bn256 2^20 setup, chunks of {chunk} points: peak device memory {peaks[chunk]} B "
+              f"({torch.cuda.get_device_name(0)})")
+    assert all(torch.equal(a, b) for a, b in zip(*points.values()))
+    assert peaks[chunked] < 2 * 10**9 < peaks[whole]
