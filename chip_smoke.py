@@ -26,8 +26,9 @@
    chained products, on each of the port's five products (unrolled,
    rolled, carry-chain, rolled carry-chain: B3's, wide), microseconds per
    product.
-2. Keys: the bn256 2^20 key (b"bench-primary") and the grumpkin 2^20 key
-   (b"bench-support"), derived on the device in chunks of
+2. Keys: the bn256 2^22 key (b"bench-primary"; its first 2^20 points are the
+   bn256 key of every phase before 11, the same points as a 2^20 setup) and
+   the grumpkin 2^20 key (b"bench-support"), derived on the device in chunks of
    `DEVICE_SETUP_CHUNK` points, each setup's seconds, peak device memory
    (`max_memory_allocated` after `reset_peak_memory_stats`) and the host
    seconds of its square roots (span `h2c_sqrt`); the grumpkin key's first
@@ -81,7 +82,8 @@
    path, and the per-step madd must not have; the digests must start
    9f3739df / 13a63ce4, as every earlier run of this path.  A flipped cell of the ProtoGalaxy accumulator's
    witness must make verify() report it; then one more next under
-   torch.profiler (device events, busy share) and a clean verify().
+   torch.profiler (device events, busy share; read from the raw events
+   and, beside them, from the parsed event tree) and a clean verify().
 8. B2 at the primary trace's 917,504-point W commit: the bucket sort equal
    to bucket_plan_plain and the accumulate bit-exact, both timed beside
    their twins and bounds.  S1, the rolled-product reduce (on no path): on
@@ -123,6 +125,32 @@
    trace's l and t equal to `m_count_plain` and to the trace's m column,
    timed from a CUDA graph and back to back beside its plain version and
    its bound.
+11. Lookup step circuits through both IVC drivers.  (a) Cyclefold on
+   `XorLookupStepCircuit(key=3)` at k = 18 on the mock keys, z0 = [2]
+   (3 W rounds, 3 chained support folds a next): pp, new, next,
+   verify() == [], z = [2 ^ 3 ^ 3]; the pp digest and, after new and
+   after next, the ProtoGalaxy and support accumulators' and the pending
+   trace's digests must equal the JAX package's frozen in `util/golden.py`.
+   (b) The production SHA-256 (launch counts from here):
+   `SpreadSha256StepCircuit(bn256_fr, half_bits=16, rounds=64)` through
+   Cyclefold at k = 18 on the bn256 2^22 key and the support key, z0 =
+   [0x0123456789ABCDEF]: public parameters (W rounds 4,194,304, 786,432 and
+   524,288; 3 challenges), new, two next (the second under torch.profiler:
+   device events, busy share, the eight busiest device operations),
+   verify() == [], z after each step equal to the host `step_fn`, seconds,
+   peak device memory and spans of each stage; B1's walk, B2's sort and accumulate (by shape),
+   B3 and m_count must have launched, the batched madd not; a flipped
+   advice cell of the pending trace must make verify() report it.  B2/B3 at
+   the pending trace's 4,194,304-scalar advice commit: every stage against
+   its twin, the result equal to the trace's commitment, timed (entries
+   `*_sha256`); m_count on its (dense, spread) lookup, where nearly every
+   row is the (0, 0) sink, against its plain version and timed (entry
+   `m_count_sha256`).  (c) Sangria IVC with `RangeCheckStepCircuit` as the
+   primary (2 rounds; its first W round of 2,359,296 scalars on the bn256
+   2^22 key) and `TrivialStepCircuit(1)` as the secondary (grumpkin 2^20
+   key), k = 17, z0 = [7] / [0]: pp, new, two fold_steps, verify() == [],
+   z checked, spans and launch counts (B1's walk, B2, B3 and m_count must
+   have launched).
    Then every MSM, madd and NTT kernel's registers, local (spill) bytes per
    thread, shared bytes and SASS instruction count, the SASS of mul_rows on
    each product (IMAD-class by opcode, IMAD.WIDE and IADD3 counts) and of
@@ -136,6 +164,10 @@ grumpkin's W commit (entries of their own) on the Sangria path;
 `m_count` (the scalar lookup's l and t, timed from a CUDA graph) and
 `m_count_vector` (the vector lookup's) on the lookup path, which replace no
 Pallas kernel (`replaces` names the JAX package's jitted sort);
+`bucket_sort_sha256`, `msm_accumulate_sha256`, `msm_reduce_sha256`,
+`msm_combine_sha256` and `m_count_sha256` at the SHA-256 path's largest W
+commit and lookup, with the launches of that shape (the reduce's and
+m_count's: all of the path's);
 the probes S1-S4 and B1's batched madd run on no path but their own timed
 runs, which are counted, a CUDA graph's replays included (S1's time is its
 wrapper's on CUDA events, as every entry's but S2's, S3's, S4's and the
@@ -178,6 +210,10 @@ from sirius_tpu_torch.fields import gold
 from sirius_tpu_torch.fields.constants import bn256_fq, bn256_fr, bn256_g1
 from sirius_tpu_torch.fields.jfield import FQ, FR, ints_to_words
 from sirius_tpu_torch.frontend.runner import CircuitRunner
+from sirius_tpu_torch.gadgets.range_step_circuit import RangeCheckStepCircuit
+from sirius_tpu_torch.gadgets.sha256_step_circuit import step_fn as sha256_step_fn
+from sirius_tpu_torch.gadgets.spread_sha256 import SpreadSha256StepCircuit
+from sirius_tpu_torch.gadgets.xor_lookup_step_circuit import XorLookupStepCircuit
 from sirius_tpu_torch.ivc.cyclefold_ivc import CyclefoldIVC, CyclefoldPublicParams
 from sirius_tpu_torch.ivc.sangria_ivc import IVC as SangriaIVC
 from sirius_tpu_torch.ivc.sangria_ivc import PublicParams as SangriaPublicParams
@@ -230,6 +266,7 @@ IMADS_PER_CLK_SM = 64  # 32-bit integer multiply-adds per clock per SM, compute 
 FE_MUL_IMADS = 136  # csrc/field.cuh:141-177: 8 rounds x (8 + 1 + 8) 32x32-bit products
 FE = 32  # bytes of one canonical field element
 ROOT = Path(__file__).resolve().parent
+STARTED = time.perf_counter()
 # reference src/fft.rs:241-252: fft([0..8]) over bn256 Fr
 GOLDEN_FFT8 = [
     28,
@@ -259,6 +296,14 @@ LOOKUP_GOLDEN_K, LOOKUP_GOLDEN_KEY_LOG = 5, 9  # tests/test_lookup.py's K and ke
 LOOKUP_K = 17  # the lookup phase's traces, on the bn256 2^20 key
 LOOKUP_TABLE = 256  # sirius_tpu/gadgets/range_step_circuit.py:19: the range check's byte table
 LOOKUP_XOR_BITS = 8  # the fibo-xor circuit's table: 2^16 rows of (x, y, x ^ y)
+PRIMARY_KEY_LOG = 22  # the bn256 key b"bench-primary": the SHA-256 primary's first W round (4,194,304) fits
+XOR_LOOKUP_K, XOR_LOOKUP_Z0 = 18, [2]  # tests/test_cyclefold.py::test_cyclefold_lookup_step, frozen in util/golden.py
+SHA_K, SHA_HALF_BITS, SHA_ROUNDS = 18, 16, 64  # README.md:78: the table16-class step's production configuration
+SHA_Z0 = [0x0123456789ABCDEF]  # examples/sha256_table16.py
+SHA_STEPS = 2
+SHA_ROUND_SIZES = [16 << SHA_K, 3 << SHA_K, 2 << SHA_K]  # advice, (l, t, m) of the 2-column lookup, (h, g)
+RANGE_K, RANGE_Z0 = 17, ([7], [0])  # tests/test_sangria_ivc.py::test_sangria_ivc_lookup_step
+RANGE_STEPS = 2
 
 
 def lookup_ro() -> PoseidonHash:
@@ -272,7 +317,8 @@ def pg_ro() -> PoseidonHash:
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the run's log, after the seconds since the script started."""
+    print(f"[{time.perf_counter() - STARTED:7.1f} s] {msg}", flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -413,11 +459,15 @@ def msm_stages(curve, S, pts, timed: bool = False):
     return res, out, plan
 
 
-def profiled(label: str, fn) -> str:
+def profiled(label: str, fn, parsed: bool = False) -> str:
     """One traced call of fn: device launches, device busy seconds (sum of
     the device-side events; one stream, so they do not overlap) and its
     share of the call's wall time (closed by a synchronize).  fn may return
-    a dict of phase seconds to print."""
+    a dict of phase seconds to print.  Reads the profiler's raw events: its
+    parsed event tree takes minutes to build over the ~650,000 events of a
+    k = 18 step.  With parsed=True it also reads the parsed tree of the same
+    trace (`prof.events()`, as PR 11 and earlier read every trace) and
+    prints its device events, busy share and reading seconds beside."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -425,14 +475,21 @@ def profiled(label: str, fn) -> str:
         secs = fn() or {}
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e6
+    dev = [e for e in prof.profiler.kineto_results.events() if e.device_type() == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.duration_ns() for e in dev) / 1e9
     top = {}
     for e in dev:
-        top[e.name] = top.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        top[e.name()] = top.get(e.name(), 0.0) + e.duration_ns() / 1e6
     lines = [f"{label} (profiler on): wall {wall:.4f} s ("
              + ", ".join(f"{k} {v:.4f} s" for k, v in secs.items())
              + f"), {len(dev)} device events, device busy {busy:.4f} s = {100 * busy / wall:.1f}% of wall"]
+    if parsed:
+        t0 = time.perf_counter()
+        tree = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        tree_busy = sum(e.time_range.elapsed_us() for e in tree) / 1e6
+        lines.append(f"  the same trace's parsed event tree: {len(tree)} device events, device busy "
+                     f"{tree_busy:.4f} s = {100 * tree_busy / wall:.1f}% of wall (read in "
+                     f"{time.perf_counter() - t0:.1f} s); raw events {len(dev)}, {busy:.4f} s")
     for name, ms in sorted(top.items(), key=lambda kv: -kv[1])[:8]:
         lines.append(f"  {ms:9.3f} ms  {name[:90]}")
     return "\n".join(lines)
@@ -682,8 +739,8 @@ def main() -> int:
     # each setup's peak device memory (maps of DEVICE_SETUP_CHUNK points) and its square roots' span
     profiler.enable()
     keys = []
-    for curve, log_n, label in ((BN256_G1, PRIMARY_LOG, b"bench-primary"), (GRUMPKIN, GRUMPKIN_KEY_LOG,
-                                                                             b"bench-support")):
+    for curve, log_n, label in ((BN256_G1, PRIMARY_KEY_LOG, b"bench-primary"), (GRUMPKIN, GRUMPKIN_KEY_LOG,
+                                                                                 b"bench-support")):
         span_seconds()
         torch.cuda.reset_peak_memory_stats()
         t0 = synced()
@@ -694,10 +751,13 @@ def main() -> int:
             f"(max_memory_allocated; chunks of {DEVICE_SETUP_CHUNK} points); spans (host seconds): "
             + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items()) + f"  [{card}]")
     profiler.enabled = False
-    ck1, ck2 = keys
+    ck1_full, ck2 = keys
+    # the earlier phases' bn256 key: the first 2^20 points (a SHAKE-256 stream over the label: a 2^20 setup's points)
+    ck1 = CommitmentKey(BN256_G1, Points(*(c[: 1 << PRIMARY_LOG] for c in ck1_full.points)), ck1_full.label,
+                        PRIMARY_LOG)
     sup = Points(*(c[: 1 << SUPPORT_KEY_LOG] for c in ck2.points))  # the support key: the Cyclefold phases' points
-    log(f"keys: bn256 2^{PRIMARY_LOG}, grumpkin 2^{GRUMPKIN_KEY_LOG} (its first 2^{SUPPORT_KEY_LOG} points are the "
-        f"support key)")
+    log(f"keys: bn256 2^{PRIMARY_KEY_LOG} (its first 2^{PRIMARY_LOG} points are the bn256 key of every phase before "
+        f"the lookup IVCs), grumpkin 2^{GRUMPKIN_KEY_LOG} (its first 2^{SUPPORT_KEY_LOG} points are the support key)")
     # spot-check the device hash-to-curve against the host map
     for ck, curve in ((ck1, BN256_G1), (ck2, GRUMPKIN)):
         stream = hashlib.shake_256(ck.label).digest(64 * 4)
@@ -1046,7 +1106,7 @@ def main() -> int:
     check(any(e.startswith("pg:") for e in bad_errors), f"IVC verify missed a corrupted accumulator: {bad_errors}")
     log(f"IVC corruption probe: {len(bad_errors)} error(s): {bad_errors}")
     span_seconds()
-    log(profiled("profiled next", ivc.next) + f"  [{card}]")
+    log(profiled("profiled next", ivc.next, parsed=True) + f"  [{card}]")
     check(ivc.verify() == [], "IVC verify after the profiled next")
     profiler.enabled = False
 
@@ -1428,6 +1488,202 @@ def main() -> int:
             f"table's and counts' fills), {back_to_back:.6f} ms back to back, plain {plain:.4f} ms, bound "
             f"{e['bound_ms']:.7f} ms ({e['bound_by']}: 2 x {n} x 32 B read, {4 * cap} B of table, {4 * n} B of "
             f"counts), library: none; launches on its path {path['m_count']}  [{card}]")
+
+    # ---- lookup step circuits through both IVC drivers, led by the SHA-256 Cyclefold at its production size ------
+    def cf_digests(ivc):
+        return golden.cyclefold_digests(ivc, [w.cpu().numpy() for w in ivc.primary_trace.w.W])
+
+    # a. the XOR-lookup step (3 W rounds: 3 support folds a next) through Cyclefold at k = 18 on the mock keys, on
+    # the card, against the JAX package's digests frozen in util/golden.py
+    t0 = synced()
+    xpp = CyclefoldPublicParams(XorLookupStepCircuit(key=3), XOR_LOOKUP_K, MockCommitmentKey(BN256_G1, dev),
+                                MockCommitmentKey(GRUMPKIN, dev))
+    check(xpp.digest_hex() == golden.CYCLEFOLD_XOR_LOOKUP_K18_PP, f"the XOR-lookup Cyclefold pp digest on the card "
+          f"differs from the JAX package's: {xpp.digest_hex()}")
+    xivc = CyclefoldIVC(xpp, XOR_LOOKUP_Z0)
+    check(cf_digests(xivc) == golden.CYCLEFOLD_XOR_LOOKUP_K18_NEW,
+          f"the XOR-lookup Cyclefold after new differs from the JAX package's digests: {cf_digests(xivc)}")
+    xivc.next()
+    check(xivc.z_i == [XOR_LOOKUP_Z0[0] ^ 3 ^ 3] and xivc.step == 2, f"XOR-lookup Cyclefold state: z_i {xivc.z_i}")
+    check(cf_digests(xivc) == golden.CYCLEFOLD_XOR_LOOKUP_K18_NEXT,
+          f"the XOR-lookup Cyclefold after next differs from the JAX package's digests: {cf_digests(xivc)}")
+    errors = xivc.verify()
+    check(errors == [], f"XOR-lookup Cyclefold verify reported {errors}")
+    log(f"Cyclefold XorLookupStepCircuit(key=3) k={XOR_LOOKUP_K} on the mock keys (W rounds "
+        f"{xpp.S_primary.round_sizes}, {xpp.num_challenges_primary} challenges): pp, new, next, verify() == [] in "
+        f"{synced() - t0:.2f} s; z = {xivc.z_i}; the pp digest and, after new and after next, the ProtoGalaxy and "
+        f"support accumulators' and the pending trace's digests equal the JAX package's frozen in util/golden.py  "
+        f"[{card}]")
+    del xivc, xpp
+
+    # b. the production SHA-256: SpreadSha256StepCircuit (H = 16, 64 rounds) through Cyclefold at k = 18 on the
+    # bn256 2^22 key and the support key (launch counts from here)
+    profiler.enable()
+    span_seconds()
+    for fn in (*counters, madd_mod.madd_batch, lookup_kernels.m_count):
+        fn.launches = 0
+    mk.msm_combine.shapes, mk.msm_accumulate.shapes, bucket_plan.shapes = {}, {}, {}
+    sha = SpreadSha256StepCircuit(bn256_fr, half_bits=SHA_HALF_BITS, rounds=SHA_ROUNDS)
+    t0 = synced()
+    spp = CyclefoldPublicParams(sha, SHA_K, ck1_full, ck2)
+    dt = synced() - t0
+    sizes = spp.S_primary.round_sizes
+    check(sizes == SHA_ROUND_SIZES and spp.num_witness_primary == 3 and spp.num_challenges_primary == 3,
+          f"the SHA-256 primary's shape: W rounds {sizes}, {spp.num_challenges_primary} challenges")
+    check(len(ck1_full) == 1 << max(sizes).bit_length() - 1, f"the bn256 key ({len(ck1_full)} points) is not the "
+          f"largest W round {max(sizes)} rounded up to a power of two")
+    log(f"SHA-256 Cyclefold k={SHA_K} (SpreadSha256StepCircuit H={SHA_HALF_BITS}, {SHA_ROUNDS} rounds): public "
+        f"parameters {dt:.4f} s; num_witness_primary {spp.num_witness_primary}, W rounds {sizes}, "
+        f"{spp.S_primary.num_advice_columns} advice columns, {spp.num_challenges_primary} challenges, "
+        f"{len(spp.S_primary.gates)} gates; spans: " + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items())
+        + f"  [{card}]")
+    def peak() -> str:  # the stage's peak device memory (the keys' stay allocated), then reset
+        torch.cuda.synchronize()
+        b = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        return f"peak device memory {b} B ({b / 2**30:.3f} GiB, the keys' {resident} B included)"
+
+    resident = torch.cuda.memory_allocated()
+    peak()
+    t0 = synced()
+    sivc = CyclefoldIVC(spp, SHA_Z0)
+    dt = synced() - t0
+    z = sha256_step_fn(SHA_Z0[0], bn256_fr.modulus)
+    check(sivc.z_i == [z], f"SHA-256 Cyclefold new: z {sivc.z_i} is not step_fn's {z}")
+    log(f"SHA-256 Cyclefold new: {dt:.4f} s, z = {hex(z)} (step_fn); {peak()}; spans: "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items()) + f"  [{card}]")
+    for i in range(SHA_STEPS):
+        t0 = synced()
+        if i < SHA_STEPS - 1:
+            sivc.next()
+            line = f"{synced() - t0:.4f} s"
+        else:  # the last next under torch.profiler
+            line = profiled("next", sivc.next)
+        z = sha256_step_fn(z, bn256_fr.modulus)
+        check(sivc.z_i == [z], f"SHA-256 Cyclefold next {i + 1}: z {sivc.z_i} is not step_fn's {z}")
+        log(f"SHA-256 Cyclefold next {i + 1} (step {sivc.step - 1} -> {sivc.step}): {line}; z = {hex(z)} (step_fn); "
+            f"{peak()}; spans: " + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items()) + f"  [{card}]")
+    t0 = synced()
+    errors = sivc.verify()
+    dt = synced() - t0
+    check(errors == [], f"SHA-256 Cyclefold verify reported {errors}")
+    log(f"SHA-256 Cyclefold verify: [] in {dt:.4f} s; {peak()}; spans: "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items()) + f"  [{card}]")
+    sha_launches = {fn.__name__: fn.launches for fn in (*counters, lookup_kernels.m_count)}
+    sha_combine, sha_accumulate, sha_sort = dict(mk.msm_combine.shapes), dict(mk.msm_accumulate.shapes), dict(
+        bucket_plan.shapes)
+    log(f"launch counts on the SHA-256 path (pp, new, {SHA_STEPS} x next, verify): {sha_launches}; madd (batched, "
+        f"off the path): {madd_mod.madd_batch.launches}; msm_combine by (t, W, B): {sha_combine}; msm_accumulate by "
+        f"(curve, points, chunks): {sha_accumulate}; bucket_plan by points: {sha_sort}")
+    for name, count in sha_launches.items():
+        check(count > 0, f"kernel {name} never launched on the SHA-256 path")
+    check(madd_mod.madd_batch.launches == 0, "the SHA-256 path launched the batched madd")
+    check(sha_sort.get(SHA_ROUND_SIZES[0], 0) > 0, f"no bucket sort at the SHA-256 W commit's {SHA_ROUND_SIZES[0]} "
+          f"points")
+    log(f"SHA-256 Cyclefold digests after {SHA_STEPS} steps (pg, support, pending trace): {cf_digests(sivc)}, pp "
+        f"digest {spp.digest_hex()}")
+    # corruption probe: one flipped advice cell of the pending trace
+    W0 = sivc.primary_trace.w.W[0]
+    saved = W0[7].clone()
+    W0[7, 0] ^= 1
+    bad_errors = sivc.verify()
+    W0[7] = saved
+    check(bad_errors != [], "SHA-256 Cyclefold verify missed a flipped advice cell of the pending trace")
+    log(f"SHA-256 Cyclefold corruption probe (advice cell 7 of the pending trace): {len(bad_errors)} error(s): "
+        f"{bad_errors}")
+    span_seconds()
+    profiler.enabled = False
+
+    # B2/B3 at the path's largest W commit (the pending trace's advice round: 4,194,304 bn256 scalars), every stage
+    # against its twin and the result against the trace's commitment
+    W0 = sivc.primary_trace.w.W[0]
+    n = W0.shape[0]
+    pts = Points(*(c[:n] for c in ck1_full.points))
+    res, stage, plan = msm_stages(BN256_G1, FR.from_mont(W0), pts, timed=True)
+    check(BN256_G1.decode(res)[0] == sivc.primary_trace.u.W_commitments[0],
+          "B2/B3 stages at the SHA-256 W commit disagree with the trace's commitment")
+    plan_bytes = {k: getattr(plan, k).numel() * getattr(plan, k).element_size() for k in PLAN_ARRAYS}
+    for name, (err, ms, plain, muls, nbytes) in stage.items():
+        if name in ("bucket_sort", "msm_accumulate", "msm_reduce", "msm_combine"):
+            record(f"{name}_sha256", "sirius_tpu_torch/csrc/msm.cu",
+                   "sirius_tpu/ops/pallas_msm.py:50" if name in B2_NAMES else "sirius_tpu/ops/pallas_msm.py:173",
+                   err, ms, plain, muls, nbytes)
+    kernels["bucket_sort_sha256"]["launches"] = sha_sort[n]
+    kernels["msm_accumulate_sha256"]["launches"] = sum(
+        k for (c, pts_n, _), k in sha_accumulate.items() if c == BN256_G1.spec.name and pts_n == n)
+    kernels["msm_reduce_sha256"]["launches"] = sha_launches["msm_reduce"]
+    kernels["msm_combine_sha256"]["launches"] = sum(k for shape, k in sha_combine.items() if shape[0] == 1)
+    log(f"B2/B3 at the SHA-256 W commit ({n} bn256 scalars, c={plan.c}, W={plan.W}, B={plan.B}: "
+        f"{plan.entries.shape[0]} live digits, {plan.chunk_start.shape[0]} chunks; the plan's arrays {plan_bytes} B): "
+        f"every stage agrees with its twin and the result with the trace's commitment; "
+        + ", ".join(f"{k} {v[1]:.6f} ms (plain {v[2]:.4f} ms, bound {kernels[k + '_sha256']['bound_ms']:.7f} ms, "
+                    f"{kernels[k + '_sha256']['bound_by']})" for k, v in stage.items() if k + "_sha256" in kernels)
+        + f"  [{card}]")
+
+    # m_count at the sink-heavy shape: the pending trace's (dense, spread) lookup, nearly every row the (0, 0) sink
+    n = 1 << SHA_K
+    l, t = sivc.primary_trace.w.W[1][0:n], sivc.primary_trace.w.W[1][n : 2 * n]
+    got = lookup_kernels.m_count(l, t)
+    want = m_count_plain(l, t)
+    err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    check(err == 0, "m_count disagrees with m_count_plain on the SHA-256 path's l and t")
+    ms, extra = graph_ms(lambda: lookup_kernels.m_count(l, t), launches=50)
+    back_to_back = gpu_ms(lambda: lookup_kernels.m_count(l, t), reps=20)
+    plain = gpu_ms(lambda: m_count_plain(l, t), reps=3)
+    cap = lookup_kernels.table_capacity(n)
+    record("m_count_sha256", "sirius_tpu_torch/csrc/lookup.cu", "sirius_tpu/plonk/lookup.py:54", err, ms, plain, 0,
+           2 * FE * n + 4 * cap + 4 * n)
+    kernels["m_count_sha256"]["launches"] = sha_launches["m_count"]
+    e = kernels["m_count_sha256"]
+    log(f"m_count on the SHA-256 path's (dense, spread) l and t ({n} rows each; {int((want > 0).sum())} table rows "
+        f"earn counts, the (0, 0) sink {int(want[0])} of them): equals m_count_plain; {ms:.6f} ms a call from a CUDA "
+        f"graph, {back_to_back:.6f} ms back to back, plain {plain:.4f} ms, bound {e['bound_ms']:.7f} ms "
+        f"({e['bound_by']}), library: none; launches on its path {sha_launches['m_count']}  [{card}]")
+    del sivc, spp, l, t, W0, pts, plan
+
+    # c. Sangria IVC over the range step (byte lookups: a 2-round SPS) at k = 17 on both curves: the primary on the
+    # bn256 2^22 key (its first W round, 2,359,296 scalars, fits no smaller power of two), the secondary on the
+    # grumpkin 2^20 key (launch counts from here)
+    profiler.enable()
+    span_seconds()
+    for fn in (*counters, madd_mod.madd_batch, lookup_kernels.m_count):
+        fn.launches = 0
+    t0 = synced()
+    rpp = SangriaPublicParams(RangeCheckStepCircuit(bn256_fr), TrivialStepCircuit(arity=1), RANGE_K, RANGE_K,
+                              ck1_full, ck2)
+    dt = synced() - t0
+    probe = rpp.primary_probe
+    check((probe.num_challenges, probe.num_witness) == (2, 2), f"the range primary's shape: {probe}")
+    t0 = synced()
+    rivc = SangriaIVC(rpp, *RANGE_Z0)
+    z = rpp.primary_sc.process_step(RANGE_Z0[0], RANGE_K, bn256_fr)[0]  # new takes the first step
+    check(rivc.primary_z_i == [z], f"Sangria range new: z {rivc.primary_z_i}, want {z}")
+    log(f"Sangria IVC RangeCheckStepCircuit / TrivialStepCircuit(1) k={RANGE_K}: public parameters {dt:.4f} s "
+        f"(primary W rounds {rpp.primary.S.round_sizes}, {probe.num_challenges} challenges, {probe.num_cross_terms} "
+        f"cross terms), new {synced() - t0:.4f} s; spans: "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items()) + f"  [{card}]")
+    for i in range(RANGE_STEPS):
+        t0 = synced()
+        rivc.fold_step()
+        dt = synced() - t0
+        z = rpp.primary_sc.process_step([z], RANGE_K, bn256_fr)[0]
+        check(rivc.primary_z_i == [z], f"Sangria range fold_step {i + 1}: z {rivc.primary_z_i}, want {z}")
+        log(f"Sangria range fold_step {i + 1}: {dt:.4f} s; spans: "
+            + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items()) + f"  [{card}]")
+    t0 = synced()
+    errors = rivc.verify()
+    dt = synced() - t0
+    check(errors == [], f"Sangria range verify reported {errors}")
+    range_launches = {fn.__name__: fn.launches for fn in (*counters, lookup_kernels.m_count)}
+    log(f"Sangria range verify: [] in {dt:.4f} s; spans: "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items()) + f"; launch counts on its path (pp, new, "
+        f"{RANGE_STEPS} x fold_step, verify): {range_launches}; madd (batched): {madd_mod.madd_batch.launches}  "
+        f"[{card}]")
+    for name, count in range_launches.items():
+        check(count > 0, f"kernel {name} never launched on the Sangria range path")
+    check(madd_mod.madd_batch.launches == 0, "the Sangria range path launched the batched madd")
+    profiler.enabled = False
+    del rivc, rpp
 
     for name, attrs_of in [(k, mk.msm_kernel_attrs) for k in mk.MSM_KERNELS] + [
             (k, madd_mod.madd_kernel_attrs) for k in madd_mod.MADD_KERNELS]:

@@ -14,8 +14,8 @@ Why int64 containers: PyTorch on the CPU implements neither `+` nor the
 shifts for uint32, and int64 leaves headroom for lazy carries.
 
 The multiply works over 16-bit limbs in a limb-first (33, N) int64
-accumulator: all 256 limb products (< 2^32 each) land in their columns in
-one scatter-add, then 16 Montgomery rounds add m_i * p.  A column collects
+accumulator: round i adds b's limbs times a's limb i (products < 2^32) and
+then m_i * p, for 16 Montgomery rounds.  A column collects
 at most 32 products plus carries (< 2^38), so no carry is rippled inside
 the rounds; one signed 8-word ripple picks the canonical result at the end.
 The same arithmetic runs on CPU and CUDA tensors (the hand-written kernels
@@ -101,8 +101,6 @@ class Field:
             if name == "p16":  # (16, 1) limb column of p
                 t = torch.tensor([(self.p >> (16 * j)) & M16 for j in range(16)],
                                  dtype=torch.int64).reshape(16, 1)
-            elif name == "diag":  # column i + j of limb product (i, j)
-                t = (torch.arange(16)[:, None] + torch.arange(16)[None, :]).reshape(256)
             elif name == "p":
                 t = torch.tensor(self.p_words, dtype=torch.int64)
             elif name == "r2":
@@ -170,8 +168,8 @@ class Field:
 
     def mul(self, a, b):
         """Montgomery product a*b*R^-1 mod p (CIOS, lazy carries).  On the CPU
-        in chunks of CPU_MUL_CHUNK elements, whose (256, chunk) product table
-        stays in cache (2-3x faster at 2^17 elements than one pass)."""
+        in chunks of CPU_MUL_CHUNK elements, whose accumulator stays in cache
+        (2-3x faster at 2^17 elements than one pass)."""
         shape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
         a = a.expand(shape + (WORDS,)).reshape(-1, WORDS)
         b = b.expand(shape + (WORDS,)).reshape(-1, WORDS)
@@ -194,11 +192,13 @@ class Field:
             return torch.stack([w & M16, w >> 16], -1).reshape(n, 16).t().contiguous()
 
         al, bl = limbs(a), limbs(b)
-        # schoolbook columns in one scatter-add, then 16 Montgomery rounds
+        # schoolbook rows inside 16 Montgomery rounds: column i is whole once
+        # a's limb i is in, so m_i is read from it; the (33, n) accumulator is
+        # the only table, which bounds a call's memory
         t = torch.zeros(33, n, dtype=torch.int64, device=dev)
-        t.index_add_(0, self._c("diag", dev), (al[:, None, :] * bl[None, :, :]).reshape(256, n))
         p16 = self._c("p16", dev)
         for i in range(16):
+            t[i : i + 16].addcmul_(bl, al[i])
             ti = t[i]
             m = (ti * self.n0inv16) & M16
             t[i : i + 16].addcmul_(p16, m)

@@ -10,12 +10,14 @@ Device work runs as the port's field ops on (n, 8) Montgomery word tensors,
 element-major (the JAX package's limb-first layout was for the TPU's lanes):
 - the gate-leaf sweep: every gate of the structure over every row,
   gate-major, zero-padded to `count_of_evaluation_with_padding` leaves;
-- the pow-weighted reduce sum_i pow_i(w) leaf_i for t weight sets at once,
-  as coefficient products over chunks of `_TREE_CHUNK` leaves (field sums do
-  not depend on the order, so the chunking only bounds the memory);
+- the pow-weighted reduce sum_i pow_i(w) leaf_i as a binary tree, and F's
+  coefficients by the same tree over polynomials in X (`pow_poly_coeffs`):
+  the JAX package evaluates F at t points and interpolates on the host, the
+  same coefficients (F's degree is below t) for ~4 products a leaf instead
+  of t;
 - the witness fold sum_j L_j w_j, as w_0 + sum_{j>0} L_j (w_j - w_0).
-The F and K interpolations run on the host (`gold.fft`, `gold.coset_ifft`),
-as in the JAX package.
+The K interpolation runs on the host (`gold.coset_ifft`), as in the JAX
+package.
 
 The reference's leaf indexer collapses every leaf to row 0 (`plonk/mod.rs:714`,
 `index & total_row`); like the JAX package this uses `index % total_row`
@@ -47,9 +49,6 @@ from ..util.ro import MAX_BITS
 # package (the reference uses 64 x 20; PARITY.md)
 DEFAULT_LIMB_WIDTH = 32
 DEFAULT_LIMBS_COUNT = 10
-
-_TREE_CHUNK = 4096  # leaves per coefficient chunk of the weighted reduce
-_MUL_BATCH = 1 << 17  # products per field-multiply call in the reduce
 
 
 class ProtoGalaxyError(Exception):
@@ -202,39 +201,25 @@ def gate_leaves(S: PlonkStructure, challenges: Sequence[torch.Tensor], W: Sequen
     return torch.cat(flat)
 
 
-def _pow_coeffs(f: Field, w: torch.Tensor) -> torch.Tensor:
-    """coeff[:, i] = prod_h w[:, h]^bit_h(i) for i < 2^levels, by doubling
-    (coeff_{h+1} = [coeff_h | coeff_h * w_h]).  w: (t, levels, 8) ->
-    (t, 2^levels, 8)."""
-    coeff = f.ones((w.shape[0], 1), w.device)
-    for h in range(w.shape[1]):
-        coeff = torch.cat([coeff, f.mul(coeff, w[:, h, None])], 1)
-    return coeff
-
-
-def pow_weighted_reduce(f: Field, leaves: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """sum_i pow_i(w_s) * leaves[i] for t weight sets w_s at once (the
-    weighted binary-tree reduce of reference `poly/mod.rs`).
-
-    leaves: (N, 8), N = 2^m; weights: (t, m, 8).  Returns (t, 8).  The low
-    log2(C) bits of i index a coefficient table of C entries, the high bits
-    one of N/C: chunk sums against the low table, then one weighted sum
-    against the high table."""
-    N = leaves.shape[0]
-    m = N.bit_length() - 1
-    t = weights.shape[0]
-    C = min(_TREE_CHUNK, N)
-    lc = C.bit_length() - 1
-    lo = _pow_coeffs(f, weights[:, :lc])  # (t, C, 8)
-    hi = _pow_coeffs(f, weights[:, lc:m])  # (t, N/C, 8)
-    chunks = leaves.reshape(N // C, C, WORDS)
-    per = max(1, _MUL_BATCH // (t * C))
-    tops = []
-    for s in range(0, N // C, per):
-        part = chunks[s : s + per]  # (g, C, 8)
-        tops.append(f.sum_reduce(f.mul(part[:, None], lo[None]), axis=2))  # (g, t, 8)
-    v = torch.cat(tops).transpose(0, 1)  # (t, N/C, 8)
-    return f.sum_reduce(f.mul(v, hi), axis=1)
+def pow_poly_coeffs(f: Field, leaves: torch.Tensor, betas: torch.Tensor,
+                    deltas: torch.Tensor | None = None) -> torch.Tensor:
+    """The coefficients of sum_i prod_h (betas[h] + X deltas[h])^bit_h(i)
+    leaves[i] in X, low first: (m + 1, 8) for N = 2^m leaves; without deltas
+    the one value sum_i pow_i(betas) leaves[i], (1, 8).  Level h joins
+    sibling nodes (polynomials of degree h) as left + (beta_h + X delta_h)
+    right: two products a coefficient of the right node, ~4 a leaf in all
+    (one a leaf without deltas).  Field sums do not depend on the order, so
+    this is the reference's weighted binary-tree reduce, word for word."""
+    P = leaves[:, None, :]  # (N, 1, 8): one constant polynomial a leaf
+    for h in range(leaves.shape[0].bit_length() - 1):
+        left, right = P[0::2], P[1::2]
+        if deltas is None:
+            P = f.add(left, f.mul(right, betas[h]))
+            continue
+        zero = f.zeros((left.shape[0], 1), leaves.device)
+        scaled = f.add(torch.cat([f.mul(right, betas[h]), zero], 1), torch.cat([zero, f.mul(right, deltas[h])], 1))
+        P = f.add(torch.cat([left, zero], 1), scaled)
+    return P[0]
 
 
 def _weights(f: Field, weight_ints: Sequence[Sequence[int]], device) -> torch.Tensor:
@@ -254,14 +239,14 @@ def evaluate_e_from_trace(S: PlonkStructure, trace: PlonkTrace, betas: Sequence[
     f = S.field
     dev = trace.w.W[0].device
     leaves = gate_leaves(S, _challenges(f, trace.u.challenges, dev), trace.w.W)
-    return f.decode_one(pow_weighted_reduce(f, leaves, _weights(f, [list(betas)], dev)))
+    return f.decode_one(pow_poly_coeffs(f, leaves, _weights(f, [list(betas)], dev)[0]))
 
 
 def compute_F(ctx: PolyContext, betas: Sequence[int], delta: int, trace: PlonkTrace) -> UnivariatePoly:
-    """F(X) = sum_i pow_i(beta + X * delta_sq) f_i (reference `poly/mod.rs:68-203`):
-    the leaves reduced under t = fft_points_count_F weight sets, one per
-    point X of the size-t subgroup (edge weight at level h: beta[h] +
-    X * delta^(2^h)), then interpolated on the host."""
+    """F(X) = sum_i pow_i(beta + X * delta_sq) f_i (reference `poly/mod.rs:68-203`;
+    edge weight at level h: beta[h] + X * delta^(2^h)), as its
+    t = fft_points_count_F coefficients: the m + 1 of `pow_poly_coeffs` and
+    zeros, the coefficients the reference interpolates from t points."""
     S = ctx.S
     spec = S.spec
     p = spec.modulus
@@ -275,13 +260,10 @@ def compute_F(ctx: PolyContext, betas: Sequence[int], delta: int, trace: PlonkTr
     for _ in range(m):
         deltas.append(d)
         d = d * d % p
-    weight_ints = [
-        [(betas[h] + X * deltas[h]) % p for h in range(m)]
-        for X in lagrange.iter_cyclic_subgroup(spec, t.bit_length() - 1)
-    ]
     leaves = gate_leaves(S, _challenges(f, trace.u.challenges, dev), trace.w.W)
-    points = f.decode(pow_weighted_reduce(f, leaves, _weights(f, weight_ints, dev)))
-    return UnivariatePoly(spec, gold.fft(points, spec, inverse=True))
+    w = _weights(f, [list(betas[:m]), deltas], dev)
+    coeffs = f.decode(pow_poly_coeffs(f, leaves, w[0], w[1]))
+    return UnivariatePoly(spec, coeffs + [0] * (t - len(coeffs)))
 
 
 def fold_witness(f: Field, witnesses: Sequence[PlonkWitness], ls: Sequence[int]) -> PlonkWitness:
@@ -311,7 +293,7 @@ def compute_G(ctx: PolyContext, betas_stroke: Sequence[int], accumulator: PlonkT
     p = spec.modulus
     f = S.field
     dev = accumulator.w.W[0].device
-    weights = _weights(f, [list(betas_stroke)], dev)
+    weights = _weights(f, [list(betas_stroke)], dev)[0]
     all_traces = [accumulator, *traces]
     pts = []
     for X in lagrange.iter_cyclic_subgroup(spec, ctx.fft_points_count_G.bit_length() - 1):
@@ -321,7 +303,7 @@ def compute_G(ctx: PolyContext, betas_stroke: Sequence[int], accumulator: PlonkT
             for ci in range(S.num_challenges)
         ]
         folded = fold_witness(f, [t.w for t in all_traces], ls)
-        pts.append(pow_weighted_reduce(f, gate_leaves(S, _challenges(f, ch, dev), folded.W), weights)[0])
+        pts.append(pow_poly_coeffs(f, gate_leaves(S, _challenges(f, ch, dev), folded.W), weights)[0])
     points = f.decode(torch.stack(pts))
     return UnivariatePoly(spec, gold.fft(points, spec, inverse=True))
 

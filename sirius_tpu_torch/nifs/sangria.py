@@ -53,10 +53,15 @@ def _vandermonde_inv(p: int, D: int) -> tuple[tuple[int, ...], ...]:
 
 def fold_witness(f, weights: Sequence[int], Ws: Sequence[torch.Tensor]) -> torch.Tensor:
     """sum_j weights[j] * Ws[j] (the witness axpy of
-    `sirius_tpu/nifs/protogalaxy.py:_fold_w_fn`)."""
+    `sirius_tpu/nifs/protogalaxy.py:_fold_w_fn`); a vector of weight 1 is
+    added without a product."""
     dev = Ws[0].device
-    w = f.encode([x % f.p for x in weights], dev)
-    return f.sum_reduce(f.mul(torch.stack(list(Ws)), w[:, None, :]))
+    parts = [w for x, w in zip(weights, Ws) if x % f.p == 1]
+    scaled = [(x % f.p, w) for x, w in zip(weights, Ws) if x % f.p != 1]
+    if scaled:
+        wts = f.encode([x for x, _ in scaled], dev)
+        parts += list(f.mul(torch.stack([w for _, w in scaled]), wts[:, None, :]))
+    return f.sum_reduce(torch.stack(parts))
 
 
 class SangriaError(Exception):
@@ -224,8 +229,10 @@ class VanillaFS:
             raise SangriaError(f"challenge count mismatch: {len(ch1)} != {len(ch2)}")
         dev = W1.E.device
         evals = []
+        WX = list(W1.W)
         for X in range(D + 1):
-            WX = list(W1.W) if X == 0 else [fold_witness(f, [1, X], [a, b]) for a, b in zip(W1.W, W2.W)]
+            if X:  # W1 + X W2, one add a point
+                WX = [f.add(a, b) for a, b in zip(WX, W2.W)]
             chX = [f.encode((a + X * b) % p, dev) for a, b in zip(ch1, ch2)]
             evals.append(PlonkEvalDomain(S, chX, WX, []).evaluate([expr])[0].expand_as(W1.E))
         vinv = _vandermonde_inv(p, D)

@@ -24,6 +24,7 @@ instance-level accumulator field (witnesses enter via their commitments).
 from __future__ import annotations
 
 import hashlib
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -90,6 +91,53 @@ def plonk_trace_digest(W_words, instance) -> str:
     return h.hexdigest()
 
 
+def sangria_ivc_digest(ivc) -> str:
+    """A Sangria IVC's state -> hex digest: the step, both sides' z_0 and
+    z_i, the pending secondary trace's instances, W commitments and
+    challenges, both relaxed instances (`sangria_acc_digest`) and both
+    sides' public instances.  Reads only attributes both packages share."""
+    h = hashlib.sha256()
+
+    def ints(vs):
+        vs = list(vs)
+        _enc_int(h, len(vs))
+        for v in vs:
+            _enc_int(h, v)
+
+    u = ivc.secondary_trace.u
+    _enc_int(h, ivc.step)
+    for zs in (ivc.primary_z_0, ivc.primary_z_i, ivc.secondary_z_0, ivc.secondary_z_i):
+        ints(zs)
+    _enc_int(h, len(u.instances))
+    for inst in u.instances:
+        ints(inst)
+    _enc_int(h, len(u.W_commitments))
+    for c in u.W_commitments:
+        _enc_point(h, c)
+    ints(u.challenges)
+    for acc in (ivc.primary_relaxed.U, ivc.secondary_relaxed.U):
+        h.update(bytes.fromhex(sangria_acc_digest(acc)))
+    for pub in (ivc.primary_pub_instances, ivc.secondary_pub_instances):
+        _enc_int(h, len(pub))
+        for inst in pub:
+            _enc_int(h, len(inst))
+            for col in inst:
+                ints(col)
+    return h.hexdigest()
+
+
+def cyclefold_digests(ivc, W_words) -> tuple[str, str, str]:
+    """A Cyclefold IVC's state -> (its ProtoGalaxy accumulator's
+    `pg_acc_digest`, its support accumulator's `sangria_acc_digest`, the
+    pending primary trace's `plonk_trace_digest` over `W_words`, that
+    trace's W rounds as (n, 8) 32-bit words).  Reads only attributes both
+    packages share."""
+    acc = ivc.self_acc
+    acc_ins = SimpleNamespace(ins=acc.trace.u, betas=acc.betas, e=acc.e)
+    return (pg_acc_digest(acc_ins), sangria_acc_digest(ivc.support_acc.U),
+            plonk_trace_digest(W_words, ivc.primary_trace.u))
+
+
 # Sangria IVC on `TrivialStepCircuit(1)` both sides, k1 = k2 = 16, mock keys
 # (`util/testing.MockCommitmentKey`), z0 = [0x11] / [0x22]: the JAX package's
 # `sirius_tpu/ivc/sangria_ivc.py` run on the CPU, frozen.  The pp digest
@@ -135,3 +183,101 @@ LOOKUP_SANGRIA_FOLDS = (
 LOOKUP_PG_FIBO_XOR_TRACE = "43a1370a4797952ac8b04becad14bedf323cd91171748127b23e70ad03f97142"
 LOOKUP_PG_FIBO_XOR_NEW = "01f1066f4fba8153464cbfb19658118b5b374495926ebb717d2eb5643bc20ea9"
 LOOKUP_PG_FIBO_XOR_L1 = "8cd8de45127826e9b83ea061c7c38c86cff0c5e90632c42e864cfd05649d016e"
+
+
+# The lookup IVCs, the JAX package run on the CPU, frozen with
+# `JAX_PLATFORMS=cpu python tests/freeze_ivc_digests.py <config>` at commit
+# c27e9f32 (its seconds: public parameters / new / next or fold_step, on an
+# 8-core CPU host shared with other work).
+#
+# `xor_lookup` (12.7 / 88.9 / 701.1 s): Cyclefold on
+# `XorLookupStepCircuit(key=3)` at k = 18, mock keys, z0 = [2]
+# (tests/test_cyclefold.py::test_cyclefold_lookup_step): the pp digest
+# (`digest_hex`) and `cyclefold_digests` after new (z = [1]) and after one
+# next (z = [2]).
+CYCLEFOLD_XOR_LOOKUP_K18_PP = (
+    "05c84efc8833e50d20012f9d35076f6ef430149d720cbafa899f3c7a4a539435"
+    "0b42866547e6f2e8c05a0d8e6085cd2e0ca219900dfcc9a92d51ce09860af5ba"
+)
+CYCLEFOLD_XOR_LOOKUP_K18_NEW = (
+    "078d7178b37cfa561cff645f4ef2d4efc8df15551b6fddc4d7cf97b0afd1141f",
+    "e0084b66cb4a03e2aba6cc7342eead6a91610ad915d66f9ae2c734f99b772ac7",
+    "9ff5932d7c23291c471ea6367317fe57272fcbdc276e8964b2c33b2f542560d7",
+)
+CYCLEFOLD_XOR_LOOKUP_K18_NEXT = (
+    "64c468df6b9f19721a2940cb0ce2634d728197b6c396c0b0bfaadacbc8542c29",
+    "15a55a28da878c77ac7833855113398bc10f2a1138a51ba3ea2b74212ae0b1bf",
+    "58c0752d7f933947c88409b87e69c94c1028128c8d6e344985941c7c9e5031ae",
+)
+# `sha256` (14.0 / 117.9 / 833.2 s): Cyclefold on the table16-class step at
+# its production size, `SpreadSha256StepCircuit(bn256_fr, half_bits=16,
+# rounds=64)` at k = 18, mock keys, z0 = [0x0123456789ABCDEF]
+# (examples/sha256_table16.py): the pp digest, z after new and after one
+# next, and `cyclefold_digests` after each.
+CYCLEFOLD_SHA256_K18_PP = (
+    "0c650e7ec30805b288edd2cb527de376653143bb367920ecf715751b747d226a"
+    "084ba4f4b849b2c8a900a01750a20480d83b579168c45c72fcfc7aa9d4bfe371"
+)
+CYCLEFOLD_SHA256_K18_Z = (
+    0xA5C216996EED7EC634A7B3D5C5783D4A5D67C83BF5899A511E36DC48E2212F7,
+    0x1FEF87B3F4FD2CA0104D0D361943449023678CDC2AA35CF6C7877ADBBC674EA,
+)
+CYCLEFOLD_SHA256_K18_NEW = (
+    "030e5f0bcd01f5d5bef791c044ee87593055c0fbde1fcfa186d3683c543dcbe5",
+    "e0084b66cb4a03e2aba6cc7342eead6a91610ad915d66f9ae2c734f99b772ac7",
+    "8d8264547cd1257daf7fb95dd65f0223fb262045a09cff769876a9035afb70ad",
+)
+CYCLEFOLD_SHA256_K18_NEXT = (
+    "fb55c98d09d1192fc15266b655cc18e85e1f710ad0d3c35c72a97a03f1868621",
+    "2ef23dae1bc044841d3d6c36cc6d410449c6779cbe82d08b039ad9a327af82d3",
+    "251cbb13dec8fec04760b2bfa87fa0668892c52b32060c44dc7215cade375ec1",
+)
+#
+# `sangria_range` (10.6 / 32.0 / 289.6 s; the `*_STATE` digests in a second
+# run at the same commit, 12.8 / 26.5 / 310.0 s, which gave the same other
+# digests): Sangria IVC on `RangeCheckStepCircuit(bn256_fr)` (a 2-round SPS)
+# against `TrivialStepCircuit(1)`, k = 17 on both curves, mock keys, z0 =
+# [7] / [0] (tests/test_sangria_ivc.py::test_sangria_ivc_lookup_step): the
+# pp digest points, `sangria_acc_digest` of the (primary, secondary)
+# relaxed instances and `sangria_ivc_digest` of the whole state after
+# `IVC(...)` and after one `fold_step()`, and z after it.
+SANGRIA_IVC_RANGE_K17_PP_DIGEST_1 = (
+    16893478130312140726241175082800399879792409684123213921016641343880821977742,
+    16027696265880813389819205701653660978905763993734285828052312339764968948532,
+)
+SANGRIA_IVC_RANGE_K17_PP_DIGEST_2 = (
+    19321728188301600683829389873098372382614419731205775260502747762232867722075,
+    15905766510489316468553934702798982302850234856111608011777784106600723689523,
+)
+SANGRIA_IVC_RANGE_K17_NEW = (
+    "da9bb8c0fb77132d6e1bb71f52fcb21b5a8e026e9c812c1cabff6f846ce42d49",
+    "166cad9d7dcb93e4209756f5234d73a9c72ea667338d262bcba554bb6bbca967",
+)
+SANGRIA_IVC_RANGE_K17_STEP = (
+    "2ce95879558dcf249c5a62183e42ee435756fb4b51efa8080e29d43ac696647f",
+    "6064755ba7e8ef6e90516520538a22af473d408a1d8fed5a7c627f8f70ada4c6",
+)
+SANGRIA_IVC_RANGE_K17_Z = 0xECB
+SANGRIA_IVC_RANGE_K17_NEW_STATE = "8a64e4b91cf97bd4142d094c400d894e0be730e4028b51e13f852cd95c72d04b"
+SANGRIA_IVC_RANGE_K17_STEP_STATE = "4443606351c740de385c444e65ec8d3f61fa1c6a8976740c46327b25ea4cf69d"
+#
+# `sangria_xor` (8.7 / 29.9 / 292.8 s): the same with
+# `XorStepCircuit(bn256_fr)` (a vector lookup: a 3-round SPS), z0 = [5] / [0]
+# (tests/test_sangria_ivc.py::test_sangria_ivc_vector_lookup_step).
+SANGRIA_IVC_XOR_K17_PP_DIGEST_1 = (
+    10328824175401019305913518591690133200683437783911211957006229961589578020604,
+    9468108719063478410808337194647508129223154505964000261628472271360852129909,
+)
+SANGRIA_IVC_XOR_K17_PP_DIGEST_2 = (
+    18501334501246938010068963105288251667862915745598919288493891609526063809267,
+    4679637402358219490460924422925699927005768852966388525663029595018947469442,
+)
+SANGRIA_IVC_XOR_K17_NEW = (
+    "8889ce1f22be17f1db4a1f066e34dc4e2fc0ffed209c1dd14048a454de6cf151",
+    "4a2b4e10c97a532b9e0b457aadeea570836bc7d9bda872cc839c0f64b0746e44",
+)
+SANGRIA_IVC_XOR_K17_STEP = (
+    "0246603295df29b2ba003fe83c9a49d1bd948f206340db5296c9461297d15882",
+    "a29ad3d8a07b94436a2278bef03ac214f9bafbd5be1d917421aff06bc14a5394",
+)
+SANGRIA_IVC_XOR_K17_Z = 0x14

@@ -1,0 +1,109 @@
+"""Freeze the JAX package's lookup-IVC digests for `sirius_tpu_torch/util/golden.py`.
+
+Runs one configuration of the JAX package on the CPU and prints, as one JSON
+object, the digests the port is held to (the digest functions are the port's
+own `util/golden.py`, which needs only numpy and hashlib):
+
+- a Cyclefold IVC (`xor_lookup`: `XorLookupStepCircuit(key=3)`, k = 18,
+  z0 = [2]; `sha256`: `SpreadSha256StepCircuit(bn256_fr, half_bits=16,
+  rounds=64)`, k = 18, z0 = [0x0123456789ABCDEF]; mock keys): the pp digest,
+  z_i and `golden.cyclefold_digests` after `new` and after one `next`;
+- a Sangria IVC (`sangria_xor`: `XorStepCircuit(bn256_fr)`, z0 = [5] / [0];
+  `sangria_range`: `RangeCheckStepCircuit(bn256_fr)`, z0 = [7] / [0];
+  `TrivialStepCircuit(1)` as the secondary, k = 17 on both curves, mock
+  keys): the pp digest points, the (primary, secondary) accumulator
+  digests and the whole state's `golden.sangria_ivc_digest` after
+  `IVC(...)` and after one `fold_step()`.
+
+Not a test (pytest does not collect it).  Run from the repository root:
+
+    JAX_PLATFORMS=cpu python tests/freeze_ivc_digests.py sha256
+"""
+
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import jax  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
+
+import numpy as np  # noqa: E402
+
+from sirius_tpu.curves.jpoint import BN256_G1, GRUMPKIN  # noqa: E402
+from sirius_tpu.fields.constants import bn256_fr  # noqa: E402
+from sirius_tpu.ivc.step_circuit import TrivialStepCircuit  # noqa: E402
+from sirius_tpu.util.testing import MockCommitmentKey  # noqa: E402
+from sirius_tpu_torch.util import golden  # noqa: E402
+from sirius_tpu_torch.util.interop import limbs_to_words  # noqa: E402
+
+
+def _cyclefold_state(ivc):
+    words = [limbs_to_words(np.asarray(w)) for w in ivc.primary_trace.w.W]
+    return dict(step=ivc.step, z_i=[hex(v) for v in ivc.z_i], digests=golden.cyclefold_digests(ivc, words))
+
+
+def cyclefold(step, z0, k=18):
+    from sirius_tpu.ivc.cyclefold_ivc import CyclefoldIVC, CyclefoldPublicParams
+
+    out, t0 = {}, time.time()
+    pp = CyclefoldPublicParams(step, k=k, ck_primary=MockCommitmentKey(BN256_G1),
+                               ck_support=MockCommitmentKey(GRUMPKIN))
+    out["pp"] = dict(digest=pp.digest_hex(), num_witness_primary=pp.num_witness_primary,
+                     seconds=round(time.time() - t0, 1))
+    t0 = time.time()
+    ivc = CyclefoldIVC(pp, z0)
+    out["new"] = dict(_cyclefold_state(ivc), seconds=round(time.time() - t0, 1))
+    t0 = time.time()
+    ivc.next()
+    out["next"] = dict(_cyclefold_state(ivc), seconds=round(time.time() - t0, 1))
+    return out
+
+
+def sangria(step, z0, k=17):
+    from sirius_tpu.ivc.sangria_ivc import IVC, PublicParams
+
+    out, t0 = {}, time.time()
+    pp = PublicParams(step, TrivialStepCircuit(arity=1), k1=k, k2=k, ck1=MockCommitmentKey(BN256_G1),
+                      ck2=MockCommitmentKey(GRUMPKIN))
+    out["pp"] = dict(digest_1=[str(v) for v in pp.digest_coords(1)],
+                     digest_2=[str(v) for v in pp.digest_coords(2)], seconds=round(time.time() - t0, 1))
+
+    def state(ivc):
+        return [golden.sangria_acc_digest(ivc.primary_relaxed.U), golden.sangria_acc_digest(ivc.secondary_relaxed.U)]
+
+    t0 = time.time()
+    ivc = IVC(pp, z0, [0])
+    out["new"] = dict(digests=state(ivc), state=golden.sangria_ivc_digest(ivc), seconds=round(time.time() - t0, 1))
+    t0 = time.time()
+    ivc.fold_step()
+    out["step"] = dict(digests=state(ivc), state=golden.sangria_ivc_digest(ivc), z_i=[hex(v) for v in ivc.primary_z_i],
+                       seconds=round(time.time() - t0, 1))
+    return out
+
+
+def main(which):
+    if which == "xor_lookup":
+        from sirius_tpu.gadgets.xor_lookup_step_circuit import XorLookupStepCircuit
+
+        return cyclefold(XorLookupStepCircuit(key=3), [2])
+    if which == "sha256":
+        from sirius_tpu.gadgets.spread_sha256 import SpreadSha256StepCircuit
+
+        return cyclefold(SpreadSha256StepCircuit(bn256_fr, half_bits=16, rounds=64), [0x0123456789ABCDEF])
+    if which == "sangria_xor":
+        from sirius_tpu.gadgets.xor_step_circuit import XorStepCircuit
+
+        return sangria(XorStepCircuit(bn256_fr), [5])
+    if which == "sangria_range":
+        from sirius_tpu.gadgets.range_step_circuit import RangeCheckStepCircuit
+
+        return sangria(RangeCheckStepCircuit(bn256_fr), [7])
+    raise SystemExit(f"unknown configuration {which!r}")
+
+
+if __name__ == "__main__":
+    print(json.dumps(dict(config=sys.argv[1], **main(sys.argv[1]))), flush=True)

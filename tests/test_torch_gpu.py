@@ -757,3 +757,116 @@ def test_chunked_device_setup_peaks_under_2_gb_at_2_20(cuda_device, monkeypatch)
               f"({torch.cuda.get_device_name(0)})")
     assert all(torch.equal(a, b) for a, b in zip(*points.values()))
     assert peaks[chunked] < 2 * 10**9 < peaks[whole]
+
+
+def _sangria_run(device, primary_sc, k, z0):
+    """pp digest coordinates and both accumulators' digests after new and
+    after one fold_step of a Sangria IVC (`primary_sc` against
+    `TrivialStepCircuit(1)`, k on both curves, mock keys), z after the step;
+    verify() is clean."""
+    from sirius_tpu_torch.ivc.sangria_ivc import IVC, PublicParams
+    from sirius_tpu_torch.ivc.step_circuit import TrivialStepCircuit
+    from sirius_tpu_torch.util.golden import sangria_acc_digest
+    from sirius_tpu_torch.util.testing import MockCommitmentKey
+
+    pp = PublicParams(primary_sc, TrivialStepCircuit(1), k, k, MockCommitmentKey(BN256_G1, device),
+                      MockCommitmentKey(GRUMPKIN, device))
+    ivc = IVC(pp, z0, [0])
+    accs = lambda: (sangria_acc_digest(ivc.primary_relaxed.U), sangria_acc_digest(ivc.secondary_relaxed.U))  # noqa: E731
+    new = accs()
+    ivc.fold_step()
+    assert ivc.verify() == []
+    return pp.digest_coords(1), pp.digest_coords(2), new, accs(), list(ivc.primary_z_i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["xor_3_rounds", "range_2_rounds"])
+def test_sangria_ivc_lookup_steps_on_the_card_equal_the_frozen_jax_digests(cuda_device, name):
+    """`XorStepCircuit` (z0 = [5]) and `RangeCheckStepCircuit` (z0 = [7]) as
+    the primary at k = 17 on the mock keys, on the card: pp digests, both
+    accumulators after new and one fold_step, and z equal the JAX package's
+    runs frozen in `util/golden.py`."""
+    from sirius_tpu_torch.gadgets.range_step_circuit import RangeCheckStepCircuit
+    from sirius_tpu_torch.gadgets.xor_step_circuit import XorStepCircuit
+    from sirius_tpu_torch.util import golden
+
+    sc, z0, tag = ((XorStepCircuit(bn256_fr), [5], "XOR") if name.startswith("xor")
+                   else (RangeCheckStepCircuit(bn256_fr), [7], "RANGE"))
+    d1, d2, new, step, z = _sangria_run(cuda_device, sc, 17, z0)
+    frozen = lambda what: getattr(golden, f"SANGRIA_IVC_{tag}_K17_{what}")  # noqa: E731
+    assert (d1, d2) == (frozen("PP_DIGEST_1"), frozen("PP_DIGEST_2"))
+    assert new == frozen("NEW") and step == frozen("STEP") and z == [frozen("Z")]
+
+
+@pytest.mark.gpu
+def test_cyclefold_sha256_production_on_the_card_equals_the_frozen_jax_digests(cuda_device):
+    """The table16-class SHA-256 step at its production size
+    (`SpreadSha256StepCircuit`, H = 16, 64 rounds) through Cyclefold at
+    k = 18 on the mock keys, on the card, z0 = [0x0123456789ABCDEF]: the pp
+    digest and, after new and after one next, z and the ProtoGalaxy and
+    support accumulators' and the pending trace's digests equal the JAX
+    package's run frozen in `util/golden.py`; verify() is clean."""
+    from sirius_tpu_torch.gadgets.spread_sha256 import SpreadSha256StepCircuit
+    from sirius_tpu_torch.ivc.cyclefold_ivc import CyclefoldIVC, CyclefoldPublicParams
+    from sirius_tpu_torch.util import golden
+    from sirius_tpu_torch.util.testing import MockCommitmentKey
+
+    def digests(ivc):
+        return golden.cyclefold_digests(ivc, [w.cpu().numpy() for w in ivc.primary_trace.w.W])
+
+    pp = CyclefoldPublicParams(SpreadSha256StepCircuit(bn256_fr, half_bits=16, rounds=64), 18,
+                               MockCommitmentKey(BN256_G1, cuda_device), MockCommitmentKey(GRUMPKIN, cuda_device))
+    assert pp.digest_hex() == golden.CYCLEFOLD_SHA256_K18_PP
+    ivc = CyclefoldIVC(pp, [0x0123456789ABCDEF])
+    assert ivc.z_i == [golden.CYCLEFOLD_SHA256_K18_Z[0]] and digests(ivc) == golden.CYCLEFOLD_SHA256_K18_NEW
+    ivc.next()
+    assert ivc.z_i == [golden.CYCLEFOLD_SHA256_K18_Z[1]] and digests(ivc) == golden.CYCLEFOLD_SHA256_K18_NEXT
+    assert ivc.verify() == []
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sha256_k17", "merkle_depth3_k16", "power_degree7_k17"])
+def test_sangria_ivc_step_circuits_on_the_card(cuda_device, name):
+    """One Sangria fold_step on the mock keys, on the card, verify() == []:
+    the main-gate SHA-256 step at k = 17 (tests/test_sangria_ivc.py::
+    test_sangria_ivc_sha256_step), the Merkle step (depth 3) at k = 16
+    (test_sangria_ivc_merkle_step) and the degree-7 power gate, the largest
+    degree of the gate-scaling sweep, at k = 17; z after the step equals the
+    host step function's."""
+    from sirius_tpu_torch.gadgets.merkle_step_circuit import MerkleStepCircuit
+    from sirius_tpu_torch.gadgets.power_step_circuit import PowerStepCircuit
+    from sirius_tpu_torch.gadgets.sha256_step_circuit import Sha256StepCircuit, step_fn
+
+    p = bn256_fr.modulus
+    if name.startswith("sha256"):
+        sc, k, z0 = Sha256StepCircuit(bn256_fr), 17, [0xABCDEF]
+        want = step_fn(step_fn(z0[0], p), p)
+    elif name.startswith("merkle"):
+        sc, k = MerkleStepCircuit(bn256_fr, depth=3), 16
+        z0 = [sc.tree.root]
+        host = MerkleStepCircuit(bn256_fr, depth=3)
+        want = host.process_step(host.process_step(z0, k, bn256_fr), k, bn256_fr)[0]
+    else:
+        sc, k, z0 = PowerStepCircuit(bn256_fr, degree=7), 17, [3]
+        want = (pow((pow(3, 7, p) + 1) % p, 7, p) + 1) % p
+    *_, z = _sangria_run(cuda_device, sc, k, z0)
+    assert z == [want]
+
+
+@pytest.mark.gpu
+def test_cyclefold_power_step_degree_7_on_the_card(cuda_device):
+    """One Cyclefold next of the degree-7 power gate (the gate-scaling
+    sweep's largest degree) at k = 17 on the mock keys, on the card:
+    verify() == [] and z equal to the host step function's."""
+    from sirius_tpu_torch.gadgets.power_step_circuit import PowerStepCircuit
+    from sirius_tpu_torch.ivc.cyclefold_ivc import CyclefoldIVC, CyclefoldPublicParams
+    from sirius_tpu_torch.util.testing import MockCommitmentKey
+
+    p = bn256_fr.modulus
+    pp = CyclefoldPublicParams(PowerStepCircuit(bn256_fr, degree=7), 17, MockCommitmentKey(BN256_G1, cuda_device),
+                               MockCommitmentKey(GRUMPKIN, cuda_device))
+    assert pp.max_gate_degree == 7  # the power gate, its selector not counted
+    ivc = CyclefoldIVC(pp, [3])
+    ivc.next()
+    assert ivc.z_i == [(pow((pow(3, 7, p) + 1) % p, 7, p) + 1) % p]
+    assert ivc.verify() == []

@@ -4,6 +4,7 @@
 imports jax or `sirius_tpu`, and an entry point called without a device
 asks for the CUDA device (and raises where there is none)."""
 
+import importlib
 import pathlib
 import re
 import subprocess
@@ -80,3 +81,26 @@ def test_entry_points_default_to_cuda(call):
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
+
+
+STEP_CIRCUITS = {
+    "power_step_circuit": "PowerStepCircuit",
+    "merkle_step_circuit": "MerkleStepCircuit",
+    "sha256_step_circuit": "Sha256StepCircuit",
+    "spread_sha256": "SpreadSha256StepCircuit",
+    "range_step_circuit": "RangeCheckStepCircuit",
+    "xor_step_circuit": "XorStepCircuit",
+    "xor_lookup_step_circuit": "XorLookupStepCircuit",
+}
+
+
+@pytest.mark.parametrize("module", list(STEP_CIRCUITS))
+def test_step_circuit_modules_are_the_ports_own(module):
+    """The seven step circuits of the JAX package's `gadgets/` are modules of
+    the port (covered by the jax-free import above) with the step-circuit
+    API of `ivc/step_circuit.py`."""
+    name = f"sirius_tpu_torch.gadgets.{module}"
+    assert name in set(_modules())
+    cls = getattr(importlib.import_module(name), STEP_CIRCUITS[module])
+    for method in ("configure", "synthesize_step", "process_step", "instances"):
+        assert callable(getattr(cls, method)), (module, method)
