@@ -82,8 +82,13 @@
    path, and the per-step madd must not have; the digests must start
    9f3739df / 13a63ce4, as every earlier run of this path.  A flipped cell of the ProtoGalaxy accumulator's
    witness must make verify() report it; then one more next under
-   torch.profiler (device events, busy share; read from the raw events
-   and, beside them, from the parsed event tree) and a clean verify().
+   torch.profiler (device events, busy share, from the raw events) and a
+   clean verify().  Checkpoint and resume on this path: the IVC written to
+   a temporary directory (`CyclefoldIVC.checkpoint`, the JAX package's file
+   format) and resumed into a fresh object from disk (`CyclefoldIVC.resume`),
+   a copy with a foreign pp digest refused, then one next on each: their
+   `golden.cyclefold_digests` must be equal and verify() of the resumed
+   IVC []; the write and read seconds and the file's bytes.
 8. B2 at the primary trace's 917,504-point W commit: the bucket sort equal
    to bucket_plan_plain and the accumulate bit-exact, both timed beside
    their twins and bounds.  S1, the rolled-product reduce (on no path): on
@@ -104,7 +109,10 @@
    B3's reduce and combine must have launched on both curves and the
    batched madd not; a flipped cell of the primary accumulator's witness
    must make verify() report a `primary:` error; one more fold_step under
-   torch.profiler.  On the first step's cross terms, (5, 2^17) on each
+   torch.profiler; the primary relaxed accumulator saved and loaded back
+   onto the card (`util/checkpoint.py`: the same `sangria_acc_digest`,
+   every W and E word equal, a foreign pp digest refused; seconds, bytes).
+   On the first step's cross terms, (5, 2^17) on each
    curve: `madd_buckets` bit-exact against its twin, msm_many equal to
    best_msm and to the step's commits, the walk, msm_many and best_msm on
    the same five vectors timed; B2 at grumpkin's 917,504-point W commit
@@ -140,7 +148,8 @@
    verify() == [], z after each step equal to the host `step_fn`, seconds,
    peak device memory and spans of each stage; B1's walk, B2's sort and accumulate (by shape),
    B3 and m_count must have launched, the batched madd not; a flipped
-   advice cell of the pending trace must make verify() report it.  B2/B3 at
+   advice cell of the pending trace must make verify() report it; the
+   state checkpointed and resumed (equal digests; seconds, bytes).  B2/B3 at
    the pending trace's 4,194,304-scalar advice commit: every stage against
    its twin, the result equal to the trace's commitment, timed (entries
    `*_sha256`); m_count on its (dense, spread) lookup, where nearly every
@@ -151,6 +160,17 @@
    key), k = 17, z0 = [7] / [0]: pp, new, two fold_steps, verify() == [],
    z checked, spans and launch counts (B1's walk, B2, B3 and m_count must
    have launched).
+12. The entry points (`sirius_tpu_torch/examples/`): the Merkle-update
+   example's `run` at the reference's size (`BASELINE.md:18-20`: depth 32,
+   Cyclefold, k = 17) at batch 1 and batch 5 on the bn256 2^22 key (the
+   SFC's W round, 14 columns x 2^17, outgrows a 2^20 key) and the support
+   key: pp, new, one next, verify() == [], z the host tree's root, seconds,
+   peak device memory, spans; B1's walk, B2 and B3 must have launched on
+   each batch's path (launch counts from each batch's start), the batched
+   madd not.  Then the CLI as a user runs it, a process of its own:
+   `python3 -m sirius_tpu_torch.examples.cli sangria-instances --fold-steps
+   1` (a step circuit with its own public instance column, on its own
+   labelled keys) must exit 0 and end with OK.
    Then every MSM, madd and NTT kernel's registers, local (spill) bytes per
    thread, shared bytes and SASS instruction count, the SASS of mul_rows on
    each product (IMAD-class by opcode, IMAD.WIDE and IADD3 counts) and of
@@ -197,6 +217,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from pathlib import Path
@@ -206,6 +227,7 @@ import torch
 
 from sirius_tpu_torch.curves.hash_to_curve import hash_bytes_to_point
 from sirius_tpu_torch.curves.jpoint import BN256_G1, GRUMPKIN, Points
+from sirius_tpu_torch.examples import merkle_tree
 from sirius_tpu_torch.fields import gold
 from sirius_tpu_torch.fields.constants import bn256_fq, bn256_fr, bn256_g1
 from sirius_tpu_torch.fields.jfield import FQ, FR, ints_to_words
@@ -233,6 +255,7 @@ from sirius_tpu_torch.plonk import satisfy
 from sirius_tpu_torch.ops.lookup_kernels import m_count_plain
 from sirius_tpu_torch.plonk.sps import run_sps_protocol
 from sirius_tpu_torch.util import golden
+from sirius_tpu_torch.util.checkpoint import load_sangria_accumulator, save_sangria_accumulator
 from sirius_tpu_torch.util.golden import pg_acc_digest, sangria_acc_digest
 from sirius_tpu_torch.util.interop import limbs_to_words
 from sirius_tpu_torch.util.profiling import profiler
@@ -304,6 +327,8 @@ SHA_STEPS = 2
 SHA_ROUND_SIZES = [16 << SHA_K, 3 << SHA_K, 2 << SHA_K]  # advice, (l, t, m) of the 2-column lookup, (h, g)
 RANGE_K, RANGE_Z0 = 17, ([7], [0])  # tests/test_sangria_ivc.py::test_sangria_ivc_lookup_step
 RANGE_STEPS = 2
+MERKLE_BATCHES = (1, 5)  # BASELINE.md:18-20: the reference's Merkle-update rows, batch 1..5, depth 32, Cyclefold
+CLI_ARGV = ["sangria-instances", "--fold-steps", "1"]  # examples/instances.py: its own 2^19 keys, k = 16
 
 
 def lookup_ro() -> PoseidonHash:
@@ -459,15 +484,14 @@ def msm_stages(curve, S, pts, timed: bool = False):
     return res, out, plan
 
 
-def profiled(label: str, fn, parsed: bool = False) -> str:
+def profiled(label: str, fn) -> str:
     """One traced call of fn: device launches, device busy seconds (sum of
     the device-side events; one stream, so they do not overlap) and its
     share of the call's wall time (closed by a synchronize).  fn may return
     a dict of phase seconds to print.  Reads the profiler's raw events: its
-    parsed event tree takes minutes to build over the ~650,000 events of a
-    k = 18 step.  With parsed=True it also reads the parsed tree of the same
-    trace (`prof.events()`, as PR 11 and earlier read every trace) and
-    prints its device events, busy share and reading seconds beside."""
+    parsed event tree (`prof.events()`) takes minutes to build over the
+    ~650,000 events of a k = 18 step, and gave the same device events and
+    busy share on the trivial next."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -483,16 +507,20 @@ def profiled(label: str, fn, parsed: bool = False) -> str:
     lines = [f"{label} (profiler on): wall {wall:.4f} s ("
              + ", ".join(f"{k} {v:.4f} s" for k, v in secs.items())
              + f"), {len(dev)} device events, device busy {busy:.4f} s = {100 * busy / wall:.1f}% of wall"]
-    if parsed:
-        t0 = time.perf_counter()
-        tree = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        tree_busy = sum(e.time_range.elapsed_us() for e in tree) / 1e6
-        lines.append(f"  the same trace's parsed event tree: {len(tree)} device events, device busy "
-                     f"{tree_busy:.4f} s = {100 * tree_busy / wall:.1f}% of wall (read in "
-                     f"{time.perf_counter() - t0:.1f} s); raw events {len(dev)}, {busy:.4f} s")
     for name, ms in sorted(top.items(), key=lambda kv: -kv[1])[:8]:
         lines.append(f"  {ms:9.3f} ms  {name[:90]}")
     return "\n".join(lines)
+
+
+def cf_digests(ivc) -> tuple[str, str, str]:
+    """`golden.cyclefold_digests` of a Cyclefold IVC: its ProtoGalaxy and
+    support accumulators and its pending trace, every W round's words."""
+    return golden.cyclefold_digests(ivc, [w.cpu().numpy() for w in ivc.primary_trace.w.W])
+
+
+def ckpt_bytes(path: str) -> int:
+    """Bytes of a checkpoint (`path`.json and `path`.npz)."""
+    return sum(Path(path + ext).stat().st_size for ext in (".json", ".npz"))
 
 
 def sass_opcodes() -> dict[str, Counter] | None:
@@ -1106,9 +1134,49 @@ def main() -> int:
     check(any(e.startswith("pg:") for e in bad_errors), f"IVC verify missed a corrupted accumulator: {bad_errors}")
     log(f"IVC corruption probe: {len(bad_errors)} error(s): {bad_errors}")
     span_seconds()
-    log(profiled("profiled next", ivc.next, parsed=True) + f"  [{card}]")
+    log(profiled("profiled next", ivc.next) + f"  [{card}]")
     check(ivc.verify() == [], "IVC verify after the profiled next")
     profiler.enabled = False
+
+    # ---- entry points (a): checkpoint and resume on the main path ---------------------------------------------
+    # the IVC to disk, resumed into a fresh object; one next on each must give the same state
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        path = str(Path(tmp) / "cyclefold")
+        t0 = synced()
+        ivc.checkpoint(path)
+        t_write = synced() - t0
+        t0 = synced()
+        resumed = CyclefoldIVC.resume(pp, path)
+        t_read = synced() - t0
+        nbytes = ckpt_bytes(path)
+        check(cf_digests(resumed) == cf_digests(ivc) and (resumed.step, resumed.z_i) == (ivc.step, ivc.z_i),
+              "the resumed Cyclefold state differs from the checkpointed one")
+        with open(path + ".json") as f:
+            meta = json.load(f)
+        meta["pp_digest"] = "0" * len(meta["pp_digest"])
+        with open(path + ".json", "w") as f:
+            json.dump(meta, f)
+        try:
+            CyclefoldIVC.resume(pp, path)
+            check(False, "a checkpoint with a foreign pp digest was resumed")
+        except ValueError:
+            pass
+    t0 = synced()
+    ivc.next()
+    t_next = synced() - t0
+    t0 = synced()
+    resumed.next()
+    t_resumed = synced() - t0
+    digests = cf_digests(ivc)
+    check(cf_digests(resumed) == digests and resumed.z_i == ivc.z_i,
+          f"the resumed next differs from the uninterrupted one: {cf_digests(resumed)} against {digests}")
+    errors = resumed.verify()
+    check(errors == [], f"verify of the resumed IVC reported {errors}")
+    log(f"checkpoint (k={IVC_K}, real keys, step {ivc.step - 1}): write {t_write:.4f} s, {nbytes} B "
+        f"({nbytes / 2**20:.1f} MiB), resume {t_read:.4f} s; a foreign pp digest refused; one next on the "
+        f"uninterrupted IVC {t_next:.4f} s and on the resumed one {t_resumed:.4f} s give equal digests {digests}; "
+        f"verify() of the resumed IVC == []  [{card}]")
+    del resumed
 
     # ---- B2 at the primary W commit, then S1 on its level-0 partials ------------------------------
     W = ivc.primary_trace.w.W[0]
@@ -1292,6 +1360,32 @@ def main() -> int:
     log("profiled fold_step spans: " + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items()))
     check(sivc.verify() == [], "Sangria verify after the profiled fold_step")
     profiler.enabled = False
+
+    # entry points (a): the primary relaxed accumulator saved and loaded back onto the card, keyed by digest_1
+    acc = sivc.primary_relaxed
+    digest_hex = "".join(f"{v:064x}" for v in spp.digest_coords(1))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        path = str(Path(tmp) / "sangria")
+        t0 = synced()
+        save_sangria_accumulator(path, bn256_g1, acc, digest_hex, sivc.step)
+        t_write = synced() - t0
+        t0 = synced()
+        loaded, step = load_sangria_accumulator(path, digest_hex, device=dev)
+        t_read = synced() - t0
+        nbytes = ckpt_bytes(path)
+        try:
+            load_sangria_accumulator(path, "0" * len(digest_hex), device=dev)
+            check(False, "a Sangria accumulator was loaded under a foreign pp digest")
+        except ValueError:
+            pass
+    check(step == sivc.step and sangria_acc_digest(loaded.U) == sangria_acc_digest(acc.U),
+          "the loaded Sangria accumulator's instance differs from the saved one")
+    check(all(a.device == dev and torch.equal(a, b) for a, b in zip([*loaded.W.W, loaded.W.E], [*acc.W.W, acc.W.E])),
+          "the loaded Sangria accumulator's W / E words differ on the card")
+    log(f"Sangria accumulator (primary, k={SANGRIA_K}): saved in {t_write:.4f} s ({nbytes} B), loaded onto the card "
+        f"in {t_read:.4f} s: sangria_acc_digest {sangria_acc_digest(loaded.U)} and every W and E word equal; a "
+        f"foreign pp digest refused  [{card}]")
+    del loaded, acc
 
     # the walk at the Sangria path's shape, (5, 2^17), on each curve: the first step's cross terms
     check(sorted(ck.curve.spec.name for ck, _ in captured) == ["bn256_g1", "grumpkin"],
@@ -1490,9 +1584,6 @@ def main() -> int:
             f"counts), library: none; launches on its path {path['m_count']}  [{card}]")
 
     # ---- lookup step circuits through both IVC drivers, led by the SHA-256 Cyclefold at its production size ------
-    def cf_digests(ivc):
-        return golden.cyclefold_digests(ivc, [w.cpu().numpy() for w in ivc.primary_trace.w.W])
-
     # a. the XOR-lookup step (3 W rounds: 3 support folds a next) through Cyclefold at k = 18 on the mock keys, on
     # the card, against the JAX package's digests frozen in util/golden.py
     t0 = synced()
@@ -1593,6 +1684,20 @@ def main() -> int:
         f"{bad_errors}")
     span_seconds()
     profiler.enabled = False
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:  # entry points (a) on the SHA-256 state
+        path = str(Path(tmp) / "sha256")
+        t0 = synced()
+        sivc.checkpoint(path)
+        t_write = synced() - t0
+        t0 = synced()
+        resumed = CyclefoldIVC.resume(spp, path)
+        t_read = synced() - t0
+        nbytes = ckpt_bytes(path)
+    check(cf_digests(resumed) == cf_digests(sivc) and resumed.z_i == sivc.z_i,
+          "the resumed SHA-256 Cyclefold state differs from the checkpointed one")
+    log(f"checkpoint of the SHA-256 Cyclefold state (k={SHA_K}, step {sivc.step}): write {t_write:.4f} s, {nbytes} B "
+        f"({nbytes / 2**20:.1f} MiB), resume {t_read:.4f} s, the digests equal  [{card}]")
+    del resumed
 
     # B2/B3 at the path's largest W commit (the pending trace's advice round: 4,194,304 bn256 scalars), every stage
     # against its twin and the result against the trace's commitment
@@ -1684,6 +1789,40 @@ def main() -> int:
     check(madd_mod.madd_batch.launches == 0, "the Sangria range path launched the batched madd")
     profiler.enabled = False
     del rivc, rpp
+
+    # ---- entry points (b): the Merkle example at the reference's size, and the CLI as a user runs it ----------------
+    # the SFC over the Merkle step commits 14 advice columns x 2^17 = 1,835,008 scalars: more than a 2^20 key holds
+    # (the JAX example's k + 3; its real-key run raises TooLongInput), so the bn256 key is the 2^22 one
+    for batch in MERKLE_BATCHES:
+        args = merkle_tree.parser().parse_args(["--batch", str(batch)])  # depth 32, k = 17, Cyclefold, one next
+        profiler.enable()
+        for fn in (*counters, madd_mod.madd_batch):
+            fn.launches = 0
+        resident = torch.cuda.memory_allocated()
+        mivc, r = merkle_tree.run(args, keys=(ck1_full, ck2, "real"))  # its peak device memory and spans in r
+        profiler.enabled = False
+        merkle_launches = {fn.__name__: fn.launches for fn in counters}
+        check(r["errors"] == [], f"Merkle batch {batch}: verify reported {r['errors']}")
+        check(mivc.step == 2 and mivc.z_i == [mivc.pp.sc.tree.root], f"Merkle batch {batch}: state {mivc.step}")
+        for name, count in merkle_launches.items():
+            check(count > 0, f"kernel {name} never launched on the Merkle path (batch {batch})")
+        check(madd_mod.madd_batch.launches == 0, "the Merkle path launched the batched madd")
+        log(f"Merkle example (examples/merkle_tree.run: depth {args.depth}, batch {batch}, {args.driver}, "
+            f"k={args.k}, the bn256 2^{PRIMARY_KEY_LOG} and support keys; W round {mivc.pp.S_primary.round_sizes[0]}): "
+            f"pp {r['pp_s']:.4f} s, new {r['new_s']:.4f} s, next {r['next_s'][0]:.4f} s, verify() == [] in "
+            f"{r['verify_s']:.4f} s; peak device memory {r['peak_bytes']} B ({r['peak_bytes'] / 2**30:.3f} GiB, "
+            f"{resident} B resident before); spans: " + ", ".join(f"{k} {v:.4f} s" for k, v in r["spans"].items())
+            + f"; launch counts (pp, new, next, verify): {merkle_launches}  [{card}]")
+        del mivc
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "sirius_tpu_torch.examples.cli", *CLI_ARGV], cwd=ROOT,
+                         capture_output=True, text=True, timeout=900)
+    dt = time.perf_counter() - t0
+    lines = cli.stdout.strip().splitlines()
+    check(cli.returncode == 0 and lines and lines[-1].endswith("OK"),
+          f"the CLI {CLI_ARGV} exited {cli.returncode}: {cli.stdout[-2000:]} {cli.stderr[-2000:]}")
+    log(f"CLI `python3 -m sirius_tpu_torch.examples.cli {' '.join(CLI_ARGV)}` (a process of its own, its own "
+        f"labelled keys): exit 0 in {dt:.1f} s; its output: " + " | ".join(lines) + f"  [{card}]")
 
     for name, attrs_of in [(k, mk.msm_kernel_attrs) for k in mk.MSM_KERNELS] + [
             (k, madd_mod.madd_kernel_attrs) for k in madd_mod.MADD_KERNELS]:

@@ -1,0 +1,51 @@
+"""Cyclefold IVC with a lookup-bearing step circuit (the port's counterpart
+of `examples/cyclefold_lookup.py`): a vector-lookup step (3-round SPS)
+gives the primary trace 3 W commitments, and every next delegates 3 chained
+support-circuit scalar multiplications on the paired curve.
+
+    python -m sirius_tpu_torch.examples.cyclefold_lookup [--fold-steps N] [--k K] [--cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from ._drive import Clock, fold_steps, timed, verify
+from ._keys import example_keys, largest_w_round
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="cyclefold_lookup")
+    ap.add_argument("--fold-steps", type=int, default=1)
+    ap.add_argument("--k", type=int, default=18)
+    ap.add_argument("--cpu", action="store_true")
+    return ap
+
+
+def run(args, keys=None, device=None):
+    """pp, new, `args.fold_steps` x next and verify; (ivc, timings)."""
+    from ..gadgets.xor_lookup_step_circuit import XorLookupStepCircuit
+    from ..ivc.cyclefold_ivc import CyclefoldIVC, CyclefoldPublicParams
+
+    step = XorLookupStepCircuit(key=3)
+    ck1, ck2, key_kind = keys or example_keys(args.k + 3, 17, label="cyclefold-lookup", cpu=args.cpu,
+                                              device=device, holds=largest_w_round(step, args.k))
+    print(f"commitment keys: {key_kind}")
+    clock = Clock(ck1.device)
+    pp, pp_s = timed(clock, lambda: CyclefoldPublicParams(step, args.k, ck1, ck2))
+    print(f"public params ({pp.num_witness_primary} W-commitments/trace): {pp_s:.2f}s")
+    ivc, new_s = timed(clock, lambda: CyclefoldIVC(pp, [2]))
+    print(f"ivc_new: {new_s:.2f}s")
+    next_s = fold_steps(clock, ivc.next, args.fold_steps, lambda i, dt: f"ivc_next {i}: {dt:.2f}s  z_i={ivc.z_i}")
+    errors, verify_s = verify(clock, ivc)
+    return ivc, dict(keys=key_kind, pp_s=pp_s, new_s=new_s, next_s=next_s, verify_s=verify_s, errors=errors)
+
+
+def main(argv=None) -> int:
+    _, t = run(parser().parse_args(argv))
+    return 0 if not t["errors"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

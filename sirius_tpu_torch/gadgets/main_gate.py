@@ -187,6 +187,11 @@ class MainGate:
         out = self._cv(a) * k % p
         return self.apply(ctx, [a], q_1=[k % p], out_val=out, q_o=p - 1)
 
+    def pow5(self, ctx, a) -> AssignedCell:
+        p = self.p
+        out = pow(self._cv(a), 5, p)
+        return self.apply(ctx, [a], q_5=[1], out_val=out, q_o=p - 1)
+
     def add_with_const(self, ctx, a, k: int) -> AssignedCell:
         p = self.p
         out = (self._cv(a) + k) % p

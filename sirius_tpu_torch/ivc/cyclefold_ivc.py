@@ -428,6 +428,25 @@ class CyclefoldIVC:
         self.z_i = z_next
         self.step += 1
 
+    def checkpoint(self, path: str):
+        """Write the whole IVC state to `path`.json / `path`.npz, keyed by the
+        pp digest, in the JAX package's format (`util/checkpoint.py`)."""
+        from ..util.checkpoint import save_cyclefold_state
+
+        save_cyclefold_state(path, self, self.pp.digest_hex())
+
+    @staticmethod
+    def resume(pp: CyclefoldPublicParams, path: str) -> "CyclefoldIVC":
+        """The IVC of a checkpoint on `pp`'s primary-key device; refuses a
+        checkpoint of other public parameters (ValueError).  The support
+        chain's `incoming` and `cross` lists are not checkpointed and restart
+        empty: `next` needs only the entries it appends itself, while
+        `self.support.verify()` replays only the folds made since the
+        resume."""
+        from ..util.checkpoint import load_cyclefold_state
+
+        return load_cyclefold_state(path, pp, pp.digest_hex(), device=pp.ck1.device)
+
     def verify(self) -> list:
         """Marker replay and is_sat of both accumulators and the pending
         trace (reference `verify`, mod.rs:337-393)."""

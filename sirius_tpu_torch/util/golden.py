@@ -281,3 +281,104 @@ SANGRIA_IVC_XOR_K17_STEP = (
     "a29ad3d8a07b94436a2278bef03ac214f9bafbd5be1d917421aff06bc14a5394",
 )
 SANGRIA_IVC_XOR_K17_Z = 0x14
+
+
+# The slice of the examples and the checkpoint, the JAX package run on the
+# CPU, frozen with `JAX_PLATFORMS=cpu python tests/freeze_ivc_digests.py
+# <config>` at commit c5ee30b5 (its seconds: public parameters / new / next
+# or fold_step, four configurations at once on an 8-core CPU host shared
+# with other work).
+#
+# `cyclefold_trivial_k17` (3.3 / 35.9 / 160.2 s): Cyclefold on
+# `TrivialStepCircuit(1)` at k = 17, mock keys, z0 = [0x11]
+# (examples/cyclefold_trivial.py, tests/test_cyclefold.py::
+# test_cyclefold_checkpoint_resume): the pp digest and `cyclefold_digests`
+# after new and after one next (z stays [0x11]).
+CYCLEFOLD_TRIVIAL_K17_PP = (
+    "2e2cd213ad5d68116c555cbb79e1bf54acc237d1eea209d53eee05801c825789"
+    "1f5aa983726aac5283ff1c0fcaa1e029afb68661736eb6c634322715342100d8"
+)
+CYCLEFOLD_TRIVIAL_K17_NEW = (
+    "d932b526fcae6e1620c7d4a11ef5f75936e753df9fdff18ace3f779b0381a4e7",
+    "e0084b66cb4a03e2aba6cc7342eead6a91610ad915d66f9ae2c734f99b772ac7",
+    "e19cedcd434ca9b3bffa13999d667ea712a97a7c240ad5ef24dc42e2a00cd4b4",
+)
+CYCLEFOLD_TRIVIAL_K17_NEXT = (
+    "8e97f9e2fd0cf349ca29eeae0b096f59d325bd7f2a942d227182103839361f1d",
+    "ef04e64b2f89f941f0c9f08dadf1da850391f7e53bed1809fb6fc80203fdd160",
+    "6c86edd55f5193e113b2a63506804a2bf776ea3a3fd17a60d251b39e0ea94e4d",
+)
+#
+# `merkle_d32_b1` (5.7 / 64.8 / 203.8 s): Cyclefold on
+# `MerkleStepCircuit(bn256_fr, depth=32, batch=1)` at k = 17, mock keys, z0 =
+# [the empty depth-32 tree's root] (examples/merkle_tree.py's defaults): the
+# pp digest, z and `cyclefold_digests` after new and after one next.
+MERKLE_D32_B1_K17_PP = (
+    "092e4170a2e6dea10494117abed771a3e912c0cbbf9f4cda2716b61ff01d37dd"
+    "0a1081f7ca4afe18eeb999a86df56670d86340fe08a0cb2c059472265048ebc0"
+)
+MERKLE_D32_B1_K17_Z = (
+    0x2E2396F74D0BF130DBEF4B73D32EA5F822E25D41CB25F6587EE25F57FC31D603,
+    0x120E997DC8350C8EF6711414A0A7C1119DDDCDDE7AC91F41B614314A9004CF26,
+)
+MERKLE_D32_B1_K17_NEW = (
+    "c2046a8dca19f1803136053f99bbc9f126f587689338f0be444de7348daf20e6",
+    "e0084b66cb4a03e2aba6cc7342eead6a91610ad915d66f9ae2c734f99b772ac7",
+    "0af59bbdb021d1eafffbded5ff1b6cbea0bb1b3ad2ff2eeee3149d859d167f16",
+)
+MERKLE_D32_B1_K17_NEXT = (
+    "1511087e97d00f6522c8cae42d97aa6340695b71b45d10b2eec1a9cb9f554e65",
+    "84401afd86d9f9230cc765005aaa57612846519d6399bcc3bf713c2f62b681e7",
+    "4e6c1165c5d2097d00448c84d670b285b985902e9f5e2b848f331666db4a8db4",
+)
+#
+# `sangria_instances` (7.4 / 3.8 / 179.2 s): Sangria IVC on examples/
+# instances.py's `PublicPow5Circuit` (z' = z^5, exposed in its own instance
+# column, hash-chained into `sc_instances_hash_acc`) against
+# `TrivialStepCircuit(1)`, k = 16 on both curves, mock keys, z0 = [3] / [0]:
+# the pp digest points, `sangria_acc_digest` of the (primary, secondary)
+# relaxed instances and `sangria_ivc_digest` after `IVC(...)` and after one
+# `fold_step()`, then z and the primary's `sc_instances_hash_acc`.
+SANGRIA_INSTANCES_K16_PP_DIGEST_1 = (
+    19019851256773811989481691017009792073652431562123179265387647664688339279858,
+    7126667912641280005393568394242678876494080053801606414810508251175874180322,
+)
+SANGRIA_INSTANCES_K16_PP_DIGEST_2 = (
+    9479486455428602293979361398397273575096958070987585472625123461322095502337,
+    3646220057597257532806832987890037754596597145967209821296652881429664718147,
+)
+SANGRIA_INSTANCES_K16_NEW = (
+    "d3f995478e7abdbf071376a94943cb243d6e07365b0297681a276b7df290dab7",
+    "b6b0465811f8bda06da6329c683c5a88031b2a01e29058ad7fa9a5c086801cab",
+)
+SANGRIA_INSTANCES_K16_NEW_STATE = "d7a78230ca8d960c42a190a4a69039220f8a5ba53e1023f842d084c9b2eb9792"
+SANGRIA_INSTANCES_K16_STEP = (
+    "20df963af3070f89cfffe2a0fc091376e02230702c5ce274d16e3636dedc5ead",
+    "a5d7be5ca24c173ec58c044f7a4dce86550ff695b5c49d91f537ade811ee0ad5",
+)
+SANGRIA_INSTANCES_K16_STEP_STATE = "dd5eaece1b83a3550b5e8f17669c2ccb795ac14c795d8cb51f86bb6b6a0be237"
+SANGRIA_INSTANCES_K16_Z = 0xC546562AA3  # 3^25
+SANGRIA_INSTANCES_K16_SC_HASH = 0x2CB11BC3E76FAA00CE196617D6FB93630BD5D10CFAD75257803FF8CE82876494
+#
+# `my_circuit` (7.1 / 4.0 / 181.7 s): the same with examples/my_circuit.py's
+# arity-5 `MyStepCircuit` (z'_j = z_j + z_{(j+1) mod 5}), z0 = [0, 1, 2, 3, 4]
+# / [0] (no instance column of its own: `sc_instances_hash_acc` is None).
+MY_CIRCUIT_K16_PP_DIGEST_1 = (
+    20992666329717042311859498072739398172144030307592229086337506833875776900430,
+    21324955093657456837631045613277356916240416529994963314005709077148735145674,
+)
+MY_CIRCUIT_K16_PP_DIGEST_2 = (
+    13388088394757903434682744876690708108911681781644781019532415442882999107593,
+    21439931928705111725865651125020213001114336308417341823978898823477700692660,
+)
+MY_CIRCUIT_K16_NEW = (
+    "02efc2abddc40144154b7ae139285a118a7ae814cfb7704fea638dd9a0bcc38a",
+    "d3781c8a729fd082d69604e41a080757e8556461ce7c314b5dd2852efb1c3f98",
+)
+MY_CIRCUIT_K16_NEW_STATE = "4489015b9297fa26994df6b358232e8551f9ead005825d32a8038232bdfb3724"
+MY_CIRCUIT_K16_STEP = (
+    "a4c1498313d15305a16a7ac30fbc5c8626a1665ba53f2674e9ff1365e03ee9fd",
+    "c7ace7d319d0fbd8eedd5a94e4d121b4195e8329ec94e7abe6e2643f2211b9d3",
+)
+MY_CIRCUIT_K16_STEP_STATE = "b800c237333d613ca833229e621ee889930bfbf1aac487049092f4d88a418f94"
+MY_CIRCUIT_K16_Z = (4, 8, 12, 11, 5)

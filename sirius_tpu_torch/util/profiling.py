@@ -65,7 +65,9 @@ class Profiler:
                         + "\n"
                     )
 
-    def report(self, out=sys.stderr):
+    def report(self, out=None):
+        out = out or sys.stderr  # read at the call: the stream may have been replaced since import
+
         def walk(spans, depth):
             for s in spans:
                 print(f"{'  ' * depth}{s.name}: {s.elapsed * 1e3:.2f} ms", file=out)

@@ -6,11 +6,18 @@ own `util/golden.py`, which needs only numpy and hashlib):
 
 - a Cyclefold IVC (`xor_lookup`: `XorLookupStepCircuit(key=3)`, k = 18,
   z0 = [2]; `sha256`: `SpreadSha256StepCircuit(bn256_fr, half_bits=16,
-  rounds=64)`, k = 18, z0 = [0x0123456789ABCDEF]; mock keys): the pp digest,
-  z_i and `golden.cyclefold_digests` after `new` and after one `next`;
+  rounds=64)`, k = 18, z0 = [0x0123456789ABCDEF]; `cyclefold_trivial_k17`:
+  `TrivialStepCircuit(1)`, k = 17, z0 = [0x11] (examples/cyclefold_trivial.py);
+  `merkle_d32_b1`: `MerkleStepCircuit(bn256_fr, depth=32, batch=1)`, k = 17,
+  z0 = [the empty tree's root] (examples/merkle_tree.py); mock keys): the pp
+  digest, z_i and `golden.cyclefold_digests` after `new` and after one
+  `next`;
 - a Sangria IVC (`sangria_xor`: `XorStepCircuit(bn256_fr)`, z0 = [5] / [0];
-  `sangria_range`: `RangeCheckStepCircuit(bn256_fr)`, z0 = [7] / [0];
-  `TrivialStepCircuit(1)` as the secondary, k = 17 on both curves, mock
+  `sangria_range`: `RangeCheckStepCircuit(bn256_fr)`, z0 = [7] / [0], k = 17;
+  `sangria_instances`: examples/instances.py's `PublicPow5Circuit`, z0 =
+  [3] / [0], k = 16; `my_circuit`: examples/my_circuit.py's arity-5
+  `MyStepCircuit`, z0 = [0, 1, 2, 3, 4] / [0], k = 16;
+  `TrivialStepCircuit(1)` as the secondary, the same k on both curves, mock
   keys): the pp digest points, the (primary, secondary) accumulator
   digests and the whole state's `golden.sangria_ivc_digest` after
   `IVC(...)` and after one `fold_step()`.
@@ -44,6 +51,17 @@ from sirius_tpu_torch.util.interop import limbs_to_words  # noqa: E402
 def _cyclefold_state(ivc):
     words = [limbs_to_words(np.asarray(w)) for w in ivc.primary_trace.w.W]
     return dict(step=ivc.step, z_i=[hex(v) for v in ivc.z_i], digests=golden.cyclefold_digests(ivc, words))
+
+
+def _example(name):
+    """A module of the JAX package's `examples/` (its step-circuit classes)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"jax_example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def cyclefold(step, z0, k=18):
@@ -81,6 +99,7 @@ def sangria(step, z0, k=17):
     t0 = time.time()
     ivc.fold_step()
     out["step"] = dict(digests=state(ivc), state=golden.sangria_ivc_digest(ivc), z_i=[hex(v) for v in ivc.primary_z_i],
+                       sc_instances_hash_acc=hex(ivc.primary_relaxed.U.sc_instances_hash_acc or 0),
                        seconds=round(time.time() - t0, 1))
     return out
 
@@ -94,6 +113,17 @@ def main(which):
         from sirius_tpu.gadgets.spread_sha256 import SpreadSha256StepCircuit
 
         return cyclefold(SpreadSha256StepCircuit(bn256_fr, half_bits=16, rounds=64), [0x0123456789ABCDEF])
+    if which == "cyclefold_trivial_k17":
+        return cyclefold(TrivialStepCircuit(arity=1), [0x11], k=17)
+    if which == "merkle_d32_b1":
+        from sirius_tpu.gadgets.merkle_step_circuit import MerkleStepCircuit
+
+        sc = MerkleStepCircuit(bn256_fr, depth=32, batch=1)
+        return cyclefold(sc, [sc.tree.root], k=17)
+    if which == "sangria_instances":
+        return sangria(_example("instances").PublicPow5Circuit(bn256_fr), [3], k=16)
+    if which == "my_circuit":
+        return sangria(_example("my_circuit").MyStepCircuit(), list(range(5)), k=16)
     if which == "sangria_xor":
         from sirius_tpu.gadgets.xor_step_circuit import XorStepCircuit
 

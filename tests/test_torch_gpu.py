@@ -870,3 +870,55 @@ def test_cyclefold_power_step_degree_7_on_the_card(cuda_device):
     ivc.next()
     assert ivc.z_i == [(pow((pow(3, 7, p) + 1) % p, 7, p) + 1) % p]
     assert ivc.verify() == []
+
+
+@pytest.mark.gpu
+def test_cyclefold_checkpoint_round_trip_of_cuda_tensors(cuda_device, tmp_path):
+    """The trivial Cyclefold IVC at k = 17 on the mock keys, on the card:
+    checkpoint, resume onto the card (every W round, the support W and E the
+    same words), one next on the resumed IVC equal to the JAX package's
+    uninterrupted new -> next (`golden.CYCLEFOLD_TRIVIAL_K17_NEXT`), verify()
+    == []."""
+    from sirius_tpu_torch.ivc.cyclefold_ivc import CyclefoldIVC, CyclefoldPublicParams
+    from sirius_tpu_torch.ivc.step_circuit import TrivialStepCircuit
+    from sirius_tpu_torch.util import golden
+    from sirius_tpu_torch.util.testing import MockCommitmentKey
+
+    pp = CyclefoldPublicParams(TrivialStepCircuit(arity=1), 17, MockCommitmentKey(BN256_G1, cuda_device),
+                               MockCommitmentKey(GRUMPKIN, cuda_device))
+    ivc = CyclefoldIVC(pp, [0x11])
+    path = str(tmp_path / "ckpt")
+    ivc.checkpoint(path)
+    resumed = CyclefoldIVC.resume(pp, path)
+
+    def tensors(v):
+        return [*v.self_acc.trace.w.W, *v.primary_trace.w.W, *v.support_acc.W.W, v.support_acc.W.E]
+
+    assert all(b.device.type == "cuda" and torch.equal(a, b) for a, b in zip(tensors(ivc), tensors(resumed)))
+    resumed.next()
+    assert golden.cyclefold_digests(resumed, [w.cpu().numpy() for w in resumed.primary_trace.w.W]) == \
+        golden.CYCLEFOLD_TRIVIAL_K17_NEXT
+    assert resumed.verify() == []
+
+
+@pytest.mark.gpu
+def test_instances_example_on_the_card_equals_the_frozen_jax_digests(cuda_device):
+    """examples/instances.py's step (its own public instance column) through
+    the port's example `run` at K = 16 on the mock keys, on the card: pp,
+    new, one fold_step and verify against `golden.SANGRIA_INSTANCES_K16_*`,
+    `sc_instances_hash_acc` included."""
+    from sirius_tpu_torch.examples import instances
+    from sirius_tpu_torch.util import golden
+    from sirius_tpu_torch.util.testing import MockCommitmentKey
+
+    keys = (MockCommitmentKey(BN256_G1, cuda_device), MockCommitmentKey(GRUMPKIN, cuda_device), "mock")
+    ivc, t = instances.run(instances.parser().parse_args(["--fold-steps", "0"]), keys=keys)
+    assert t["errors"] == []
+    assert (ivc.pp.digest_coords(1), ivc.pp.digest_coords(2)) == (golden.SANGRIA_INSTANCES_K16_PP_DIGEST_1,
+                                                                  golden.SANGRIA_INSTANCES_K16_PP_DIGEST_2)
+    assert golden.sangria_ivc_digest(ivc) == golden.SANGRIA_INSTANCES_K16_NEW_STATE
+    ivc.fold_step()
+    assert golden.sangria_ivc_digest(ivc) == golden.SANGRIA_INSTANCES_K16_STEP_STATE
+    assert ivc.primary_relaxed.U.sc_instances_hash_acc == golden.SANGRIA_INSTANCES_K16_SC_HASH
+    assert ivc.primary_z_i == [golden.SANGRIA_INSTANCES_K16_Z]
+    assert ivc.verify() == []
