@@ -69,7 +69,10 @@
 6. Drives the Cyclefold support-fold chain: 2 Sangria folds of the EC
    co-processor circuit at k = 14 on the grumpkin key; verify must replay
    the prover's accumulator, is_sat must be clean and must catch a flipped
-   witness cell; every kernel must have launched on this path.  Then one
+   witness cell; every kernel must have launched on this path.  The
+   support tape's sizes and the seconds of the dry synthesis that traces
+   it; one witness by native replay and by direct synthesis, equal word
+   for word, both timed.  Then one
    more fold runs under torch.profiler: its device events and the device's
    busy share of its wall time.
 7. The main path, `bench.py:166-210`'s headline: `CyclefoldIVC` on the
@@ -80,7 +83,15 @@
    B2's sort and accumulate (on both curves' commits, the sort at the
    primary W commit's 917,504 points) and B3 must have launched on this
    path, and the per-step madd must not have; the digests must start
-   9f3739df / 13a63ce4, as every earlier run of this path.  A flipped cell of the ProtoGalaxy accumulator's
+   9f3739df / 13a63ce4, as every earlier run of this path.  The SFC and
+   support tapes' sizes (ops, inputs, constants, output slots) beside pp;
+   the last next's SFC witness (a native replay) equal word for word to a
+   second replay and to direct synthesis of the same inputs, both timed;
+   `mul_rows` K = 1 as the SPS's W conversion (917,504 packed words times
+   R^2, nb = 1) against its plain version, `Field.to_mont_words` and the
+   pending trace's W round, timed beside its bound and the packed upload
+   (entry `mul_rows_to_mont`, the path's launches at that shape).  A
+   flipped cell of the ProtoGalaxy accumulator's
    witness must make verify() report it; then one more next under
    torch.profiler (device events, busy share, from the raw events) and a
    clean verify().  Checkpoint and resume on this path: the IVC written to
@@ -104,7 +115,9 @@
    `PublicParams(TrivialStepCircuit(1), TrivialStepCircuit(1), 17, 17)` on
    the two keys above, z0 = [0x11] / [0x22], new, two fold_steps, verify()
    == [], seconds of each and the spans per step (the secondary and
-   primary proves, each side's synthesis and SPS); B1's bucket walk
+   primary proves, each side's synthesis and SPS), both sides' tape sizes,
+   the last step's two SFC witnesses against direct synthesis (timed);
+   B1's bucket walk
    (the cross terms' msm_many), B2's sort and accumulate (the W commits),
    B3's reduce and combine must have launched on both curves and the
    batched madd not; a flipped cell of the primary accumulator's witness
@@ -143,7 +156,9 @@
    `SpreadSha256StepCircuit(bn256_fr, half_bits=16, rounds=64)` through
    Cyclefold at k = 18 on the bn256 2^22 key and the support key, z0 =
    [0x0123456789ABCDEF]: public parameters (W rounds 4,194,304, 786,432 and
-   524,288; 3 challenges), new, two next (the second under torch.profiler:
+   524,288; 3 challenges; the SFC tape's sizes and its replay slots' bytes),
+   the last next's replayed SFC witness against direct synthesis (timed),
+   new, two next (the second under torch.profiler:
    device events, busy share, the eight busiest device operations),
    verify() == [], z after each step equal to the host `step_fn`, seconds,
    peak device memory and spans of each stage; B1's walk, B2's sort and accumulate (by shape),
@@ -165,7 +180,9 @@
    Cyclefold, k = 17) at batch 1 and batch 5 on the bn256 2^22 key (the
    SFC's W round, 14 columns x 2^17, outgrows a 2^20 key) and the support
    key: pp, new, one next, verify() == [], z the host tree's root, seconds,
-   peak device memory, spans; B1's walk, B2 and B3 must have launched on
+   peak device memory, spans, the SFC tape's sizes and the next's replayed
+   witness (the stateful step's dynamic witness among the tape's inputs)
+   against direct synthesis; B1's walk, B2 and B3 must have launched on
    each batch's path (launch counts from each batch's start), the batched
    madd not.  Then the CLI as a user runs it, a process of its own:
    `python3 -m sirius_tpu_torch.examples.cli sangria-instances --fold-steps
@@ -179,7 +196,8 @@
 Ends with a JSON line of kernel results (time, plain twin's time, bound
 and what sets it, launches on the path that runs the kernel: B1's bucket
 walk, B2 and B3 on the Cyclefold IVC path, B4, its epilogue pass (an entry of its
-own) and the K = 1 product on the NTT path; the walk on each curve and B2 at
+own) and the K = 1 product on the NTT path (its W conversion on the IVC
+path: `mul_rows_to_mont`); the walk on each curve and B2 at
 grumpkin's W commit (entries of their own) on the Sangria path;
 `m_count` (the scalar lookup's l and t, timed from a CUDA graph) and
 `m_count_vector` (the vector lookup's) on the lookup path, which replace no
@@ -220,6 +238,7 @@ import sys
 import tempfile
 import time
 from collections import Counter
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -236,7 +255,7 @@ from sirius_tpu_torch.gadgets.range_step_circuit import RangeCheckStepCircuit
 from sirius_tpu_torch.gadgets.sha256_step_circuit import step_fn as sha256_step_fn
 from sirius_tpu_torch.gadgets.spread_sha256 import SpreadSha256StepCircuit
 from sirius_tpu_torch.gadgets.xor_lookup_step_circuit import XorLookupStepCircuit
-from sirius_tpu_torch.ivc.cyclefold_ivc import CyclefoldIVC, CyclefoldPublicParams
+from sirius_tpu_torch.ivc.cyclefold_ivc import CyclefoldIVC, CyclefoldPublicParams, _cf_flatten
 from sirius_tpu_torch.ivc.sangria_ivc import IVC as SangriaIVC
 from sirius_tpu_torch.ivc.sangria_ivc import PublicParams as SangriaPublicParams
 from sirius_tpu_torch.ivc.step_circuit import TrivialStepCircuit
@@ -559,6 +578,74 @@ def span_seconds() -> dict[str, float]:
     walk(profiler.roots)
     profiler.roots.clear()
     return out
+
+
+@contextmanager
+def last_calls(cls, name: str, keep: int = 1):
+    """While the block runs, keep the arguments and result of the last
+    `keep` calls of the method (or static method) `cls.name`."""
+    raw = cls.__dict__[name]
+    static = isinstance(raw, staticmethod)
+    fn = raw.__func__ if static else raw
+    calls = []
+
+    def wrapper(*args):
+        out = fn(*args)
+        calls.append((args, out))
+        del calls[:-keep]
+        return out
+
+    setattr(cls, name, staticmethod(wrapper) if static else wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(cls, name, raw)
+
+
+def tape_sizes(taped) -> str:
+    s = taped.sizes()
+    return f"{s['ops']} ops, {s['inputs']} inputs, {s['consts']} constants, {s['out_slots']} output slots"
+
+
+def same_words(W, direct) -> bool:
+    """A replayed witness ((n, 8) u32 words a column) against direct
+    synthesis's int columns, word for word."""
+    return len(W) == len(direct) and all(np.array_equal(c, ints_to_words(d).astype(np.uint32))
+                                         for c, d in zip(W.cols, direct))
+
+
+def cf_replay_check(label: str, call, card: str) -> None:
+    """Replay against direct synthesis on the SFC inputs of one Cyclefold
+    step (a recorded `CyclefoldIVC._sfc_witness` call): the recorded
+    witness, a second replay and the direct synthesis must be equal word for
+    word.  A stateful step circuit's dynamic witness is still the step's."""
+    (ivc, inputs, _), (W, _, x1) = call
+    pp = ivc.pp
+    t0 = time.perf_counter()
+    again, _ = pp.sfc_taped.replay(_cf_flatten(inputs, pp.sc))
+    t1 = time.perf_counter()
+    direct = ivc._sfc_witness_direct(inputs, inputs.self_incoming.instances[0][1], x1)
+    t2 = time.perf_counter()
+    check(same_words(W, direct) and same_words(again, direct),
+          f"{label}: the replayed SFC witness differs from direct synthesis")
+    log(f"{label}: the step's SFC witness by native replay {t1 - t0:.4f} s, by direct synthesis {t2 - t1:.4f} s: "
+        f"equal word for word ({len(W)} columns x {W.cols[0].shape[0]} rows)  [{card}]")
+
+
+def sg_replay_check(label: str, calls, card: str) -> None:
+    """The same for a Sangria step: both sides' recorded `IVC._witness`
+    calls."""
+    for (side, sfc, fspec, x1), W in calls:
+        t0 = time.perf_counter()
+        again = SangriaIVC._witness(side, sfc, fspec, x1)
+        t1 = time.perf_counter()
+        x0 = sfc.inp.u.instances[0][1] % fspec.modulus  # the incoming instance's X1, this trace's X0
+        direct = SangriaIVC._witness_direct(side, sfc, fspec, sfc.instances([x0, x1]), x1)
+        t2 = time.perf_counter()
+        check(same_words(W, direct) and same_words(again, direct),
+              f"{label} ({fspec.name} SFC): the replayed witness differs from direct synthesis")
+        log(f"{label} ({fspec.name} SFC): native replay {t1 - t0:.4f} s, direct synthesis {t2 - t1:.4f} s: equal "
+            f"word for word ({len(W)} columns x {W.cols[0].shape[0]} rows)  [{card}]")
 
 
 def main() -> int:
@@ -1038,12 +1125,14 @@ def main() -> int:
         check(count > 0, f"kernel {name} never launched on the NTT path")
 
     # ---- the support-fold chain (launch counts from here) -------------------------------------
-    S_sup = support_structure()
+    t0 = time.perf_counter()
+    S_sup, sup_taped = support_structure()  # the dry synthesis traces the support tape
+    t_sup = time.perf_counter() - t0
     counters = (madd_mod.madd_buckets, bucket_plan, mk.msm_accumulate, mk.msm_reduce, mk.msm_window_sums,
                 mk.msm_combine)
     for fn in (*counters, madd_mod.madd_batch):
         fn.launches = 0
-    chain = SupportFoldChain(ck2, S_sup)
+    chain = SupportFoldChain(ck2, S_sup, sup_taped)
     totals = {"witness": 0.0, "sps": 0.0, "prove": 0.0}
     for i in range(FOLDS):
         secs = chain.fold(random_input(rng))
@@ -1065,6 +1154,15 @@ def main() -> int:
     for name, count in launches.items():
         check(count > 0, f"kernel {name} never launched on the support chain")
     check(madd_mod.madd_batch.launches == 0, "the support chain still launched the per-step madd")
+    inp = random_input(np.random.default_rng(SEED + 1))
+    t0 = time.perf_counter()
+    _, W_replay = chain.witness(inp)
+    t1 = time.perf_counter()
+    _, W_direct = chain.witness_direct(inp)
+    t2 = time.perf_counter()
+    check(same_words(W_replay, W_direct), "the support circuit's replayed witness differs from direct synthesis")
+    log(f"support circuit k=14: structure and tape {t_sup:.4f} s ({tape_sizes(sup_taped)}); one witness by native "
+        f"replay {t1 - t0:.4f} s, by direct synthesis {t2 - t1:.4f} s: equal word for word  [{card}]")
 
     # corruption probe: one flipped witness cell must be caught
     W0 = chain.acc.W.W[0].clone()
@@ -1083,20 +1181,22 @@ def main() -> int:
     for fn in (*counters, madd_mod.madd_batch):
         fn.launches = 0
     mk.msm_combine.shapes, mk.msm_accumulate.shapes, bucket_plan.shapes = {}, {}, {}
+    fk.mul_rows.launches, fk.mul_rows.shapes = 0, {}
     t0 = time.perf_counter()
     pp = CyclefoldPublicParams(TrivialStepCircuit(arity=1), IVC_K, ck1, ck2)
     t1 = synced()
     ivc = CyclefoldIVC(pp, IVC_Z0)
     t2 = synced()
     log(f"IVC k={IVC_K}: public parameters {t1 - t0:.4f} s (primary {pp.S_primary.num_advice_columns} advice "
-        f"columns, {len(pp.S_primary.gates)} gate, W round {pp.S_primary.round_sizes[0]}), new {t2 - t1:.4f} s  "
-        f"[{card}]")
-    for i in range(IVC_STEPS):
-        t0 = synced()
-        ivc.next()
-        dt = synced() - t0
-        log(f"IVC next {i + 1} (step {ivc.step - 1} -> {ivc.step}): {dt:.4f} s; spans: "
-            + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items()) + f"  [{card}]")
+        f"columns, {len(pp.S_primary.gates)} gate, W round {pp.S_primary.round_sizes[0]}; SFC tape "
+        f"{tape_sizes(pp.sfc_taped)}; support tape {tape_sizes(pp.support_taped)}), new {t2 - t1:.4f} s  [{card}]")
+    with last_calls(CyclefoldIVC, "_sfc_witness") as cf_calls:
+        for i in range(IVC_STEPS):
+            t0 = synced()
+            ivc.next()
+            dt = synced() - t0
+            log(f"IVC next {i + 1} (step {ivc.step - 1} -> {ivc.step}): {dt:.4f} s; spans: "
+                + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items()) + f"  [{card}]")
     t0 = synced()
     errors = ivc.verify()
     dt = synced() - t0
@@ -1105,6 +1205,7 @@ def main() -> int:
     log(f"IVC verify: [] in {dt:.4f} s; spans: " + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items())
         + f"  [{card}]")
     ivc_launches = {fn.__name__: fn.launches for fn in counters}
+    to_mont_shapes = dict(fk.mul_rows.shapes)
     combine_shapes = dict(mk.msm_combine.shapes)
     accumulate_shapes, sort_shapes = dict(mk.msm_accumulate.shapes), dict(bucket_plan.shapes)
     log(f"launch counts on the IVC path (pp, new, {IVC_STEPS} x next, verify): {ivc_launches}; madd (batched, off "
@@ -1124,6 +1225,32 @@ def main() -> int:
         f"{pp.digest_hex()}")
     check(all(d.startswith(want) for d, want in zip(digests, CYCLEFOLD_DIGESTS)),
           f"the Cyclefold digests moved: {digests}, not {CYCLEFOLD_DIGESTS}...")
+    cf_replay_check(f"IVC k={IVC_K} next {IVC_STEPS}", cf_calls[-1], card)
+
+    # mul_rows K = 1 as the SPS's conversion of the replayed W to Montgomery form: the last next's W (917,504
+    # standard-form words, uploaded packed) times R^2 broadcast (nb = 1), against its plain version, and equal to
+    # the pending trace's W round
+    W_rep = cf_calls[-1][1][0]
+    words = torch.from_numpy(np.concatenate(W_rep.cols).view(np.int32)).to(dev)
+    w64, r2 = words.to(torch.int64) & 0xFFFFFFFF, torch.from_numpy(ints_to_words([FR.r2])).to(dev)
+    got = fk.mul_rows(FR, w64, r2)
+    err = word_err([got], [fk.mul_rows_plain(FR, w64, r2)])
+    check(err == 0 and torch.equal(got, ivc.primary_trace.w.W[0]) and torch.equal(FR.to_mont_words(words), got),
+          "mul_rows K = 1 at the W conversion disagrees with its plain version or the pending trace's W round")
+    ms = gpu_ms(lambda: fk.mul_rows(FR, w64, r2), reps=20)
+    plain = gpu_ms(lambda: fk.mul_rows_plain(FR, w64, r2), reps=1)
+    upload_ms = gpu_ms(lambda: torch.from_numpy(np.concatenate(W_rep.cols).view(np.int32)).to(dev), reps=5)
+    record("mul_rows_to_mont", "sirius_tpu_torch/csrc/field_ops.cu", "scripts/tpu_microbench.py:74", err, ms, plain,
+           PRIMARY_W_N, 2 * FE * PRIMARY_W_N + FE)
+    kernels["mul_rows_to_mont"]["launches"] = to_mont_shapes.get((PRIMARY_W_N, 1), 0)
+    e = kernels["mul_rows_to_mont"]
+    check(e["launches"] > 0, f"no W conversion at {PRIMARY_W_N} rows on the IVC path: mul_rows by (n, nb) "
+          f"{to_mont_shapes}")
+    log(f"mul_rows K=1 as the W conversion ({PRIMARY_W_N} x 1, b = R^2): equals its plain version, Field.to_mont_words "
+        f"and the pending trace's W round; {ms:.6f} ms, plain {plain:.4f} ms, bound {e['bound_ms']:.6f} ms "
+        f"({e['bound_by']}), library: none; the packed upload (concatenate + host-to-device, "
+        f"{words.numel() * 4} B) {upload_ms:.6f} ms; mul_rows launches on the IVC path by (n, nb): {to_mont_shapes}  "
+        f"[{card}]")
 
     # corruption probe: one flipped cell of the PG accumulator's witness
     W0 = ivc.self_acc.trace.w.W[0]
@@ -1297,8 +1424,9 @@ def main() -> int:
     log(f"Sangria IVC k={SANGRIA_K} (trivial step on both sides, bn256 2^{PRIMARY_LOG} / grumpkin "
         f"2^{GRUMPKIN_KEY_LOG} keys): public parameters {t1 - t0:.4f} s (primary {Sp.num_advice_columns} advice "
         f"columns, W round {Sp.round_sizes[0]}, {spp.primary_num_cross_terms} cross terms, "
-        f"{spp.primary_probe.num_challenges} challenges; secondary {Ss.num_advice_columns} columns, W round "
-        f"{Ss.round_sizes[0]}, {spp.secondary_num_cross_terms} cross terms), new {t2 - t1:.4f} s; spans: "
+        f"{spp.primary_probe.num_challenges} challenges, tape {tape_sizes(spp.primary.taped)}; secondary "
+        f"{Ss.num_advice_columns} columns, W round {Ss.round_sizes[0]}, {spp.secondary_num_cross_terms} cross terms, "
+        f"tape {tape_sizes(spp.secondary.taped)}), new {t2 - t1:.4f} s; spans: "
         + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items()) + f"  [{card}]")
     # the first step's cross terms (both curves) are kept for the walk's checks below
     captured = []
@@ -1310,13 +1438,14 @@ def main() -> int:
         return out
 
     VanillaFS.commit_cross_terms = staticmethod(recording)
-    for i in range(SANGRIA_STEPS):
-        t0 = synced()
-        sivc.fold_step()
-        dt = synced() - t0
-        VanillaFS.commit_cross_terms = staticmethod(cross_terms_fn)
-        log(f"Sangria fold_step {i + 1} (step {sivc.step - 1} -> {sivc.step}): {dt:.4f} s; spans: "
-            + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items()) + f"  [{card}]")
+    with last_calls(SangriaIVC, "_witness", keep=2) as sg_calls:  # the last step's primary and secondary SFC
+        for i in range(SANGRIA_STEPS):
+            t0 = synced()
+            sivc.fold_step()
+            dt = synced() - t0
+            VanillaFS.commit_cross_terms = staticmethod(cross_terms_fn)
+            log(f"Sangria fold_step {i + 1} (step {sivc.step - 1} -> {sivc.step}): {dt:.4f} s; spans: "
+                + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items()) + f"  [{card}]")
     t0 = synced()
     errors = sivc.verify()
     dt = synced() - t0
@@ -1346,6 +1475,7 @@ def main() -> int:
     check(any(shape[0] == CROSS_TERMS for shape in mk.msm_combine.shapes), "no msm_many combine on the Sangria path")
     log(f"Sangria digests after {SANGRIA_STEPS} steps: sangria_acc_digest primary {accs(sivc)[0]}, secondary "
         f"{accs(sivc)[1]}; pp digests {spp.digest_coords(1)} / {spp.digest_coords(2)}")
+    sg_replay_check(f"Sangria k={SANGRIA_K} fold_step {SANGRIA_STEPS}", sg_calls, card)
 
     # corruption probe: one flipped cell of the primary accumulator's witness
     W0 = sivc.primary_relaxed.W.W[0]
@@ -1626,8 +1756,9 @@ def main() -> int:
     log(f"SHA-256 Cyclefold k={SHA_K} (SpreadSha256StepCircuit H={SHA_HALF_BITS}, {SHA_ROUNDS} rounds): public "
         f"parameters {dt:.4f} s; num_witness_primary {spp.num_witness_primary}, W rounds {sizes}, "
         f"{spp.S_primary.num_advice_columns} advice columns, {spp.num_challenges_primary} challenges, "
-        f"{len(spp.S_primary.gates)} gates; spans: " + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items())
-        + f"  [{card}]")
+        f"{len(spp.S_primary.gates)} gates; SFC tape {tape_sizes(spp.sfc_taped)} (the replay's slots "
+        f"{136 * spp.sfc_taped.tape.n_slots} B); spans: "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items()) + f"  [{card}]")
     def peak() -> str:  # the stage's peak device memory (the keys' stay allocated), then reset
         torch.cuda.synchronize()
         b = torch.cuda.max_memory_allocated()
@@ -1643,17 +1774,19 @@ def main() -> int:
     check(sivc.z_i == [z], f"SHA-256 Cyclefold new: z {sivc.z_i} is not step_fn's {z}")
     log(f"SHA-256 Cyclefold new: {dt:.4f} s, z = {hex(z)} (step_fn); {peak()}; spans: "
         + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items()) + f"  [{card}]")
-    for i in range(SHA_STEPS):
-        t0 = synced()
-        if i < SHA_STEPS - 1:
-            sivc.next()
-            line = f"{synced() - t0:.4f} s"
-        else:  # the last next under torch.profiler
-            line = profiled("next", sivc.next)
-        z = sha256_step_fn(z, bn256_fr.modulus)
-        check(sivc.z_i == [z], f"SHA-256 Cyclefold next {i + 1}: z {sivc.z_i} is not step_fn's {z}")
-        log(f"SHA-256 Cyclefold next {i + 1} (step {sivc.step - 1} -> {sivc.step}): {line}; z = {hex(z)} (step_fn); "
-            f"{peak()}; spans: " + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items()) + f"  [{card}]")
+    with last_calls(CyclefoldIVC, "_sfc_witness") as sha_calls:
+        for i in range(SHA_STEPS):
+            t0 = synced()
+            if i < SHA_STEPS - 1:
+                sivc.next()
+                line = f"{synced() - t0:.4f} s"
+            else:  # the last next under torch.profiler
+                line = profiled("next", sivc.next)
+            z = sha256_step_fn(z, bn256_fr.modulus)
+            check(sivc.z_i == [z], f"SHA-256 Cyclefold next {i + 1}: z {sivc.z_i} is not step_fn's {z}")
+            log(f"SHA-256 Cyclefold next {i + 1} (step {sivc.step - 1} -> {sivc.step}): {line}; z = {hex(z)} "
+                f"(step_fn); {peak()}; spans: " + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items())
+                + f"  [{card}]")
     t0 = synced()
     errors = sivc.verify()
     dt = synced() - t0
@@ -1673,6 +1806,8 @@ def main() -> int:
           f"points")
     log(f"SHA-256 Cyclefold digests after {SHA_STEPS} steps (pg, support, pending trace): {cf_digests(sivc)}, pp "
         f"digest {spp.digest_hex()}")
+    cf_replay_check(f"SHA-256 Cyclefold k={SHA_K} next {SHA_STEPS}", sha_calls[-1], card)
+    del sha_calls
     # corruption probe: one flipped advice cell of the pending trace
     W0 = sivc.primary_trace.w.W[0]
     saved = W0[7].clone()
@@ -1799,7 +1934,8 @@ def main() -> int:
         for fn in (*counters, madd_mod.madd_batch):
             fn.launches = 0
         resident = torch.cuda.memory_allocated()
-        mivc, r = merkle_tree.run(args, keys=(ck1_full, ck2, "real"))  # its peak device memory and spans in r
+        with last_calls(CyclefoldIVC, "_sfc_witness") as m_calls:
+            mivc, r = merkle_tree.run(args, keys=(ck1_full, ck2, "real"))  # its peak device memory and spans in r
         profiler.enabled = False
         merkle_launches = {fn.__name__: fn.launches for fn in counters}
         check(r["errors"] == [], f"Merkle batch {batch}: verify reported {r['errors']}")
@@ -1812,8 +1948,10 @@ def main() -> int:
             f"pp {r['pp_s']:.4f} s, new {r['new_s']:.4f} s, next {r['next_s'][0]:.4f} s, verify() == [] in "
             f"{r['verify_s']:.4f} s; peak device memory {r['peak_bytes']} B ({r['peak_bytes'] / 2**30:.3f} GiB, "
             f"{resident} B resident before); spans: " + ", ".join(f"{k} {v:.4f} s" for k, v in r["spans"].items())
-            + f"; launch counts (pp, new, next, verify): {merkle_launches}  [{card}]")
-        del mivc
+            + f"; launch counts (pp, new, next, verify): {merkle_launches}; SFC tape {tape_sizes(mivc.pp.sfc_taped)}"
+            f"  [{card}]")
+        cf_replay_check(f"Merkle batch {batch} next", m_calls[-1], card)
+        del mivc, m_calls
     t0 = time.perf_counter()
     cli = subprocess.run([sys.executable, "-m", "sirius_tpu_torch.examples.cli", *CLI_ARGV], cwd=ROOT,
                          capture_output=True, text=True, timeout=900)

@@ -215,6 +215,16 @@ class Field:
         """Standard-form words (any value < 2^256) -> Montgomery (mod p)."""
         return self.mul(a_std, self._c("r2", a_std.device))
 
+    def to_mont_words(self, words: torch.Tensor) -> torch.Tensor:
+        """Packed standard-form (n, 8) u32 words (an int32 tensor holding the
+        u32 bits, or int64 words) -> Montgomery (n, 8) int64 words: the
+        product by R^2, one `mul_rows` launch at K = 1 with b = R^2
+        broadcast (its plain version for CPU tensors)."""
+        from ..ops.field_kernels import mul_rows
+
+        w = words.to(torch.int64) & M32
+        return mul_rows(self, w, self._c("r2", w.device)[None])
+
     def from_mont(self, a_mont):
         return self.mul(a_mont, self._c("one_std", a_mont.device))
 

@@ -171,6 +171,10 @@ class Assignment:
 
     def assign_fixed(self, col: Column, row: int, value: int):
         assert col.kind == "fixed"
+        from .tape import Tr
+
+        if isinstance(value, Tr):
+            raise TypeError("fixed column assigned a traced value: circuit structure must not depend on step inputs")
         self.fixed[col.index][row] = value % self.p
 
     def enable_selector(self, col: Column, row: int):

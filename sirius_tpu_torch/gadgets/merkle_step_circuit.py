@@ -129,6 +129,28 @@ class MerkleStepCircuit:
         self._step += 1
         return [self.tree.root]
 
+    # -- taped-synthesis dynamic witness (see ivc/step_circuit.py) ----------
+    def dynamic_witness(self) -> list:
+        out = []
+        for w in self._witness:
+            out.extend([w["old_leaf"], w["new_leaf"], *w["sibs"], *w["bits"]])
+        return out
+
+    def bind_witness(self, vals) -> None:
+        d = self.depth
+        per = 2 + 2 * d
+        if len(vals) != per * self.batch:
+            raise ValueError(f"merkle step takes {per * self.batch} dynamic witness values, got {len(vals)}")
+        self._witness = [
+            {
+                "old_leaf": vals[i * per],
+                "new_leaf": vals[i * per + 1],
+                "sibs": list(vals[i * per + 2 : i * per + 2 + d]),
+                "bits": list(vals[i * per + 2 + d : i * per + 2 + 2 * d]),
+            }
+            for i in range(self.batch)
+        ]
+
     # -- circuit -----------------------------------------------------------
     def _hash2_chip(self, mg, ctx, l, r):
         chip = PoseidonChip(mg, default_ro_spec(self.field_spec))

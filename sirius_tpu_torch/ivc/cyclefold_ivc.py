@@ -2,9 +2,12 @@
 support circuit on the secondary curve.
 
 Counterpart of `sirius_tpu/ivc/cyclefold_ivc.py` (reference
-`src/ivc/cyclefold/`), bit for bit, with direct synthesis of the step-folding
-circuit (the JAX package's witness tape is a host speed-up that gives the
-same witness):
+`src/ivc/cyclefold/`), bit for bit.  The public parameters trace the
+step-folding circuit and the support circuit once, during the dry syntheses
+that collect their structures (`frontend/taped.py`); every step's witnesses
+are native replays of those tapes.  Direct synthesis
+(`CyclefoldIVC._sfc_witness_direct`) is the replay's plain version, used by
+the tests and `chip_smoke.py` only:
 
   next(z_i):
     1. ProtoGalaxy prove(primary_acc, [primary_trace])        (off-circuit)
@@ -21,12 +24,15 @@ same witness):
 from __future__ import annotations
 
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Optional, Sequence
 
 from ..fields import gold
 from ..fields.constants import FieldSpec, bn256_fq, bn256_fr, bn256_g1, grumpkin
 from ..frontend.circuit import ConstraintSystemBuilder
 from ..frontend.runner import CircuitRunner, ConstraintSystemMetainfo
+from ..frontend.tape import TapeBuilder
+from ..frontend.taped import TapedSynthesis, _TrPoint, point_leaves, sc_dynamic_values, sc_is_stateful, sc_trace_bind
 from ..gadgets.big_uint_chip import BigUintChip
 from ..gadgets.fold_chip import FoldRelaxedPlonkInstanceChip
 from ..gadgets.main_gate import MainGate, RegionCtx
@@ -229,6 +235,64 @@ class CyclefoldSFC:
         return [list(markers)]
 
 
+# -- witness-tape input packing ------------------------------------------------------
+# `_cf_pack` is the one walk over the dynamic leaves of CyclefoldStepInputs:
+# the flattener (replay inputs) and the tracer (Tr wrapping) both ride it, so
+# the two orders cannot drift.
+
+
+def _cf_pack(inp: CyclefoldStepInputs, P) -> CyclefoldStepInputs:
+    def pt(g):
+        x, y = point_leaves(g)
+        return _TrPoint(P(x), P(y))
+
+    def pi(u):
+        return SimpleNamespace(
+            W_commitments=[pt(c) for c in u.W_commitments],
+            instances=[[P(v) for v in row] for row in u.instances],
+            challenges=[P(v) for v in u.challenges],
+        )
+
+    acc, sup = inp.self_acc, inp.support_acc
+    return CyclefoldStepInputs(
+        step=P(inp.step),
+        pp_digest=(P(inp.pp_digest[0]), P(inp.pp_digest[1])),
+        z_0=[P(v) for v in inp.z_0],
+        z_i=[P(v) for v in inp.z_i],
+        self_acc=SimpleNamespace(ins=pi(acc.ins), betas=[P(b) for b in acc.betas], e=P(acc.e)),
+        self_incoming=pi(inp.self_incoming),
+        proof=SimpleNamespace(
+            poly_F=SimpleNamespace(coeffs=[P(c) for c in inp.proof.poly_F.coeffs]),
+            poly_K=SimpleNamespace(coeffs=[P(c) for c in inp.proof.poly_K.coeffs]),
+        ),
+        support_acc=SimpleNamespace(
+            W_commitments=[pt(c) for c in sup.W_commitments],
+            E_commitment=pt(sup.E_commitment),
+            consistency_markers=[P(v) for v in sup.consistency_markers],
+            challenges=[P(v) for v in sup.challenges],
+            u=P(sup.u),
+            sc_instances_hash_acc=None if sup.sc_instances_hash_acc is None else P(sup.sc_instances_hash_acc),
+        ),
+        support_incoming=[pi(u) for u in inp.support_incoming],
+        support_cross_commits=[[pt(t) for t in cross] for cross in inp.support_cross_commits],
+    )
+
+
+def _cf_flatten(inp: CyclefoldStepInputs, sc=None) -> list[int]:
+    """The SFC tape's inputs for `inp`, then the step circuit's dynamic
+    witness (stateful step circuits only)."""
+    out: list[int] = []
+
+    def P(v):
+        out.append(int(v))
+        return v
+
+    _cf_pack(inp, P)
+    if sc is not None:
+        out.extend(sc_dynamic_values(sc))
+    return out
+
+
 # -- public parameters -------------------------------------------------------------
 
 
@@ -244,7 +308,7 @@ class CyclefoldPublicParams:
         self.ck2 = ck_support
         self.f1 = bn256_fr
         self.f2 = bn256_fq
-        self.S_support = support_structure(SUPPORT_K)
+        self.S_support, self.support_taped = support_structure(SUPPORT_K)
 
         # primary SFC structure by a dry run; the gate count and degrees are
         # probed first so that the dry proof polynomials have the real lengths
@@ -262,10 +326,21 @@ class CyclefoldPublicParams:
         self.max_gate_degree = max((g.degree(probe_ctx) for g in probe_meta.gates), default=0)
         self.num_challenges_primary = probe_meta.num_challenges
         self.num_witness_primary = len(probe_meta.round_sizes)
-        dry = CyclefoldSFC(step_circuit, self._dry_inputs(), self.f1)
-        self.S_primary = CircuitRunner(k, self.f1, dry, [[0, 0]]).collect_plonk_structure()
+        # the dry structure synthesis doubles as the SFC's witness trace
+        sfc_tape = TapeBuilder()
+        dry_inputs = _cf_pack(self._dry_inputs(), lambda v: sfc_tape.input())
+        restore_sc = sc_trace_bind(sfc_tape, step_circuit)
+        dry = CyclefoldSFC(step_circuit, dry_inputs, self.f1)
+        runner = CircuitRunner(k, self.f1, dry, [[0, 0]])
+        try:
+            self.S_primary = runner.collect_plonk_structure()
+        finally:
+            restore_sc()
         if len(self.S_primary.gates) != self.n_gates:
             raise CyclefoldError(f"dry structure has {len(self.S_primary.gates)} gates, probe {self.n_gates}")
+        named = {"x0": dry.x0_value, "x1": dry.x1_value}
+        named.update({f"z{i}": v for i, v in enumerate(dry.z_next_values)})
+        self.sfc_taped = TapedSynthesis(sfc_tape, runner._asn, named=named)
 
         bits = digest_ints_to_bits(structure_digest_stream(self.S_primary) + structure_digest_stream(self.S_support))
         self.digest = into_curve_from_bits(bn256_g1, bits)
@@ -331,7 +406,7 @@ class CyclefoldIVC:
         dry_trace = PlonkTrace(pp._default_primary_incoming(),
                                PlonkWitness.zeros(pp.S_primary.field, pp.S_primary.round_sizes, pp.ck1.device))
         self.self_acc = pg.ProtoGalaxy.new_accumulator(pp.pg_pp, _ro(), dry_trace, bn256_g1)
-        self.support = SupportFoldChain(pp.ck2, pp.S_support, pp_digest=pp.digest)
+        self.support = SupportFoldChain(pp.ck2, pp.S_support, pp.support_taped, pp_digest=pp.digest)
 
         inputs = pp._dry_inputs()
         inputs.pp_digest = pp.digest_coords()
@@ -355,17 +430,35 @@ class CyclefoldIVC:
     def support_pub_instances(self) -> list:
         return self.support.pub_instances
 
-    def _sfc_witness(self, inputs: CyclefoldStepInputs, marker_of_z, x0: int = 0):
-        """(advice columns, z_next, x1) of the SFC for `inputs` by direct
-        synthesis, with the on- and off-circuit X1 checked equal."""
+    def _sfc_witness(self, inputs: CyclefoldStepInputs, marker_of_z):
+        """(advice columns, z_next, x1) of the SFC for `inputs` by native
+        replay of the pp's SFC tape, with the on- and off-circuit X1 checked
+        equal.  A stateful step circuit first advances its host state (e.g.
+        the Merkle tree) and its dynamic witness, and its replayed z_next is
+        checked against the host's."""
         pp = self.pp
-        z_next = pp.sc.process_step(inputs.z_i, pp.k, pp.f1)
+        q = pp.f1.modulus
+        z_host = pp.sc.process_step(inputs.z_i, pp.k, pp.f1) if sc_is_stateful(pp.sc) else None
+        W, named = pp.sfc_taped.replay(_cf_flatten(inputs, pp.sc))
+        z_next = [named[f"z{i}"] for i in range(pp.sc.arity)]
+        if z_host is not None and z_next != [v % q for v in z_host]:
+            raise CyclefoldError("replayed z_next differs from the host's process_step")
         x1 = marker_of_z(z_next)
+        if named["x1"] != x1:
+            raise CyclefoldError("on- and off-circuit X1 markers differ (a stateful step circuit must implement "
+                                 "dynamic_witness/bind_witness: ivc/step_circuit.py)")
+        return W, z_next, x1
+
+    def _sfc_witness_direct(self, inputs: CyclefoldStepInputs, x0: int, x1: int) -> list[list[int]]:
+        """The replay's plain version: the SFC's advice columns for `inputs`
+        by direct synthesis of the gadget stack (a stateful step circuit
+        synthesizes the dynamic witness its last `process_step` bound)."""
+        pp = self.pp
         sfc = CyclefoldSFC(pp.sc, inputs, pp.f1)
         W = CircuitRunner(pp.k, pp.f1, sfc, [[x0, x1]]).collect_witness()
         if sfc.x1_value != x1:
             raise CyclefoldError("on- and off-circuit X1 markers differ")
-        return W, z_next, x1
+        return W
 
     def next(self):
         """One Cyclefold step (reference `next`, mod.rs:210-324)."""
@@ -421,7 +514,7 @@ class CyclefoldIVC:
         with span("sfc_witness"):
             W, z_next, x1 = self._sfc_witness(inputs, lambda z: cyclefold_marker(
                 f1, pp.digest_coords(), self.step + 1, self.z_0, z, pg.AccumulatorInstance.from_acc(new_acc),
-                self.support_acc.U), x0=x0)
+                self.support_acc.U))
         with span("sps_primary"):
             self.primary_trace = run_sps_protocol(pp.S_primary, pp.ck1, [[x0, x1]], W, _ro())
         self.self_acc = new_acc

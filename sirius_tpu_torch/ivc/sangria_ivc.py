@@ -2,8 +2,12 @@
 
 Counterpart of `sirius_tpu/ivc/sangria_ivc.py` (reference `src/ivc/sangria/
 {incrementally_verifiable_computation,step_folding_circuit,public_params}.rs`),
-bit for bit, with direct synthesis of the step-folding circuits (the JAX
-package's witness tape is a host speed-up that gives the same witness).
+bit for bit.  The public parameters trace both sides' step-folding circuits
+once, during the dry syntheses that collect their structures
+(`frontend/taped.py`); every witness after that, the secondary pre-round
+trace's included, is a native replay of those tapes.  Direct synthesis
+(`IVC._witness_direct`) is the replay's plain version, used by the tests
+and `chip_smoke.py` only.
 
 Each side's StepFoldingCircuit (the augmented circuit F') verifies the fold
 of the *other* side's instances:
@@ -26,12 +30,15 @@ holds `sangria_cross_terms`, `sangria_challenge` and `sangria_fold`.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Optional, Sequence
 
 from ..fields import gold
 from ..fields.constants import CurveSpec, FieldSpec, bn256_g1, grumpkin
 from ..frontend.circuit import ConstraintSystemBuilder
 from ..frontend.runner import CircuitRunner, ConstraintSystemMetainfo
+from ..frontend.tape import TapeBuilder
+from ..frontend.taped import TapedSynthesis, _TrPoint, point_leaves, sc_dynamic_values, sc_trace_bind
 from ..gadgets.big_uint_chip import BigUintCells, BigUintChip
 from ..gadgets.ecc_chip import AssignedPoint
 from ..gadgets.fold_chip import AssignedRelaxedPlonkInstance, FoldRelaxedPlonkInstanceChip
@@ -203,6 +210,68 @@ class StepFoldingCircuit:
         return [list(markers)] + [list(c) for c in self.sc.instances()]
 
 
+# -- witness-tape input packing (the Cyclefold SFC's scheme: ivc/cyclefold_ivc._cf_pack) --
+
+
+def _sg_pack(inp: StepInputs, P) -> StepInputs:
+    def pt(g):
+        x, y = point_leaves(g)
+        return _TrPoint(P(x), P(y))
+
+    U = inp.U
+    return StepInputs(
+        step=P(inp.step),
+        pp_digest=(P(inp.pp_digest[0]), P(inp.pp_digest[1])),
+        z_0=[P(v) for v in inp.z_0],
+        z_i=[P(v) for v in inp.z_i],
+        U=SimpleNamespace(
+            W_commitments=[pt(c) for c in U.W_commitments],
+            E_commitment=pt(U.E_commitment),
+            consistency_markers=[P(v) for v in U.consistency_markers],
+            challenges=[P(v) for v in U.challenges],
+            u=P(U.u),
+            sc_instances_hash_acc=None if U.sc_instances_hash_acc is None else P(U.sc_instances_hash_acc),
+        ),
+        u=SimpleNamespace(
+            W_commitments=[pt(c) for c in inp.u.W_commitments],
+            instances=[[P(v) for v in row] for row in inp.u.instances],
+            challenges=[P(v) for v in inp.u.challenges],
+        ),
+        cross_term_commits=[pt(t) for t in inp.cross_term_commits],
+    )
+
+
+def _sg_flatten(inp: StepInputs, sc=None) -> list[int]:
+    """The SFC tape's inputs for `inp`, then the step circuit's dynamic
+    witness (stateful step circuits only)."""
+    out: list[int] = []
+
+    def P(v):
+        out.append(int(v))
+        return v
+
+    _sg_pack(inp, P)
+    if sc is not None:
+        out.extend(sc_dynamic_values(sc))
+    return out
+
+
+def _trace_sfc(k: int, fspec: FieldSpec, sc: StepCircuit, inputs: StepInputs, paired: CurveSpec, instances):
+    """Dry-run an SFC in trace mode: returns (structure, TapedSynthesis)."""
+    tape = TapeBuilder()
+    wrapped = _sg_pack(inputs, lambda v: tape.input())
+    restore_sc = sc_trace_bind(tape, sc)
+    sfc = StepFoldingCircuit(sc, wrapped, paired, fspec)
+    runner = CircuitRunner(k, fspec, sfc, instances)
+    try:
+        S = runner.collect_plonk_structure()
+    finally:
+        restore_sc()
+    named = {"x0": sfc.x0_value, "x1": sfc.x1_value}
+    named.update({f"z{i}": v for i, v in enumerate(sfc.z_next_values)})
+    return S, TapedSynthesis(tape, runner._asn, named=named)
+
+
 # -- public parameters ----------------------------------------------------------------
 
 
@@ -213,6 +282,7 @@ class SideParams:
     k: int
     ck: object  # CommitmentKey on `curve`, or a test double
     S: object = None  # PlonkStructure, filled by PublicParams
+    taped: object = None  # the SFC's TapedSynthesis, filled by PublicParams
 
 
 @dataclass
@@ -270,8 +340,9 @@ class PublicParams:
         self.primary_num_cross_terms = self.primary_probe.num_cross_terms
         self.secondary_num_cross_terms = self.secondary_probe.num_cross_terms
 
-        # both structures by dry-running the SFCs on placeholders; each SFC folds
-        # the paired side's instances, so it assigns the paired side's shapes
+        # both structures by dry-running the SFCs on traced placeholders (the
+        # dry runs are the witness traces); each SFC folds the paired side's
+        # instances, so it assigns the paired side's shapes
         def dry_inputs(side: SideParams, sc, paired_probe: SideProbe) -> StepInputs:
             return StepInputs(
                 step=0, pp_digest=(0, 0), z_0=[0] * sc.arity, z_i=[0] * sc.arity,
@@ -279,9 +350,10 @@ class PublicParams:
                 cross_term_commits=[gold.identity(side.paired)] * paired_probe.num_cross_terms,
             )
 
-        dry_primary = StepFoldingCircuit(primary_sc, dry_inputs(self.primary, primary_sc, self.secondary_probe),
-                                         self.primary.paired, f1)
-        self.primary.S = CircuitRunner(k1, f1, dry_primary, dry_primary.instances([0, 0])).collect_plonk_structure()
+        pri_inp = dry_inputs(self.primary, primary_sc, self.secondary_probe)
+        self.primary.S, self.primary.taped = _trace_sfc(
+            k1, f1, primary_sc, pri_inp, self.primary.paired,
+            StepFoldingCircuit(primary_sc, pri_inp, self.primary.paired, f1).instances([0, 0]))
 
         # the secondary structure and the initial secondary trace (pre-round)
         sec_inp = dry_inputs(self.secondary, secondary_sc, self.primary_probe)
@@ -293,10 +365,11 @@ class PublicParams:
                                         gold.identity(self.secondary.paired), 1, [0] * secondary_sc.arity,
                                         sec_z_out, _initial_relaxed(self.secondary.paired, self.primary_probe)),
         ]
-        sec_runner = CircuitRunner(k2, f2, sec_sfc, sec_sfc.instances(sec_markers))
-        self.secondary.S = sec_runner.collect_plonk_structure()
+        self.secondary.S, self.secondary.taped = _trace_sfc(k2, f2, secondary_sc, sec_inp, self.secondary.paired,
+                                                             sec_sfc.instances(sec_markers))
+        sec_witness = IVC._witness(self.secondary, sec_sfc, f2, sec_markers[1])
         self.secondary_initial_plonk_trace = run_sps_protocol(
-            self.secondary.S, ck2, sec_sfc.instances(sec_markers), sec_runner.collect_witness(), _ro(f1))
+            self.secondary.S, ck2, sec_sfc.instances(sec_markers), sec_witness, _ro(f1))
 
         bits = digest_ints_to_bits(structure_digest_stream(self.primary.S) + structure_digest_stream(self.secondary.S))
         self.digest_1 = into_curve_from_bits(self.primary.curve, bits)
@@ -358,7 +431,7 @@ class IVC:
             pp.primary.paired, f1,
         )
         primary_instances = primary_sfc.instances(primary_markers)
-        primary_witness = self._witness(pp.primary, primary_sfc, f1, primary_instances, primary_markers[1])
+        primary_witness = self._witness(pp.primary, primary_sfc, f1, primary_markers[1])
 
         self.primary_nifs_pp, _ = VanillaFS.setup_params(pp.digest_1, pp.primary.S)
         self.secondary_nifs_pp, _ = VanillaFS.setup_params(pp.digest_2, pp.secondary.S)
@@ -383,7 +456,7 @@ class IVC:
             pp.secondary.paired, f2,
         )
         secondary_instances = secondary_sfc.instances(secondary_markers)
-        secondary_witness = self._witness(pp.secondary, secondary_sfc, f2, secondary_instances, secondary_markers[1])
+        secondary_witness = self._witness(pp.secondary, secondary_sfc, f2, secondary_markers[1])
         secondary_trace = run_sps_protocol(pp.secondary.S, pp.secondary.ck, secondary_instances, secondary_witness,
                                            _ro(f1))
 
@@ -398,9 +471,19 @@ class IVC:
         self.secondary_pub_instances: list = [sec_pre_trace.u.instances]
 
     @staticmethod
-    def _witness(side: SideParams, sfc: StepFoldingCircuit, fspec: FieldSpec, instances, expect_x1: int):
-        """The SFC's advice columns by direct synthesis, with the on- and
-        off-circuit X1 checked equal."""
+    def _witness(side: SideParams, sfc: StepFoldingCircuit, fspec: FieldSpec, expect_x1: int):
+        """The SFC's advice columns by native replay of the side's tape, with
+        the on- and off-circuit X1 checked equal."""
+        W, named = side.taped.replay(_sg_flatten(sfc.inp, sfc.sc))
+        if named["x1"] != expect_x1 % fspec.modulus:
+            raise SangriaIVCError("on- and off-circuit X1 markers differ (a stateful step circuit must implement "
+                                  "dynamic_witness/bind_witness: ivc/step_circuit.py)")
+        return W
+
+    @staticmethod
+    def _witness_direct(side: SideParams, sfc: StepFoldingCircuit, fspec: FieldSpec, instances, expect_x1: int):
+        """The replay's plain version: the SFC's advice columns by direct
+        synthesis, with the on- and off-circuit X1 checked equal."""
         W = CircuitRunner(side.k, fspec, sfc, instances).collect_witness()
         if sfc.x1_value != expect_x1 % fspec.modulus:
             raise SangriaIVCError("on- and off-circuit X1 markers differ")
@@ -433,7 +516,7 @@ class IVC:
         )
         primary_instances = primary_sfc.instances(primary_markers)
         with span("sfc_witness_primary"):
-            primary_witness = self._witness(pp.primary, primary_sfc, f1, primary_instances, primary_markers[1])
+            primary_witness = self._witness(pp.primary, primary_sfc, f1, primary_markers[1])
         self.primary_z_i = primary_z_next
         self.secondary_relaxed = sec_new_trace
         with span("sps_primary"):
@@ -461,8 +544,7 @@ class IVC:
         )
         secondary_instances = secondary_sfc.instances(secondary_markers)
         with span("sfc_witness_secondary"):
-            secondary_witness = self._witness(pp.secondary, secondary_sfc, f2, secondary_instances,
-                                              secondary_markers[1])
+            secondary_witness = self._witness(pp.secondary, secondary_sfc, f2, secondary_markers[1])
         self.secondary_z_i = secondary_z_next
         self.primary_relaxed = pri_new_trace
         with span("sps_secondary"):

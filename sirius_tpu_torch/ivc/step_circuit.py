@@ -16,8 +16,23 @@ from ..gadgets.main_gate import AssignedCell, RegionCtx
 
 
 class StepCircuit(Protocol):
-    """User trait (reference `step_circuit.rs:52-147`); arity is the length
-    of the state vector z."""
+    """User trait (reference `step_circuit.rs:52-147`).
+
+    arity: length of the state vector z.
+
+    Stateful circuits, ones whose `synthesize_step` witnesses per-step data
+    beyond z_i (e.g. a Merkle authentication path), must additionally
+    implement the dynamic-witness pair so the taped synthesis
+    (frontend/taped.py) can capture those values as tape inputs:
+
+        dynamic_witness() -> list[int]   # flatten the current step's extra
+                                         # witness, fixed length per shape
+        bind_witness(vals) -> None       # install (possibly traced) values
+
+    Circuits without these methods are treated as pure functions of z_i.
+    A stateful circuit that omits them fails loudly: the driver cross-checks
+    the replayed X1 marker against the host-computed one every step.
+    """
 
     arity: int
 

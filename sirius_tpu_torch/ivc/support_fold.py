@@ -6,8 +6,12 @@ support folds and `verify`'s support `is_sat`): every fold synthesizes the
 EC co-processor circuit `SupportCircuit` (p_out = l0 p0 + l1 p1 over
 bn256 points, native on grumpkin's scalar field), runs the 0-challenge SPS
 on the grumpkin key and folds the trace into a Sangria accumulator.  The
-public-parameter digest is supplied by the caller (`ivc/cyclefold_ivc.py`
-passes its pp digest; the identity when none is given).
+circuit's witness is a native replay of the support tape, which
+`support_structure` traces during its dry synthesis
+(`frontend/taped.py`); `SupportFoldChain.witness_direct` is its plain
+version.  The public-parameter digest is supplied by the caller
+(`ivc/cyclefold_ivc.py` passes its pp digest; the identity when none is
+given).
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import torch
 from ..fields import gold
 from ..fields.constants import bn256_fq, bn256_fr, bn256_g1, grumpkin
 from ..frontend.runner import CircuitRunner
+from ..frontend.tape import TapeBuilder
+from ..frontend.taped import TapedSynthesis, _TrPoint, point_leaves
 from ..nifs.sangria import RelaxedPlonkInstance, RelaxedPlonkTrace, RelaxedPlonkWitness, VanillaFS
 from ..ops.poseidon import PoseidonHash
 from ..plonk.sps import run_sps_protocol
@@ -32,14 +38,22 @@ SUPPORT_K = 14
 SUPPORT_IO = 8
 
 
-def support_structure(k: int = SUPPORT_K) -> PlonkStructure:
-    """The support circuit's structure (shape-stable across inputs)."""
-    inp = InstanceInput(gold.identity(bn256_g1), gold.identity(bn256_g1), 0, 0)
-    circuit = SupportCircuit(inp, num_bits=bn256_fr.num_bits)
-    S = CircuitRunner(k, bn256_fq, circuit, [inp.into_instance(bn256_fq.modulus)]).collect_plonk_structure()
+def support_structure(k: int = SUPPORT_K) -> tuple[PlonkStructure, TapedSynthesis]:
+    """The support circuit's structure (shape-stable across inputs) and its
+    witness tape, both from one dry synthesis over traced inputs."""
+    tape = TapeBuilder()
+    si = tape.inputs(6)
+    inp = InstanceInput(_TrPoint(si[0], si[1]), _TrPoint(si[2], si[3]), si[4], si[5])
+    runner = CircuitRunner(k, bn256_fq, SupportCircuit(inp, num_bits=bn256_fr.num_bits), [[0] * SUPPORT_IO])
+    S = runner.collect_plonk_structure()
     if S.num_challenges != 0:
         raise ValueError("support circuit must take the 0-challenge SPS path")
-    return S
+    return S, TapedSynthesis(tape, runner._asn, named={})
+
+
+def _sup_flatten(inp: InstanceInput) -> list[int]:
+    """The support tape's inputs: p0, p1 (identity as (0, 0)), l0, l1."""
+    return [*point_leaves(inp.p0), *point_leaves(inp.p1), inp.l0, inp.l1]
 
 
 def random_input(rng: np.random.Generator) -> InstanceInput:
@@ -57,11 +71,13 @@ def support_ro() -> PoseidonHash:
 
 class SupportFoldChain:
     """A Sangria accumulator over support-circuit traces on key `ck`
-    (a grumpkin `CommitmentKey`, or a test double)."""
+    (a grumpkin `CommitmentKey`, or a test double); `S` and `taped` are
+    `support_structure(k)`'s."""
 
-    def __init__(self, ck, S: PlonkStructure, pp_digest=None, k: int = SUPPORT_K):
+    def __init__(self, ck, S: PlonkStructure, taped: TapedSynthesis, pp_digest=None, k: int = SUPPORT_K):
         self.ck = ck
         self.S = S
+        self.taped = taped
         self.k = k
         self.pp, self.vp = VanillaFS.setup_params(pp_digest or gold.identity(grumpkin), S)
         f, dev = S.field, ck.device
@@ -75,7 +91,13 @@ class SupportFoldChain:
         self.pub_instances = []
 
     def witness(self, inp: InstanceInput):
-        """(instances, advice columns) of one support circuit."""
+        """(instances, advice columns) of one support circuit, the columns by
+        native replay of the support tape."""
+        W, _ = self.taped.replay(_sup_flatten(inp))
+        return [inp.into_instance(bn256_fq.modulus)], W
+
+    def witness_direct(self, inp: InstanceInput):
+        """The replay's plain version: `witness` by direct synthesis."""
         instances = [inp.into_instance(bn256_fq.modulus)]
         circuit = SupportCircuit(inp, num_bits=bn256_fr.num_bits)
         return instances, CircuitRunner(self.k, bn256_fq, circuit, instances).collect_witness()

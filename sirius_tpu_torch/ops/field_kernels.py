@@ -20,7 +20,10 @@ Kernel: `csrc/field_ops.cu`, a bandwidth kernel at K = 1 (2 elements per
 thread, 16-byte loads and stores, 32-bit index arithmetic), one chain per
 thread at K > 1 (design and bound noted there).  The wrapper takes its
 plain twin for CPU tensors only; for CUDA tensors it launches its kernel
-or raises.  `mul_rows.launches` counts kernel launches.
+or raises.  `mul_rows.launches` counts kernel launches, and
+`mul_rows.shapes` counts them by (n, nb) as well: nb = 1 with b = R^2 is
+the SPS's conversion of a replayed witness to Montgomery form
+(`Field.to_mont_words`).
 """
 
 from __future__ import annotations
@@ -74,10 +77,13 @@ def mul_rows(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 1, rep: in
                                                _build.stream_of(a))
         _build.check(err, "mul_rows")
         mul_rows.launches += 1
+        shape = (a.shape[0], b.shape[0])
+        mul_rows.shapes[shape] = mul_rows.shapes.get(shape, 0) + 1
     return out
 
 
 mul_rows.launches = 0
+mul_rows.shapes = {}
 
 
 def mul_rows_kernel_attrs(product: str | None = None) -> dict[str, int]:

@@ -23,9 +23,11 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from ..fields.jfield import Field
+from ..frontend.taped import ReplayedWitness
 from ..ops.poseidon import PoseidonHash
 from ..util.ro import NUM_CHALLENGE_BITS
 from .structure import PlonkInstance, PlonkStructure, PlonkTrace, PlonkWitness
@@ -48,7 +50,16 @@ def _absorb_instances(ro: PoseidonHash, instances: Sequence[Sequence[int]]):
 
 def concat_with_padding(f: Field, cols: Sequence[Sequence[int]], n: int, device) -> torch.Tensor:
     """Column-major concatenation, each column padded to n rows, as a
-    (len(cols) * n, 8) Montgomery tensor."""
+    (len(cols) * n, 8) Montgomery tensor.  A tape replay's columns
+    (`ReplayedWitness`: (n, 8) u32 standard-form words) are concatenated on
+    the host, uploaded as 32 bytes a value and converted to Montgomery form
+    on the device (`Field.to_mont_words`); int columns (direct synthesis)
+    are encoded on the host."""
+    if isinstance(cols, ReplayedWitness):
+        arr = np.concatenate(cols.cols, axis=0)
+        if arr.shape[0] != len(cols) * n:
+            raise SpsError(f"replayed witness has {arr.shape[0]} rows, expected {len(cols)} x {n}")
+        return f.to_mont_words(torch.from_numpy(arr.view(np.int32)).to(device))
     flat: list[int] = []
     for col in cols:
         flat.extend(col)

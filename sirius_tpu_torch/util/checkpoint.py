@@ -180,7 +180,7 @@ def load_cyclefold_state(path: str, pp, pp_digest_hex: str, device=None):
                                     _words(data, "supE", device))
     ivc.self_acc = Accumulator(PlonkTrace(pg_u, pg_w), _ints(meta["pg_betas"]), int(meta["pg_e"], 16))
     ivc.primary_trace = PlonkTrace(pri_u, pri_w)
-    ivc.support = SupportFoldChain(pp.ck2, pp.S_support, pp_digest=pp.digest)
+    ivc.support = SupportFoldChain(pp.ck2, pp.S_support, pp.support_taped, pp_digest=pp.digest)
     ivc.support.acc = RelaxedPlonkTrace(sup_U, sup_W)
     ivc.support.pub_instances = [[_ints(col) for col in insts] for insts in meta["support_pub_instances"]]
     return ivc

@@ -136,7 +136,7 @@ def cyclefold_ivc_from(pp, ivc, device=None):
     out.z_0, out.z_i = list(ivc.z_0), list(ivc.z_i)
     out.self_acc = pg_accumulator_from(ivc.self_acc, device)
     out.primary_trace = plonk_trace_from(ivc.primary_trace, device)
-    out.support = SupportFoldChain(pp.ck2, pp.S_support, pp_digest=pp.digest)
+    out.support = SupportFoldChain(pp.ck2, pp.S_support, pp.support_taped, pp_digest=pp.digest)
     out.support.acc = relaxed_trace_from(ivc.support_acc, device)
     out.support.pub_instances = [[list(i) for i in inst] for inst in ivc.support_pub_instances]
     return out

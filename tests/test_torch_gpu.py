@@ -922,3 +922,59 @@ def test_instances_example_on_the_card_equals_the_frozen_jax_digests(cuda_device
     assert ivc.primary_relaxed.U.sc_instances_hash_acc == golden.SANGRIA_INSTANCES_K16_SC_HASH
     assert ivc.primary_z_i == [golden.SANGRIA_INSTANCES_K16_Z]
     assert ivc.verify() == []
+
+
+@pytest.mark.gpu
+def test_to_mont_words_is_one_mul_rows_launch_equal_to_encode(cuda_device):
+    """`Field.to_mont_words` on packed standard-form words (int32 holding
+    the u32 bits) on the card: one mul_rows launch (K = 1, b = R^2 broadcast),
+    the words of `Field.encode`."""
+    rng = np.random.default_rng(14)
+    for f in (FR, FQ):
+        xs = [0, 1, f.p - 1, *(int.from_bytes(rng.bytes(32), "little") % f.p for _ in range(4093))]
+        words = torch.from_numpy(ints_to_words(xs).astype(np.uint32).view(np.int32)).to(cuda_device)
+        before, shapes = fk.mul_rows.launches, dict(fk.mul_rows.shapes)
+        got = f.to_mont_words(words)
+        assert fk.mul_rows.launches == before + 1
+        assert fk.mul_rows.shapes[(len(xs), 1)] == shapes.get((len(xs), 1), 0) + 1
+        assert torch.equal(got, f.encode(xs, cuda_device))
+
+
+@pytest.mark.gpu
+def test_cyclefold_next_on_the_card_replays_the_direct_witness(cuda_device, monkeypatch):
+    """The trivial Cyclefold IVC at k = 17 on the mock keys, on the card: the
+    next's SFC witness, a native replay of the pp's tape, equals direct
+    synthesis word for word, its W round on the card equals the host
+    encoding of those columns, and the digests after new and next equal the
+    JAX package's (`golden.CYCLEFOLD_TRIVIAL_K17_*`)."""
+    from sirius_tpu_torch.ivc.cyclefold_ivc import CyclefoldIVC, CyclefoldPublicParams
+    from sirius_tpu_torch.ivc.step_circuit import TrivialStepCircuit
+    from sirius_tpu_torch.util import golden
+    from sirius_tpu_torch.util.testing import MockCommitmentKey
+
+    def digests(v):
+        return golden.cyclefold_digests(v, [w.cpu().numpy() for w in v.primary_trace.w.W])
+
+    pp = CyclefoldPublicParams(TrivialStepCircuit(arity=1), 17, MockCommitmentKey(BN256_G1, cuda_device),
+                               MockCommitmentKey(GRUMPKIN, cuda_device))
+    assert pp.digest_hex() == golden.CYCLEFOLD_TRIVIAL_K17_PP
+    ivc = CyclefoldIVC(pp, [0x11])
+    assert digests(ivc) == golden.CYCLEFOLD_TRIVIAL_K17_NEW
+    calls = []
+    replay = CyclefoldIVC._sfc_witness
+
+    def recording(self, inputs, marker_of_z):
+        out = replay(self, inputs, marker_of_z)
+        calls.append((inputs, out))
+        return out
+
+    monkeypatch.setattr(CyclefoldIVC, "_sfc_witness", recording)
+    ivc.next()
+    assert digests(ivc) == golden.CYCLEFOLD_TRIVIAL_K17_NEXT
+    (inputs, (W, _, x1)), = calls
+    direct = ivc._sfc_witness_direct(inputs, inputs.self_incoming.instances[0][1], x1)
+    assert len(W) == len(direct)
+    assert all(np.array_equal(c, ints_to_words(d).astype(np.uint32)) for c, d in zip(W.cols, direct))
+    flat = [v for col in direct for v in col]
+    assert torch.equal(ivc.primary_trace.w.W[0], FR.encode(flat, cuda_device))
+    assert ivc.verify() == []

@@ -104,3 +104,17 @@ def test_step_circuit_modules_are_the_ports_own(module):
     cls = getattr(importlib.import_module(name), STEP_CIRCUITS[module])
     for method in ("configure", "synthesize_step", "process_step", "instances"):
         assert callable(getattr(cls, method)), (module, method)
+
+
+@pytest.mark.parametrize("module", ["sirius_tpu_torch.frontend.tape", "sirius_tpu_torch.frontend.taped",
+                                    "sirius_tpu_torch.native"])
+def test_tape_modules_are_the_ports_own(module):
+    """The witness tape, its synthesis layer and the native interpreter's
+    loader are modules of the port (covered by the jax-free import above);
+    importing the loader builds nothing, and no source line of the port reads
+    a switch that would turn the tape or the native replay off."""
+    assert module in set(_modules())
+    importlib.import_module(module)
+    switches = re.compile(r"SIRIUS_TPU_(TAPE|NATIVE)")
+    assert [p for p in PKG.rglob("*.py") if switches.search(p.read_text())] == []
+    assert (PKG / "native" / "witness_tape.cpp").exists()

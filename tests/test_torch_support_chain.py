@@ -63,7 +63,7 @@ def _jax_support_chain():
 
 
 def test_support_chain_two_folds_matches_jax():
-    chain = SupportFoldChain(MockCommitmentKey(GRUMPKIN, "cpu"), support_structure())
+    chain = SupportFoldChain(MockCommitmentKey(GRUMPKIN, "cpu"), *support_structure())
     for inp in _support_inputs(tgold, tsc, tconst.bn256_g1):
         chain.fold(inp)
     jacc = _jax_support_chain()
