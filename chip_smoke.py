@@ -192,6 +192,25 @@
    thread, shared bytes and SASS instruction count, the SASS of mul_rows on
    each product (IMAD-class by opcode, IMAD.WIDE and IADD3 counts) and of
    S3's chains by opcode (`cuobjdump`, where the toolkit has it).
+13. The mesh phase (run after phase 11, before phase 12, on its keys):
+   (a) always, a virtual mesh of 4 shards on cuda:0: sharded commits
+   (`commit_device` under `mesh_context`) of 917,504 scalars on the bn256
+   2^20 key and 4,194,304 on the 2^22 key equal best_msm's point;
+   `NTT.fft_sharded` at 2^20 equals `fft` word for word, forward and
+   inverse; the trivial Cyclefold (k = 17, real keys) runs new, two next
+   and verify() == [] inside `mesh_context` with the digests 9f3739df /
+   13a63ce4, every bucket plan at a shard's size; the seconds of each
+   beside one card's (best_msm, fft); then the mesh path's kernels at its
+   shapes against their plain twins (B2's sort and accumulate and B3's
+   first reduce level on a 229,376-scalar shard, B3's combine over the 4
+   shards' buckets in one launch, B4 at a device's (1024, 256) columns,
+   the mid twiddle's mul_rows at 262,144 rows), timed beside their bounds,
+   and their launches on the mesh path by device.  (b) On a host with two
+   or more cards, the same checks on a mesh of every card (the NTT on the
+   largest power-of-two count), their seconds beside (a)'s and one card's,
+   B2 and B3 launched on every card.  Every line names its mesh.
+   `python3 chip_smoke.py --mesh-only` runs this phase alone, after the
+   keys it needs and the Cyclefold public parameters.
 
 Ends with a JSON line of kernel results (time, plain twin's time, bound
 and what sets it, launches on the path that runs the kernel: B1's bucket
@@ -206,6 +225,10 @@ Pallas kernel (`replaces` names the JAX package's jitted sort);
 `msm_combine_sha256` and `m_count_sha256` at the SHA-256 path's largest W
 commit and lookup, with the launches of that shape (the reduce's and
 m_count's: all of the path's);
+`bucket_sort_mesh`, `msm_accumulate_mesh`, `msm_reduce_mesh`,
+`msm_combine_mesh`, `col_ntt_mesh` and `mul_rows_mesh` at the mesh path's
+shapes, with its launches in all and by device (`launches_by_device`;
+`launches_every_card` on a multi-card host) and the mesh (`mesh`);
 the probes S1-S4 and B1's batched madd run on no path but their own timed
 runs, which are counted, a CUDA graph's replays included (S1's time is its
 wrapper's on CUDA events, as every entry's but S2's, S3's, S4's and the
@@ -266,9 +289,12 @@ from sirius_tpu_torch.ops import _build, field_kernels as fk, madd as madd_mod, 
 from sirius_tpu_torch.ops import lookup_kernels, ntt_kernels
 from sirius_tpu_torch.ops.commitment import DEVICE_SETUP_CHUNK, CommitmentKey
 from sirius_tpu_torch.ops.msm import FAN_IN, MANY_GROUPS, MANY_WINDOW_BITS, best_msm, bucket_plan, bucket_plan_plain
+from sirius_tpu_torch.ops.msm import msm_sharded, signed_window_bits
 from sirius_tpu_torch.ops.msm import msm_many
-from sirius_tpu_torch.ops.msm import split_segments
+from sirius_tpu_torch.ops.msm import reduce_segments, split_segments
 from sirius_tpu_torch.ops.ntt import NTT
+from sirius_tpu_torch.ops.ntt_kernels import col_ntt, col_ntt_plain
+from sirius_tpu_torch.parallel import Mesh, gather_rows, make_mesh, mesh_context, shard_rows
 from sirius_tpu_torch.ops.poseidon import PoseidonHash, poseidon_spec
 from sirius_tpu_torch.plonk import satisfy
 from sirius_tpu_torch.ops.lookup_kernels import m_count_plain
@@ -348,6 +374,11 @@ RANGE_K, RANGE_Z0 = 17, ([7], [0])  # tests/test_sangria_ivc.py::test_sangria_iv
 RANGE_STEPS = 2
 MERKLE_BATCHES = (1, 5)  # BASELINE.md:18-20: the reference's Merkle-update rows, batch 1..5, depth 32, Cyclefold
 CLI_ARGV = ["sangria-instances", "--fold-steps", "1"]  # examples/instances.py: its own 2^19 keys, k = 16
+MESH_SHARDS = 4  # the virtual mesh: four shards on cuda:0, the counterpart of the JAX tests' virtual devices
+MESH_COMMITS = (PRIMARY_W_N, SHA_ROUND_SIZES[0])  # the primary W (2^20 key) and the SHA-256 path's largest W round
+MESH_ENTRIES = {"bucket_sort_mesh": "msm_bucket_scatter", "msm_accumulate_mesh": "msm_accumulate",
+                "msm_reduce_mesh": "msm_reduce", "msm_combine_mesh": "msm_horner", "col_ntt_mesh": "col_ntt",
+                "mul_rows_mesh": "mul_rows"}  # kernels-line entry: the C entry its launches are counted by
 
 
 def lookup_ro() -> PoseidonHash:
@@ -449,7 +480,7 @@ def sort_bytes(plan, n: int) -> int:
     return FE * n + 4 * plan.entries.shape[0] + 8 * plan.chunk_start.shape[0] + 4 * plan.seg_off.shape[0]
 
 
-def msm_stages(curve, S, pts, timed: bool = False):
+def msm_stages(curve, S, pts, timed: bool = False, combine: bool = True):
     """best_msm's stages at the shapes it gives them: B2's bucket sort
     (bit-exact against bucket_plan_plain), B2 accumulate, every
     B3 reduce level, B3 window sums and combine.  Each kernel is held
@@ -457,7 +488,8 @@ def msm_stages(curve, S, pts, timed: bool = False):
     the next stage.  Returns (the (1, 8) Jacobian result, {kernel:
     [max_abs_err, ms, plain_ms, Montgomery products, canonical bytes]}, the
     plan); times only when `timed` (the reduce time and work are its first
-    level's)."""
+    level's).  Without `combine` it stops at the (1, W, B) buckets and
+    returns them in the result's place."""
     plan = bucket_plan(S)
     plain_plan = bucket_plan_plain(S)
     check((plan.c, plan.W, plan.B) == (plain_plan.c, plain_plan.W, plain_plan.B)
@@ -498,6 +530,8 @@ def msm_stages(curve, S, pts, timed: bool = False):
     out["msm_reduce"][0] = red_err
 
     shaped = Points(*(b.reshape(1, plan.W, plan.B, 8) for b in parts))
+    if not combine:
+        return shaped, out, plan
     comb, res = combine_stage(curve, shaped, plan.c, timed)
     out.update(comb)
     return res, out, plan
@@ -648,16 +682,254 @@ def sg_replay_check(label: str, calls, card: str) -> None:
             f"word for word ({len(W)} columns x {W.cols[0].shape[0]} rows)  [{card}]")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: CUDA is not available; the port's smoke run needs an NVIDIA GPU")
+def synced_all() -> float:
+    """The host clock once every visible card has finished its queued work."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    return time.perf_counter()
 
-    started = time.perf_counter()
-    dev = torch.device(DEVICE)
+
+def canonical_words(rng, n: int, dev) -> torch.Tensor:
+    """(n, 8) words of 252-bit values: canonical bn256 Fr elements, which
+    read as Montgomery or as standard form alike."""
+    w = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.int64)
+    w[:, 7] &= 0x0FFFFFFF
+    return torch.from_numpy(w).to(dev)
+
+
+class MeshLaunches:
+    """Runs calls of the mesh path and keeps the kernel launches they made,
+    by (C entry, device) (`_build.device_launches`); the comparisons run
+    outside it and are not counted."""
+
+    def __init__(self):
+        self.counts = Counter()
+
+    def __call__(self, fn):
+        before = Counter(_build.device_launches)
+        out = fn()
+        self.counts.update(Counter(_build.device_launches) - before)
+        return out
+
+    def by_device(self, entry: str) -> dict[str, int]:
+        return {d: k for (e, d), k in sorted(self.counts.items()) if e == entry}
+
+
+def mesh_checks(mesh, keys, pp, rng, card: str) -> tuple[dict, MeshLaunches]:
+    """The mesh phase's checks on `mesh`, each line naming it: the sharded
+    commits of MESH_COMMITS scalars (`commit_device` under `mesh_context`;
+    W made on the key's card) equal best_msm's point on one card; the 2^20
+    NTT by `fft_sharded` equals `fft` word for word, both directions; the
+    trivial Cyclefold (k = 17, the real keys) under `mesh_context`: new, two
+    next and verify() == [], its digests CYCLEFOLD_DIGESTS, every commit of
+    both curves through the key's shards.  Returns the seconds ({what:
+    (on the mesh, warm on the mesh, on one card)}) and the mesh path's
+    launches."""
+    ck1_full, ck1, ck2 = keys
+    name, run, secs = mesh.describe(), MeshLaunches(), {}
+    for ck, n in ((ck1, MESH_COMMITS[0]), (ck1_full, MESH_COMMITS[1])):
+        W = canonical_words(rng, n, ck.device)
+        one_card = lambda: best_msm(BN256_G1, FR.from_mont(W), Points(*(c[:n] for c in ck.points)))  # noqa: E731
+        want = one_card()
+        t0 = synced_all()
+        one_card()  # warm, as the mesh's second call
+        t1 = synced_all()
+        with mesh_context(mesh):
+            got = run(lambda: ck.commit_device(W))
+            t2 = synced_all()
+            again = run(lambda: ck.commit_device(W))
+            t3 = synced_all()
+        check(got == again == want, f"the sharded commit of {n} scalars on {name} differs from best_msm")
+        check((mesh, n) in ck.shard_cache, f"the commit of {n} scalars on {name} did not use the key's shards")
+        secs[f"commit {n}"] = (t2 - t1, t3 - t2, t1 - t0)
+        # the MSM alone (standard words given): across the mesh stage by stage, the same shards' pipelines one
+        # after another (each shard's best_msm on its card, in turns), and best_msm on one card
+        S, shards = FR.from_mont(W), ck.shards(mesh, n)
+        t4 = synced_all()
+        run(lambda: msm_sharded(BN256_G1, S, shards, mesh))
+        t5 = synced_all()
+        for Sd, Pd in zip(shard_rows(mesh, S), shards):
+            best_msm(BN256_G1, Sd, Pd)
+            synced_all()
+        t6 = synced_all()
+        best_msm(BN256_G1, S, Points(*(c[:n] for c in ck.points)))
+        t7 = synced_all()
+        secs[f"msm {n}"] = (t5 - t4, t6 - t5, t7 - t6)
+        log(f"sharded commit of {n} bn256 scalars (the 2^{ck.k} key) on {name}: equals best_msm on one card; first "
+            f"{t2 - t1:.4f} s (places the key's shards), warm {t3 - t2:.4f} s; best_msm on {ck.device} warm "
+            f"{t1 - t0:.4f} s (each with W's from_mont); the MSM alone: msm_sharded {t5 - t4:.4f} s, the "
+            f"{mesh.size} shards' best_msm one after another {t6 - t5:.4f} s, best_msm on one card {t7 - t6:.4f} s"
+            f"  [{card}]")
+    ctx = NTT(FR, NTT_LOG, ck1.device)
+    D = mesh.size
+    ntt_mesh = mesh if ctx.n2 % D == 0 else Mesh(mesh.devices[: 1 << (D.bit_length() - 1)])  # a power of two
+    a = canonical_words(rng, 1 << NTT_LOG, ctx.device)
+    blocks = shard_rows(ntt_mesh, a)
+    for inverse in (False, True):
+        got = gather_rows(ntt_mesh, run(lambda: ctx.fft_sharded(blocks, ntt_mesh, inverse)))
+        check(torch.equal(got, ctx.fft(a, inverse)), f"fft_sharded (inverse={inverse}) on {ntt_mesh.describe()} "
+              f"differs from fft at k = {NTT_LOG}")
+    reps = 5
+    t0 = synced_all()
+    for _ in range(reps):
+        run(lambda: ctx.fft_sharded(blocks, ntt_mesh, False))
+    t1 = synced_all()
+    for _ in range(reps):
+        ctx.fft(a)
+    t2 = synced_all()
+    secs["fft"] = ((t1 - t0) / reps, (t1 - t0) / reps, (t2 - t1) / reps)
+    log(f"fft_sharded 2^{NTT_LOG} bn256 Fr on {ntt_mesh.describe()}: equals fft word for word, forward and inverse; "
+        f"warm forward {(t1 - t0) / reps:.6f} s (mean of {reps}), fft on {ctx.device} {(t2 - t1) / reps:.6f} s  "
+        f"[{card}]")
+    plans = dict(bucket_plan.shapes)
+    with mesh_context(mesh):
+        t0 = synced_all()
+        ivc = run(lambda: CyclefoldIVC(pp, IVC_Z0))
+        t1 = synced_all()
+        steps = []
+        for _ in range(IVC_STEPS):
+            run(ivc.next)
+            steps.append(synced_all())
+        errors = run(ivc.verify)
+        t3 = synced_all()
+    digests = (pg_acc_digest(AccumulatorInstance.from_acc(ivc.self_acc)), sangria_acc_digest(ivc.support_acc.U))
+    check(errors == [], f"the Cyclefold IVC on {name}: verify reported {errors}")
+    check(all(d.startswith(w) for d, w in zip(digests, CYCLEFOLD_DIGESTS)),
+          f"the Cyclefold digests on {name} moved: {digests}, not {CYCLEFOLD_DIGESTS}...")
+    plans = {m: k - plans.get(m, 0) for m, k in bucket_plan.shapes.items() if k > plans.get(m, 0)}
+    shard_n = [-(-n // D) for n in (PRIMARY_W_N, W_COMMIT_N)]  # the first (longest) shard of each W commit
+    check(all(plans.get(m) for m in shard_n) and max(plans) <= shard_n[0],
+          f"the Cyclefold commits on {name} did not all go through the shards: bucket plans by size {plans}")
+    nexts = [b - a for a, b in zip([t1, *steps], steps)]
+    secs["next"] = (nexts[0], nexts[-1], None)
+    log(f"Cyclefold IVC k={IVC_K} under mesh_context on {name}: new {t1 - t0:.4f} s, next "
+        + " / ".join(f"{x:.4f}" for x in nexts) + f" s, verify() == [] in {t3 - steps[-1]:.4f} s; digests "
+        f"{digests[0][:8]} / {digests[1][:8]} (as without a mesh); bucket plans by size {plans}  [{card}]")
+    log(f"launches on the mesh path on {name} by (C entry, device): {dict(sorted(run.counts.items()))}")
+    return secs, run
+
+
+def mesh_stage_entries(mesh, ck1, rng, record, card: str) -> None:
+    """The kernels-line entries of the mesh path at its shapes on `mesh`:
+    B2's sort and accumulate and B3's first reduce level on one shard of the
+    917,504-scalar commit, B3's combine over every shard's buckets at once
+    (one launch for a device's shards), B4 on a device's columns of the 2^20
+    four-step and the mid twiddle's mul_rows there, each against its plain
+    twin on the same inputs."""
+    n = MESH_COMMITS[0]
+    S = FR.from_mont(canonical_words(rng, n, ck1.device))
+    c = signed_window_bits(-(-n // mesh.size))
+    shaped = []
+    for i, (Si, Pi) in enumerate(zip(shard_rows(mesh, S), ck1.shards(mesh, n))):
+        if i == 0:
+            b, stage, plan = msm_stages(BN256_G1, Si, Pi, timed=True, combine=False)
+            check(plan.c == c, f"shard 0's window width {plan.c}, the mesh's {c}")
+        else:
+            plan = bucket_plan(Si, c)
+            parts = mk.msm_accumulate(BN256_G1, plan.entries, plan.chunk_start, plan.chunk_len, Pi.x.contiguous(),
+                                      Pi.y.contiguous())
+            b = Points(*(x.reshape(1, plan.W, plan.B, 8) for x in reduce_segments(BN256_G1, plan.seg_off, parts)))
+        shaped.append(b)
+    stacked = Points(*(torch.cat(cs) for cs in zip(*shaped)))
+    t, W, B = stacked.x.shape[:3]
+    t0 = synced()
+    plain = mk.msm_combine_plain(BN256_G1, stacked, c)  # one call (~5 s): checked against and timed at once
+    plain_ms = (synced() - t0) * 1e3
+    res = mk.msm_combine(BN256_G1, stacked, c)
+    err = point_err(BN256_G1, res, plain)
+    check(err == 0, f"B3 msm_combine disagrees with its twin at {(t, W, B)}")
+    sums = ADD_MULS * 2 * t * W * (B - 1)  # as combine_stage counts them
+    comb = {"msm_combine": [err, gpu_ms(lambda: mk.msm_combine(BN256_G1, stacked, c)), plain_ms,
+                            sums + t * (W - 1) * (DBL_MULS * c + ADD_MULS), 3 * FE * t * W * B + 3 * FE * t]}
+    total = gold.identity(BN256_G1.spec)
+    for pt in BN256_G1.decode(res):
+        total = total.add(pt)
+    check(total == best_msm(BN256_G1, S, Points(*(x[:n] for x in ck1.points))),
+          "the mesh stages' shards do not add up to best_msm's point")
+    for name, (err, ms, plain, muls, nbytes) in (*stage.items(), ("msm_combine", comb["msm_combine"])):
+        if f"{name}_mesh" in MESH_ENTRIES:
+            record(f"{name}_mesh", "sirius_tpu_torch/csrc/msm.cu", "sirius_tpu/ops/pallas_msm.py:50"
+                   if name in B2_NAMES else "sirius_tpu/ops/pallas_msm.py:173", err, ms, plain, muls, nbytes)
+    ctx = NTT(FR, NTT_LOG, ck1.device)
+    n1, c2 = ctx.n1, ctx.n2 // mesh.size
+    A = canonical_words(rng, n1 * c2, ctx.device).reshape(n1, c2, 8)
+    args = (FR, A, ctx.rev_n1, ctx.inner[False])
+    err = word_err([col_ntt(*args)], [col_ntt_plain(*args)])
+    check(err == 0, f"B4 col_ntt at the mesh's pass shape ({n1}, {c2}) is not bit-exact")
+    record("col_ntt_mesh", "sirius_tpu_torch/csrc/ntt.cu", "sirius_tpu/ops/pallas_ntt.py:82", err,
+           gpu_ms(lambda: col_ntt(*args), reps=20), gpu_ms(lambda: col_ntt_plain(*args), reps=1),
+           (n1 // 2 * (n1.bit_length() - 1) - (n1 - 1)) * c2, 2 * FE * n1 * c2 + FE * n1 // 2 + 4 * n1)
+    mid = (FR, A.reshape(-1, 8), ctx._mid_columns(False, 0, c2))
+    err = word_err([fk.mul_rows(*mid)], [fk.mul_rows_plain(*mid)])
+    check(err == 0, f"mul_rows K = 1 at the mesh's mid-twiddle shape ({n1 * c2} x {n1 * c2}) is not bit-exact")
+    record("mul_rows_mesh", "sirius_tpu_torch/csrc/field_ops.cu", "scripts/tpu_microbench.py:74", err,
+           gpu_ms(lambda: fk.mul_rows(*mid), reps=20), gpu_ms(lambda: fk.mul_rows_plain(*mid), reps=1), n1 * c2,
+           3 * FE * n1 * c2)
+    log(f"the mesh path's kernels on {mesh.describe()} against their plain twins: B2/B3 on one shard of {n} "
+        f"scalars ({Si.shape[0]} a shard, c={c}), B3's combine over the {mesh.size} shards' buckets at once "
+        f"({tuple(stacked.x.shape[:3])}), B4 on a device's columns ({n1}, {c2}) and the mid twiddle's mul_rows "
+        f"({n1 * c2} rows): every one agrees; the shards add up to best_msm's point  [{card}]")
+
+
+def mesh_phase(record, kernels, card: str, keys, pp, rng) -> None:
+    """(a) always: the mesh checks on a virtual mesh of MESH_SHARDS shards on
+    cuda:0 (one card's work, so its seconds are no multi-card figure), the
+    kernels-line entries of the mesh path with its launches by device; (b)
+    on a host with two or more cards: the same checks on a mesh of every
+    card, beside (a)'s and the one-card figures."""
+    t0 = time.perf_counter()
+    virtual = make_mesh(devices=[DEVICE] * MESH_SHARDS)
+    secs, run = mesh_checks(virtual, keys, pp, rng, card)
+    mesh_stage_entries(virtual, keys[1], rng, record, card)
+    for name, entry in MESH_ENTRIES.items():
+        by_dev = run.by_device(entry)
+        kernels[name].update(launches=sum(by_dev.values()), mesh=virtual.describe(), launches_by_device=by_dev)
+        check(kernels[name]["launches"] > 0, f"{entry} never launched on the mesh path on {virtual.describe()}")
+    log(f"mesh phase (a), {virtual.describe()}: {time.perf_counter() - t0:.1f} s")
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"mesh phase (b): {count} card visible, no mesh of every card to run")
+        return
+    every = make_mesh()
+    secs_b, run_b = mesh_checks(every, keys, pp, rng, card)
+    for name, entry in MESH_ENTRIES.items():
+        kernels[name]["launches_every_card"] = run_b.by_device(entry)
+    for what, (first, warm, one) in secs_b.items():
+        if what.startswith("msm"):
+            log(f"mesh phase (b), {what} (standard words given): msm_sharded on {count} cards {first:.4f} s, "
+                f"their shards' best_msm one after another {warm:.4f} s, best_msm on one card {one:.4f} s; on "
+                f"{virtual.describe()}: {secs[what][0]:.4f} s, {secs[what][1]:.4f} s  [{card}]")
+            continue
+        log(f"mesh phase (b), {what}: {count} cards ({every.describe()}) {first:.4f} s, warm {warm:.4f} s; "
+            f"{virtual.describe()} {secs[what][1]:.4f} s; one card "
+            + ("-" if one is None else f"{one:.4f} s") + f"  [{card}]")
+    cards = {str(d) for d in every.distinct}
+    for entry in ("msm_bucket_scatter", "msm_accumulate", "msm_reduce", "msm_horner"):
+        check(set(run_b.by_device(entry)) == cards,
+              f"{entry} did not launch on every card of {every.describe()}: {run_b.by_device(entry)}")
+    check(len(run_b.by_device("col_ntt")) >= 2, f"col_ntt ran on one card only: {run_b.by_device('col_ntt')}")
+
+
+def recorder(kernels: dict, imad_rate: float):
+    def record(name, source, replaces, err, ms, plain_ms, muls, nbytes, per_mul=FE_MUL_IMADS):
+        """One entry of the kernels line; `muls`/`nbytes` are the work of
+        the timed call, for its bound."""
+        bound_ms, bound_by = bound(muls, nbytes, imad_rate, per_mul)
+        kernels[name] = {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": 0,
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": None}
+
+    return record
+
+
+def card_lines() -> tuple[str, str, float, float]:
+    """Log the card, its power limit and clocks, and build the kernels; (the
+    nvidia-smi line, the card's label for every log line, the paper rate of
+    32-bit integer multiply-adds, the max SM clock in MHz)."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     card = f"{torch.cuda.get_device_name(0)} ({smi})"
-    log(f"card: {smi}")
+    log(f"card: {smi}; {torch.cuda.device_count()} card(s) visible")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     clock_mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
                                      capture_output=True, text=True, check=True).stdout.split()[0])
@@ -667,17 +939,54 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s (nvcc ran in this process: {_build.built_here()})")
+    return smi, card, imad_rate, clock_mhz
+
+
+def device_json() -> str:
+    return json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}})
+
+
+def mesh_only() -> int:
+    """`python3 chip_smoke.py --mesh-only`: the card lines, the build, the
+    keys the mesh phase needs (the bn256 2^22 key and its 2^20 prefix, the
+    grumpkin key at 2^17: the support key) and the mesh phase alone, then
+    its kernels-line entries, the nvidia-smi line and the device JSON."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available; the port's smoke run needs an NVIDIA GPU")
+    started = time.perf_counter()
+    dev = torch.device(DEVICE)
+    smi, card, imad_rate, clock_mhz = card_lines()
+    kernels = {}
+    t0 = synced()
+    ck1_full = CommitmentKey.setup(BN256_G1, PRIMARY_KEY_LOG, b"bench-primary", use_cache=False, device=dev)
+    ck2 = CommitmentKey.setup(GRUMPKIN, SUPPORT_KEY_LOG, b"bench-support", use_cache=False, device=dev)
+    ck1 = CommitmentKey(BN256_G1, Points(*(c[: 1 << PRIMARY_LOG] for c in ck1_full.points)), ck1_full.label,
+                        PRIMARY_LOG)
+    log(f"keys: bn256 2^{PRIMARY_KEY_LOG}, grumpkin 2^{SUPPORT_KEY_LOG}: {synced() - t0:.2f} s  [{card}]")
+    t0 = synced()
+    pp = CyclefoldPublicParams(TrivialStepCircuit(arity=1), IVC_K, ck1, ck2)
+    log(f"Cyclefold public parameters k={IVC_K}: {synced() - t0:.4f} s")
+    mesh_phase(recorder(kernels, imad_rate), kernels, card, (ck1_full, ck1, ck2), pp, np.random.default_rng(SEED))
+    log(f"chip_smoke --mesh-only: {time.perf_counter() - started:.1f} s in all, the build included")
+    print(json.dumps({"kernels": list(kernels.values())}))
+    print(smi)
+    print(device_json())
+    return 0
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available; the port's smoke run needs an NVIDIA GPU")
+
+    started = time.perf_counter()
+    dev = torch.device(DEVICE)
+    smi, card, imad_rate, clock_mhz = card_lines()
     sass = sass_opcodes()
     rng = np.random.default_rng(SEED)
     kernels = {}
 
-    def record(name, source, replaces, err, ms, plain_ms, muls, nbytes, per_mul=FE_MUL_IMADS):
-        """One entry of the kernels line; `muls`/`nbytes` are the work of
-        the timed call, for its bound."""
-        bound_ms, bound_by = bound(muls, nbytes, imad_rate, per_mul)
-        kernels[name] = {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": 0,
-                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "library_ms": None}
+    record = recorder(kernels, imad_rate)
 
     # ---- S4: the build probe ----------------------------------------------------------------
     x = torch.from_numpy(rng.integers(0, 1 << 32, size=(8, 128), dtype=np.int64)).to(dev)
@@ -1183,7 +1492,7 @@ def main() -> int:
     mk.msm_combine.shapes, mk.msm_accumulate.shapes, bucket_plan.shapes = {}, {}, {}
     fk.mul_rows.launches, fk.mul_rows.shapes = 0, {}
     t0 = time.perf_counter()
-    pp = CyclefoldPublicParams(TrivialStepCircuit(arity=1), IVC_K, ck1, ck2)
+    pp = cf_pp = CyclefoldPublicParams(TrivialStepCircuit(arity=1), IVC_K, ck1, ck2)  # cf_pp: the mesh phase's too
     t1 = synced()
     ivc = CyclefoldIVC(pp, IVC_Z0)
     t2 = synced()
@@ -1925,6 +2234,9 @@ def main() -> int:
     profiler.enabled = False
     del rivc, rpp
 
+    # ---- the mesh phase: the multi-device path on a virtual mesh of cuda:0 and, on a multi-card host, every card -----
+    mesh_phase(record, kernels, card, (ck1_full, ck1, ck2), cf_pp, rng)
+
     # ---- entry points (b): the Merkle example at the reference's size, and the CLI as a user runs it ----------------
     # the SFC over the Merkle step commits 14 advice columns x 2^17 = 1,835,008 scalars: more than a 2^20 key holds
     # (the JAX example's k + 3; its real-key run raises TooLongInput), so the bn256 key is the 2^22 one
@@ -2013,10 +2325,9 @@ def main() -> int:
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, the build included")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
+    print(device_json())
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(mesh_only() if sys.argv[1:] == ["--mesh-only"] else main())

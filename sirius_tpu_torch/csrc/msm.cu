@@ -599,6 +599,7 @@ extern "C" int sirius_msm_reduce_rolled(const uint32_t* consts, const void* seg_
   long long blocks = (n_parts + ROLLED_SPAN - 1) / ROLLED_SPAN;
   if (blocks < 1) blocks = 1;  // all segments empty: one block writes their identities
   const int smem = (int)sizeof(RolledSmem);
+  // set on every call, for the current device (the wrapper's): each device that launches gets it
   cudaError_t e = cudaFuncSetAttribute(msm_reduce_rolled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   msm_reduce_rolled_kernel<<<(unsigned)blocks, ROLLED_THREADS, smem, (cudaStream_t)stream>>>(

@@ -268,6 +268,7 @@ extern "C" int sirius_col_ntt(const uint32_t* consts, const void* a, const void*
   const bool w3 = col_ntt_window(L) == 3;
   auto kernel = mid ? (w3 ? col_ntt_kernel<3, true> : col_ntt_kernel<2, true>)
                     : (w3 ? col_ntt_kernel<3, false> : col_ntt_kernel<2, false>);
+  // set on every call, for the current device (the wrapper's): each device that launches gets it
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   kernel<<<blocks, threads, smem, st>>>(fc, pa, prev, pt, pm, po, L, R, rep);

@@ -12,7 +12,14 @@ process finds the library of the first and loads it without running nvcc
 Each C entry point takes the 17-word field constant block (p, R mod p,
 -p^-1 mod 2^32) as a host pointer, device pointers as `c_void_p`, sizes as
 64-bit ints, and the CUDA stream last; it returns the `cudaError_t` of the
-launch, which `check` raises on.
+launch, which `check` raises on.  Every wrapper calls its entries through
+`launch`, which makes the operands' device current for the call: a ctypes
+launch runs on the calling thread's current device, so without it a kernel
+given the stream of `cuda:1` while `cuda:0` is current fails with an
+invalid resource handle.  The entries that raise a kernel's dynamic shared
+memory above 48 KB (`cudaFuncSetAttribute` in `msm_reduce_rolled` and
+`col_ntt`) set it on every call, so on whichever device is current: each
+device that launches them gets the attribute.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from collections import Counter
 from functools import lru_cache
 from pathlib import Path
 
@@ -56,6 +64,8 @@ _SIGNATURES = {
     "sirius_lookup_probe": [P] * 4 + [LL, LL, LL, P],
 }
 _BUILT_HERE = False
+# launches by (C entry without its `sirius_` prefix, device): what a mesh ran where
+device_launches: Counter = Counter()
 
 
 def _nvcc() -> str:
@@ -128,6 +138,16 @@ def stream_of(t: torch.Tensor) -> int:
 def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+
+
+def launch(name: str, like: torch.Tensor, *args) -> None:
+    """Call the C entry `sirius_<name>` with `args` and the current stream of
+    `like`'s device, with that device current; raise on a failed launch and
+    count it in `device_launches`."""
+    with torch.cuda.device(like.device):
+        err = getattr(library(), f"sirius_{name}")(*args, stream_of(like))
+    check(err, name)
+    device_launches[(name, str(like.device))] += 1
 
 
 def require_cuda(*tensors: torch.Tensor, dtype: torch.dtype = torch.int64) -> None:

@@ -3,7 +3,9 @@
 Counterpart of `sirius_tpu/ops/commitment.py`.  `setup` derives 2^k
 generators from a Shake256 XOF over the label through SVDW hash-to-curve
 (on the device in chunks of `DEVICE_SETUP_CHUNK` points);
-commits are MSMs over the first len(v) generators (`ops/msm.py`).  Keys
+commits are MSMs over the first len(v) generators (`ops/msm.py`); under an
+active mesh of more than one entry (`parallel/context.py`) `commit_device`
+cuts them by rows over the mesh (`msm_sharded`).  Keys
 cache as `CACHE_DIR/<curve>-<label>-<k>.npz` with the JAX package's packed
 format ((n, 8) uint32 Montgomery words `xw`, `yw`; z = 1 implied), so a key
 written by either package loads in the other.  A legacy cache of the JAX
@@ -16,7 +18,7 @@ from __future__ import annotations
 
 import hashlib
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -26,6 +28,8 @@ from ..curves.hash_to_curve import hash_bytes_to_point, hash_bytes_to_points_dev
 from ..curves.jpoint import Curve, Points
 from ..fields import gold
 from ..fields.jfield import field_for, ints_to_words
+from ..parallel.context import get_mesh
+from ..parallel.mesh import Mesh
 from ..util.device import resolve
 from ..util.ro import NUM_CHALLENGE_BITS
 from .poseidon import PoseidonHash, poseidon_spec
@@ -83,6 +87,8 @@ class CommitmentKey:
     points: Points
     label: bytes
     k: int
+    # the row shards of the first n points on each mesh entry's device, by (mesh, n)
+    shard_cache: dict = field(default_factory=dict, repr=False, compare=False)
 
     def __len__(self):
         return self.points.x.shape[0]
@@ -123,16 +129,32 @@ class CommitmentKey:
             raise TooLongInput(n, len(self))
         return Points(*(c[:n] for c in self.points))
 
+    def shards(self, mesh: Mesh, n: int) -> list[Points]:
+        """The first n points cut into the mesh's row blocks, each on its
+        mesh entry's device (views on the key's own device), placed once per
+        (mesh, n) and kept."""
+        if (mesh, n) not in self.shard_cache:
+            self.shard_cache[(mesh, n)] = msm_ops.shard_points(mesh, self._prefix(n))
+        return self.shard_cache[(mesh, n)]
+
     def commit_device(self, w_mont: torch.Tensor) -> gold.AffinePoint:
-        """Commit to a (size, 8) Montgomery tensor."""
+        """Commit to a (size, 8) Montgomery tensor.  The conversion to
+        standard form runs on W's device; under an active mesh of more than
+        one entry the standard words and the key go by rows to the mesh's
+        devices (`msm_sharded`)."""
         n = w_mont.shape[0]
         pts = self._prefix(n)
         if n == 0:
             return gold.identity(self.curve.spec)
-        return msm_ops.best_msm(self.curve, self.curve.fs.from_mont(w_mont), pts)
+        scalars = self.curve.fs.from_mont(w_mont)
+        mesh = get_mesh()
+        if mesh is not None and mesh.size > 1:
+            return msm_ops.msm_sharded(self.curve, scalars, self.shards(mesh, n), mesh)
+        return msm_ops.best_msm(self.curve, scalars, pts)
 
     def commit_device_many(self, w_monts: torch.Tensor) -> list:
-        """Commit to a (t, size, 8) batch over the shared key prefix."""
+        """Commit to a (t, size, 8) batch over the shared key prefix, on the
+        key's device under a mesh too (as the JAX package's)."""
         pts = self._prefix(w_monts.shape[1])
         return msm_ops.msm_many(self.curve, self.curve.fs.from_mont(w_monts), pts)
 

@@ -72,10 +72,8 @@ def mul_rows(field: Field, a: torch.Tensor, b: torch.Tensor, K: int = 1, rep: in
     _build.require_aligned(a, b)
     out = torch.empty_like(a)
     if a.shape[0]:
-        err = _build.library().sirius_mul_rows(_build.field_consts(field), a.data_ptr(), b.data_ptr(),
-                                               out.data_ptr(), a.shape[0], b.shape[0], rep, K, PRODUCTS.index(product),
-                                               _build.stream_of(a))
-        _build.check(err, "mul_rows")
+        _build.launch("mul_rows", a, _build.field_consts(field), a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                      a.shape[0], b.shape[0], rep, K, PRODUCTS.index(product))
         mul_rows.launches += 1
         shape = (a.shape[0], b.shape[0])
         mul_rows.shapes[shape] = mul_rows.shapes.get(shape, 0) + 1

@@ -65,10 +65,8 @@ def m_count(l: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     if n and nl:
         cap = table_capacity(n)
         slots = torch.full((cap,), EMPTY, dtype=torch.int32, device=t.device)
-        lib, stream = _build.library(), _build.stream_of(t)
-        _build.check(lib.sirius_lookup_insert(t.data_ptr(), slots.data_ptr(), n, cap, stream), "lookup_insert")
-        _build.check(lib.sirius_lookup_probe(l.data_ptr(), t.data_ptr(), slots.data_ptr(), counts.data_ptr(), nl, n,
-                                             cap, stream), "lookup_probe")
+        _build.launch("lookup_insert", t, t.data_ptr(), slots.data_ptr(), n, cap)
+        _build.launch("lookup_probe", t, l.data_ptr(), t.data_ptr(), slots.data_ptr(), counts.data_ptr(), nl, n, cap)
         m_count.launches += 1
     return counts
 

@@ -90,10 +90,8 @@ def madd_batch(curve: Curve, P: Points, qx: torch.Tensor, qy: torch.Tensor) -> P
     ins = [t.clone() if t.data_ptr() % 16 else t for t in ins]  # the kernel moves rows in 16-byte loads
     out = [torch.empty_like(ins[0]) for _ in range(3)]
     if n:
-        lib = _build.library()
-        err = lib.sirius_madd(_build.field_consts(curve.fb), *(t.data_ptr() for t in ins),
-                              *(t.data_ptr() for t in out), n, _build.stream_of(ins[0]))
-        _build.check(err, "madd")
+        _build.launch("madd", ins[0], _build.field_consts(curve.fb), *(t.data_ptr() for t in ins),
+                      *(t.data_ptr() for t in out), n)
         madd_batch.launches += 1
     return Points(*out)
 
@@ -124,10 +122,8 @@ def madd_buckets(curve: Curve, scalars_std: torch.Tensor, px: torch.Tensor, py: 
     W, B = (SCALAR_BITS + c - 1) // c, (1 << c) - 1
     out = [torch.empty((t, W, B, G, WORDS), dtype=torch.int64, device=px.device) for _ in range(3)]
     if t:
-        err = _build.library().sirius_madd_buckets(_build.field_consts(curve.fb), *(a.data_ptr() for a in ins),
-                                                   *(a.data_ptr() for a in out), t, n, W, G, c,
-                                                   _build.stream_of(px))
-        _build.check(err, "madd_buckets")
+        _build.launch("madd_buckets", px, _build.field_consts(curve.fb), *(a.data_ptr() for a in ins),
+                      *(a.data_ptr() for a in out), t, n, W, G, c)
         madd_buckets.launches += 1
         madd_buckets.curves[curve.spec.name] = madd_buckets.curves.get(curve.spec.name, 0) + 1
     return Points(*out)

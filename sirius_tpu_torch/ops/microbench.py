@@ -96,9 +96,7 @@ def raw_u32(a: torch.Tensor, op: str = "mul", reps: int = 64) -> torch.Tensor:
         a = a.clone()
     out = torch.empty_like(a)
     if a.shape[0]:
-        err = _build.library().sirius_raw_u32(a.data_ptr(), out.data_ptr(), a.shape[0], RAW_OPS.index(op), reps,
-                                              _build.stream_of(a))
-        _build.check(err, "raw_u32")
+        _build.launch("raw_u32", a, a.data_ptr(), out.data_ptr(), a.shape[0], RAW_OPS.index(op), reps)
         raw_u32.launches += 1
     return out
 
@@ -113,8 +111,7 @@ def probe_add_one(x: torch.Tensor) -> torch.Tensor:
     _build.require_cuda(x)
     out = torch.empty_like(x)
     if x.numel():
-        err = _build.library().sirius_add_one(x.data_ptr(), out.data_ptr(), x.numel(), _build.stream_of(x))
-        _build.check(err, "probe_add_one")
+        _build.launch("add_one", x, x.data_ptr(), out.data_ptr(), x.numel())
         probe_add_one.launches += 1
     return out
 

@@ -1,6 +1,6 @@
 """Multi-scalar multiplication over commitment-key points.
 
-Counterpart of `sirius_tpu/ops/msm.py`.  Two entry points, both on the
+Counterpart of `sirius_tpu/ops/msm.py`.  Three entry points, all on the
 commitment-key contract (points affine with z = 1, distinct, not the
 identity: a bucket value colliding with an incoming point would be a
 discrete-log relation between key generators):
@@ -12,6 +12,9 @@ discrete-log relation between key generators):
              `sirius_tpu/ops/msm.py:_bucket_totals_onehot_pallas` (4-bit
              unsigned windows, G groups) in one B1 `madd_buckets` launch,
              then B3 `msm_reduce` over the groups and `msm_combine`
+  msm_sharded  one MSM cut by rows over a mesh (`parallel/`): best_msm's
+             pipeline on every shard's device, the shards' points added
+             on the host
 
 Scalars are (n, 8) standard-form words; results are host affine points.
 """
@@ -25,6 +28,7 @@ import torch
 from ..curves.jpoint import Curve, Points
 from ..fields import gold
 from ..fields.jfield import WORDS
+from ..parallel.mesh import Mesh, shard_rows
 from .madd import SCALAR_BITS, extract_digits, madd_buckets
 from .msm_kernels import msm_accumulate, msm_combine, msm_reduce
 
@@ -74,12 +78,12 @@ class BucketPlan:
     seg_off: torch.Tensor  # chunks of segment s: seg_off[s] .. seg_off[s+1]
 
 
-def bucket_plan_plain(scalars_std: torch.Tensor) -> BucketPlan:
+def bucket_plan_plain(scalars_std: torch.Tensor, c: int | None = None) -> BucketPlan:
     """The plan in torch: signed digits, a stable `torch.sort` of the live
     (window, point) digits by bucket, then the chunks of every segment."""
     n = scalars_std.shape[0]
     dev = scalars_std.device
-    c = signed_window_bits(n)
+    c = c or signed_window_bits(n)
     B = 1 << (c - 1)
     mags, negs = _extract_digits_signed(scalars_std, c)  # (W, n)
     W = mags.shape[0]
@@ -100,29 +104,28 @@ def bucket_plan_plain(scalars_std: torch.Tensor) -> BucketPlan:
     return BucketPlan(c, W, B, entries, chunk_start, chunk_len, seg_off)
 
 
-def bucket_plan(scalars_std: torch.Tensor) -> BucketPlan:
-    """B2's inputs for (n, 8) standard-form scalars.  On CUDA tensors the
+def bucket_plan(scalars_std: torch.Tensor, c: int | None = None) -> BucketPlan:
+    """B2's inputs for (n, 8) standard-form scalars in signed c-bit windows
+    (by default `signed_window_bits(n)`).  On CUDA tensors the
     counting sort of `csrc/msm.cu` (signed digits and per-tile bucket counts,
     an exclusive scan in torch, a stable scatter, the chunks): the same
     arrays as `bucket_plan_plain`, which CPU tensors take.
     `bucket_plan.launches` counts the sorts run on the card (by the number of
     scalars in `bucket_plan.shapes`)."""
     if scalars_std.device.type == "cpu":
-        return bucket_plan_plain(scalars_std)
+        return bucket_plan_plain(scalars_std, c)
     from . import _build
 
     S = scalars_std.contiguous()
     _build.require_cuda(S)
     n, dev = S.shape[0], S.device
-    c = signed_window_bits(n)
+    c = c or signed_window_bits(n)
     B = 1 << (c - 1)
     W = -(-SCALAR_BITS // c) + 1
     ntiles = -(-n // SORT_TILE)
-    lib, stream = _build.library(), _build.stream_of(S)
     digits = torch.empty((W, n), dtype=torch.int16, device=dev)
     counts = torch.empty((W * B, ntiles), dtype=torch.int32, device=dev)
-    _build.check(lib.sirius_msm_bucket_count(S.data_ptr(), digits.data_ptr(), counts.data_ptr(), n, c, ntiles,
-                                             stream), "msm_bucket_count")
+    _build.launch("msm_bucket_count", S, S.data_ptr(), digits.data_ptr(), counts.data_ptr(), n, c, ntiles)
     flat = counts.reshape(-1).to(torch.int64)
     offs = torch.cumsum(flat, 0) - flat  # where each (bucket, tile) run starts
     seg_count = counts.sum(1, dtype=torch.int64)
@@ -133,10 +136,9 @@ def bucket_plan(scalars_std: torch.Tensor) -> BucketPlan:
     entries = torch.empty(n_entries, dtype=torch.int64, device=dev)
     chunk_start = torch.empty(n_chunks, dtype=torch.int64, device=dev)
     chunk_len = torch.empty(n_chunks, dtype=torch.int64, device=dev)
-    _build.check(lib.sirius_msm_bucket_scatter(
-        digits.data_ptr(), offs.data_ptr(), entries.data_ptr(), seg_off.data_ptr(), seg_start.data_ptr(),
-        seg_count.data_ptr(), chunk_start.data_ptr(), chunk_len.data_ptr(), n, c, ntiles, n_chunks, stream),
-        "msm_bucket_scatter")
+    _build.launch("msm_bucket_scatter", S, digits.data_ptr(), offs.data_ptr(), entries.data_ptr(),
+                  seg_off.data_ptr(), seg_start.data_ptr(), seg_count.data_ptr(), chunk_start.data_ptr(),
+                  chunk_len.data_ptr(), n, c, ntiles, n_chunks)
     bucket_plan.launches += 1
     bucket_plan.shapes[n] = bucket_plan.shapes.get(n, 0) + 1
     return BucketPlan(c, W, B, entries, chunk_start, chunk_len, seg_off)
@@ -177,6 +179,53 @@ def best_msm(curve: Curve, scalars_std: torch.Tensor, points: Points) -> gold.Af
     buckets = reduce_segments(curve, plan.seg_off, partials)
     out = msm_combine(curve, Points(*(b.reshape(1, plan.W, plan.B, WORDS) for b in buckets)), plan.c)
     return curve.decode(out)[0]
+
+
+def shard_points(mesh: Mesh, points: Points) -> list[Points]:
+    """A batch of points cut into the mesh's row blocks (`shard_rows`)."""
+    return [Points(*cs) for cs in zip(*(shard_rows(mesh, c) for c in points))]
+
+
+def msm_sharded(curve: Curve, scalars_std: torch.Tensor, points: Points | list[Points],
+                mesh: Mesh) -> gold.AffinePoint:
+    """sum_i s_i * P_i with scalars and points cut by rows over `mesh`
+    (`sirius_tpu/ops/msm.py:msm_sharded`): `points` is the (>= n) key
+    prefix, or its shards already placed (`CommitmentKey.shards`).  Every
+    shard runs best_msm's pipeline on its own device, in one window width
+    (that of the longest shard) so that a device's shards stack into one
+    `msm_combine` launch; the per-shard points are added on the host (EC
+    addition is no psum).  The shards are uneven row blocks and are never
+    padded: an identity point would break the kernels' distinct-key-point
+    contract, so an empty shard contributes the identity and launches
+    nothing.  The stages run across the devices in turn (every plan, every
+    accumulate, every reduce, every combine), so the accumulates of real
+    cards overlap while the host reads the plans and reduce levels of each."""
+    n = scalars_std.shape[0]
+    if isinstance(points, Points):
+        points = shard_points(mesh, Points(*(c[:n] for c in points)))
+    if len(points) != mesh.size:
+        raise ValueError(f"{len(points)} point shards for a mesh of {mesh.size}")
+    c = signed_window_bits(-(-n // mesh.size))
+    live = [(S, P) for S, P in zip(shard_rows(mesh, scalars_std), points) if S.shape[0]]
+    for S, P in live:
+        if P.x.shape[0] != S.shape[0] or P.x.device != S.device:
+            raise ValueError(f"a shard of {S.shape[0]} scalars on {S.device} against {P.x.shape[0]} points on "
+                             f"{P.x.device}")
+    plans = [bucket_plan(S, c) for S, _ in live]
+    partials = [msm_accumulate(curve, plan.entries, plan.chunk_start, plan.chunk_len, P.x.contiguous(),
+                               P.y.contiguous()) for plan, (_, P) in zip(plans, live)]
+    buckets = [reduce_segments(curve, plan.seg_off, part) for plan, part in zip(plans, partials)]
+    by_device: dict[torch.device, list[Points]] = {}
+    for b in buckets:
+        by_device.setdefault(b.x.device, []).append(b)
+    W, B = (plans[0].W, plans[0].B) if plans else (0, 0)
+    outs = [msm_combine(curve, Points(*(torch.stack(cs).reshape(len(bs), W, B, WORDS) for cs in zip(*bs))), c)
+            for bs in by_device.values()]
+    acc = gold.identity(curve.spec)
+    for out in outs:
+        for p in curve.decode(out):
+            acc = acc.add(p)
+    return acc
 
 
 def msm_many(curve: Curve, scalars_std_batch: torch.Tensor, points: Points) -> list[gold.AffinePoint]:

@@ -207,10 +207,8 @@ def msm_accumulate(curve: Curve, entries, chunk_start, chunk_len, px, py) -> Poi
     n_chunks = chunk_start.shape[0]
     out = _points_on(n_chunks, px)
     if n_chunks:
-        err = _build.library().sirius_msm_accumulate(
-            _build.field_consts(curve.fb), *(t.data_ptr() for t in ins),
-            *(t.data_ptr() for t in out), n_chunks, _build.stream_of(px))
-        _build.check(err, "msm_accumulate")
+        _build.launch("msm_accumulate", px, _build.field_consts(curve.fb), *(t.data_ptr() for t in ins),
+                      *(t.data_ptr() for t in out), n_chunks)
         msm_accumulate.launches += 1
         shape = (curve.spec.name, px.shape[0], n_chunks)
         msm_accumulate.shapes[shape] = msm_accumulate.shapes.get(shape, 0) + 1
@@ -245,10 +243,8 @@ def msm_reduce(curve: Curve, seg_off, partials: Points) -> Points:
     if n_seg:
         if int((seg_off[1:] - seg_off[:-1]).max()) > REDUCE_MAX_SEG:
             raise ValueError(f"msm_reduce takes segments of at most {REDUCE_MAX_SEG} partials")
-        err = _build.library().sirius_msm_reduce(
-            _build.field_consts(curve.fb), *(t.data_ptr() for t in ins), *(t.data_ptr() for t in out), n_seg,
-            partials.x.shape[0], _build.stream_of(partials.x))
-        _build.check(err, "msm_reduce")
+        _build.launch("msm_reduce", partials.x, _build.field_consts(curve.fb), *(t.data_ptr() for t in ins),
+                      *(t.data_ptr() for t in out), n_seg, partials.x.shape[0])
         msm_reduce.launches += 1
         msm_reduce.curves[curve.spec.name] = msm_reduce.curves.get(curve.spec.name, 0) + 1
     return Points(*out)
@@ -298,11 +294,9 @@ def msm_reduce_rolled(curve: Curve, seg_off, partials: Points) -> Points:
     rows = torch.stack([po[-1] for po in plan[:-1]]).tolist() if len(plan) > 1 else []
     for piece_off, n_rows in zip(plan, [*rows, n_seg]):
         out = _points_on(n_rows, pts[0])
-        err = _build.library().sirius_msm_reduce_rolled(
-            _build.field_consts(curve.fb), off.data_ptr(), None if piece_off is None else piece_off.data_ptr(),
-            *(t.data_ptr() for t in pts), *(t.data_ptr() for t in out), n_seg, pts[0].shape[0],
-            _build.stream_of(pts[0]))
-        _build.check(err, "msm_reduce_rolled")
+        _build.launch("msm_reduce_rolled", pts[0], _build.field_consts(curve.fb), off.data_ptr(),
+                      None if piece_off is None else piece_off.data_ptr(), *(t.data_ptr() for t in pts),
+                      *(t.data_ptr() for t in out), n_seg, pts[0].shape[0])
         msm_reduce_rolled.launches += 1
         off, pts = piece_off, out
     return Points(*pts)
@@ -340,10 +334,8 @@ def msm_window_sums(curve: Curve, buckets: Points) -> Points:
     _build.require_cuda(*ins)
     out = _points_on(t * W, ins[0])
     if t * W:
-        err = _build.library().sirius_msm_window_sums(
-            _build.field_consts(curve.fb), *(a.data_ptr() for a in ins), *(a.data_ptr() for a in out), t * W, B,
-            log2L, _build.stream_of(ins[0]))
-        _build.check(err, "msm_window_sums")
+        _build.launch("msm_window_sums", ins[0], _build.field_consts(curve.fb), *(a.data_ptr() for a in ins),
+                      *(a.data_ptr() for a in out), t * W, B, log2L)
         msm_window_sums.launches += 1
     return Points(*(a.reshape(t, W, 8) for a in out))
 
@@ -362,10 +354,8 @@ def msm_combine(curve: Curve, buckets: Points, c: int) -> Points:
     totals = msm_window_sums(curve, buckets)
     out = _points_on(t, totals.x)
     if t:
-        err = _build.library().sirius_msm_horner(
-            _build.field_consts(curve.fb), *(a.data_ptr() for a in totals), *(a.data_ptr() for a in out),
-            t, W, c, K, _build.stream_of(totals.x))
-        _build.check(err, "msm_horner")
+        _build.launch("msm_horner", totals.x, _build.field_consts(curve.fb), *(a.data_ptr() for a in totals),
+                      *(a.data_ptr() for a in out), t, W, c, K)
         msm_combine.launches += 1
         msm_combine.shapes[(t, W, B)] = msm_combine.shapes.get((t, W, B), 0) + 1
         msm_combine.curves[curve.spec.name] = msm_combine.curves.get(curve.spec.name, 0) + 1

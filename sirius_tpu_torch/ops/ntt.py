@@ -34,6 +34,12 @@ route depends on k and MAX_SIZE alone, on every device.
 The mid twiddle is built on the device once per direction (and scaling),
 by doubling (rows o1 < s times w^(s*i2) give rows s..2s-1), and cached:
 that is set-up, `mid_twiddle()` builds it ahead of the first transform.
+
+`fft_sharded` transforms a vector cut by rows over a mesh (`parallel/`),
+the port's counterpart of the JAX package's `_fft` under a `P('rows')`
+sharding, where GSPMD inserts the exchanges: here the four-step's two
+passes run on every device's own columns, and its transposes are
+device-to-device copies.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ import torch
 from ..fields import gold
 from ..fields.constants import FieldSpec
 from ..fields.jfield import WORDS, Field, field_for
+from ..parallel.mesh import Mesh, row_blocks, shard_rows
 from ..util.device import resolve
 from . import ntt_kernels
 from .field_kernels import mul_rows
@@ -110,6 +117,8 @@ class NTT:
             self.table = {False: powers(omega, half), True: powers(omega_inv, half)}
             self.rev = torch.from_numpy(_bit_reverse_indices(k)).to(dev)
         self._mid: dict[tuple[bool, bool], torch.Tensor] = {}
+        self._peers: dict[torch.device, NTT] = {}
+        self._mid_cols: dict[tuple, torch.Tensor] = {}
 
     # -- four-step ------------------------------------------------------------------
     def mid_twiddle(self, inverse: bool = False, scaled: bool | None = None) -> torch.Tensor:
@@ -147,14 +156,36 @@ class NTT:
         if self.inner is not None:  # pass 1, times T, transposed: (i2, o1 R)
             D = col_ntt(f, A, self.rev_n1, self.inner[inverse], T, rep=R)
         else:
-            A = self._nest(n1)._columns(A, inverse, scaled=False)  # (o1, i2 R)
+            A = self._pass(A, True, inverse)  # (o1, i2 R)
             B = mul_rows(f, A.reshape(-1, WORDS), T, rep=R)
             D = B.reshape(n1, n2, R, WORDS).transpose(0, 1).reshape(n2, n1 * R, WORDS)
-        if self.outer is not None:
-            E = col_ntt(f, D, self.rev_n2, self.outer[inverse])  # (o2, o1 R)
-        else:
-            E = self._nest(n2)._columns(D, inverse, scaled=False)
-        return E.reshape(self.n, R, WORDS)
+        return self._pass(D, False, inverse).reshape(self.n, R, WORDS)  # (o2, o1 R)
+
+    def _pass(self, a: torch.Tensor, first: bool, inverse: bool) -> torch.Tensor:
+        """The unscaled transform along axis 0 of an (n1, R, 8) block (the
+        first pass) or an (n2, R, 8) one (the second): B4 `col_ntt`, or a
+        nested four-step where the column outgrows one kernel block."""
+        size, twiddles = (self.n1, self.inner) if first else (self.n2, self.outer)
+        if twiddles is None:
+            return self._nest(size)._columns(a, inverse, scaled=False)
+        return col_ntt(self.f, a, self.rev_n1 if first else self.rev_n2, twiddles[inverse])
+
+    def _on(self, device: torch.device) -> "NTT":
+        """This context's twin on `device` (itself on its own device)."""
+        if device == self.device:
+            return self
+        if device not in self._peers:
+            self._peers[device] = NTT(self.f, self.k, device)
+        return self._peers[device]
+
+    def _mid_columns(self, inverse: bool, lo: int, hi: int) -> torch.Tensor:
+        """Columns [lo, hi) of the (n1, n2) mid twiddle (scaled when
+        inverse), as (n1 * (hi - lo), 8) rows, on this context's device."""
+        key = (inverse, lo, hi)
+        if key not in self._mid_cols:
+            T = self.mid_twiddle(inverse).reshape(self.n1, self.n2, WORDS)
+            self._mid_cols[key] = T[:, lo:hi].reshape(-1, WORDS).contiguous()
+        return self._mid_cols[key]
 
     # -- public API -----------------------------------------------------------------
     def fft(self, a: torch.Tensor, inverse: bool = False) -> torch.Tensor:
@@ -170,6 +201,55 @@ class NTT:
 
     def ifft(self, a: torch.Tensor) -> torch.Tensor:
         return self.fft(a, inverse=True)
+
+    def fft_sharded(self, blocks: list[torch.Tensor], mesh: Mesh, inverse: bool = False) -> list[torch.Tensor]:
+        """The transform of an (n, 8) vector given as its row blocks over
+        `mesh` (`parallel.shard_rows(mesh, a)`), returned in the same blocks:
+        word for word `shard_rows(mesh, fft(a, inverse))`.
+
+        At k >= FOUR_STEP_MIN_K the four-step runs across the mesh (D
+        entries, D dividing n2): with x as the (n1, n2) matrix x[i1, i2],
+        block d holds rows i1 of block d; an all-to-all gives device d the
+        n2 / D columns of block d, where the first pass (B4 `col_ntt`) and
+        the mid twiddle (`mul_rows`, K = 1) run; a second all-to-all gives it
+        the rows o1 of block d, transposed, for the second pass; a third
+        cuts the output X[o2 * n1 + o1] back into row blocks.  Each
+        all-to-all is D x D device-to-device copies (on one device, slices).
+        Below FOUR_STEP_MIN_K the blocks are gathered onto the mesh's first
+        device, transformed there by the flat route and cut again: a
+        transform of fewer than 2^FOUR_STEP_MIN_K elements is one kernel
+        launch and not worth three all-to-alls."""
+        D, n = mesh.size, self.n
+        bounds = row_blocks(n, D)
+        if len(blocks) != D:
+            raise ValueError(f"{len(blocks)} blocks for a mesh of {D}")
+        for b, (lo, hi), dev in zip(blocks, bounds, mesh.devices):
+            if b.shape != (hi - lo, WORDS) or b.device != dev:
+                raise ValueError(f"block of shape {tuple(b.shape)} on {b.device}, expected ({hi - lo}, {WORDS}) "
+                                 f"on {dev}")
+        if not self.use_four_step:
+            a = torch.cat([b.to(mesh.first) for b in blocks])
+            return shard_rows(mesh, self._on(mesh.first).fft(a, inverse))
+        n1, n2 = self.n1, self.n2
+        if n2 % D:
+            raise ValueError(f"the four-step across a mesh of {D} needs D dividing n2 = {n2}")
+        r1, c2 = n1 // D, n2 // D  # rows i1 (and o1) per block, columns i2 (and rows o2) per device
+        devs = mesh.devices
+        rows = [b.reshape(r1, n2, WORDS) for b in blocks]
+        out1 = []
+        for d, dev in enumerate(devs):  # all-to-all 1: device d gets columns [d c2, (d + 1) c2) of every row
+            ctx = self._on(dev)
+            A = torch.cat([r[:, d * c2 : (d + 1) * c2].to(dev) for r in rows])  # (n1, c2): x[i1, i2]
+            P = ctx._pass(A, True, inverse)  # (o1, i2)
+            out1.append(mul_rows(self.f, P.reshape(-1, WORDS), ctx._mid_columns(inverse, d * c2, (d + 1) * c2))
+                        .reshape(n1, c2, WORDS))
+        out2 = []
+        for d, dev in enumerate(devs):  # all-to-all 2: device d gets rows o1 of block d, every column, transposed
+            B = torch.cat([o[d * r1 : (d + 1) * r1].to(dev) for o in out1], 1)  # (r1, n2): (o1, i2)
+            out2.append(self._on(dev)._pass(B.transpose(0, 1).contiguous(), False, inverse))  # (o2, o1 of block d)
+        # all-to-all 3: X[o2 n1 + o1]; block d holds o2 in [d c2, (d + 1) c2), every o1
+        return [torch.cat([o[d * c2 : (d + 1) * c2].to(dev) for o in out2], 1).reshape(-1, WORDS)
+                for d, dev in enumerate(devs)]
 
     def coset_fft(self, a: torch.Tensor) -> torch.Tensor:
         return self.fft(mul_rows(self.f, a, self.zeta_pows))

@@ -88,10 +88,8 @@ def col_ntt(field: Field, a: torch.Tensor, rev: torch.Tensor, table: torch.Tenso
     _build.require_aligned(ops[0], ops[2], *ops[3:])
     out = torch.empty_like(ops[0]) if mid is None else ops[0].new_empty((R // rep, size * rep, WORDS))
     if R:
-        err = _build.library().sirius_col_ntt(_build.field_consts(field), ops[0].data_ptr(), ops[1].data_ptr(),
-                                              ops[2].data_ptr(), None if mid is None else ops[3].data_ptr(),
-                                              out.data_ptr(), size, R, rep, _build.stream_of(a))
-        _build.check(err, "col_ntt")
+        _build.launch("col_ntt", ops[0], _build.field_consts(field), ops[0].data_ptr(), ops[1].data_ptr(),
+                      ops[2].data_ptr(), None if mid is None else ops[3].data_ptr(), out.data_ptr(), size, R, rep)
         col_ntt.launches += 1
         col_ntt.mid_launches += mid is not None
     return out

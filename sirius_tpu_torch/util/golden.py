@@ -183,6 +183,15 @@ LOOKUP_SANGRIA_FOLDS = (
 LOOKUP_PG_FIBO_XOR_TRACE = "43a1370a4797952ac8b04becad14bedf323cd91171748127b23e70ad03f97142"
 LOOKUP_PG_FIBO_XOR_NEW = "01f1066f4fba8153464cbfb19658118b5b374495926ebb717d2eb5643bc20ea9"
 LOOKUP_PG_FIBO_XOR_L1 = "8cd8de45127826e9b83ea061c7c38c86cff0c5e90632c42e864cfd05649d016e"
+# __graft_entry__.py:dryrun_multichip's Sangria folds without a mesh
+# (`util/testing.dryrun_sangria_folds`; key CommitmentKey.setup(BN256_G1, 9,
+# b"dryrun-mc")): sangria_acc_digest after each of the two folds, frozen with
+# `JAX_PLATFORMS=cpu python tests/freeze_ivc_digests.py dryrun_mc_folds`
+# (90.3 s of JAX on a CPU).
+DRYRUN_MC_FOLDS = (
+    "6bd55e20d98b3453b44a84f7d7d21396b1e7500d59ff5cd5671b1966481e7039",
+    "b9076303dda5ea8d08261e342a19ce1208c761adbb77a1c74742d08f6cb50789",
+)
 
 
 # The lookup IVCs, the JAX package run on the CPU, frozen with

@@ -16,7 +16,12 @@ as constructor arguments (there module constants):
   (i, i^2 mod table) in a 2-column table (a 3-round SPS);
 - FiboXorLookupCircuit (`tests/fixtures.py:103-166`, XOR_BITS): a
   Fibonacci-XOR chain whose rows (a, b, a ^ b) are looked up in the
-  3-column XOR table of xor_bits-bit values (a 3-round SPS).
+  3-column XOR table of xor_bits-bit values (a 3-round SPS); at
+  xor_bits = 3 it is `__graft_entry__.py:_XorLookupFixture`.
+
+dryrun_sangria_folds: the Sangria half of the JAX package's multi-device
+dry run (`__graft_entry__.py:dryrun_multichip`) on a given key, under
+whatever mesh is active.
 """
 
 from __future__ import annotations
@@ -181,3 +186,42 @@ class FiboXorLookupCircuit:
 
     def instances(self) -> list[list[int]]:
         return [[self._seq()[-1][2], 0]]
+
+
+def dryrun_sangria_folds(ck) -> tuple[list[str], list[str]]:
+    """`__graft_entry__.py:dryrun_multichip`'s Sangria folds on the key `ck`
+    (there `CommitmentKey.setup(BN256_G1, 9, b"dryrun-mc")`) and its
+    device: the XOR chains FiboXorLookupCircuit(1, 2, 9) and (3, 5, 9) at
+    3-bit XOR and k = 6 (a 3-round SPS), both traces on one transcript,
+    folded one after the other into the zero relaxed accumulator with the
+    verifier replaying each fold.  Returns `golden.sangria_acc_digest` after
+    each fold and is_sat's errors on the final accumulator."""
+    from ..fields.constants import bn256_fq, bn256_fr, bn256_g1
+    from ..frontend.runner import CircuitRunner
+    from ..nifs.sangria import RelaxedPlonkInstance, RelaxedPlonkTrace, RelaxedPlonkWitness, VanillaFS
+    from ..ops.poseidon import PoseidonHash, poseidon_spec
+    from ..plonk.sps import run_sps_protocol
+    from .golden import sangria_acc_digest
+
+    k, dev = 6, ck.device
+    ro = lambda: PoseidonHash(poseidon_spec(bn256_fq, 3, 2, 4, 3))  # noqa: E731
+    circuits = [FiboXorLookupCircuit(1, 2, 9, xor_bits=3), FiboXorLookupCircuit(3, 5, 9, xor_bits=3)]
+    runners = [CircuitRunner(k, bn256_fr, c, c.instances()) for c in circuits]
+    S = runners[0].collect_plonk_structure()
+    ro_gen = ro()
+    traces = [run_sps_protocol(S, ck, c.instances(), r.collect_witness(), ro_gen)
+              for c, r in zip(circuits, runners)]
+    pp, vp = VanillaFS.setup_params(gold.identity(bn256_g1), S)
+    f = S.field
+    acc = RelaxedPlonkTrace(
+        U=RelaxedPlonkInstance.new(bn256_g1, S.num_challenges, len(S.round_sizes), len(S.num_io) - 1),
+        W=RelaxedPlonkWitness([f.zeros((sz,), dev) for sz in S.round_sizes], f.zeros((S.n,), dev)))
+    ro_nark_v, ro_acc_p, ro_acc_v = ro(), ro(), ro()
+    digests = []
+    for tr in traces:
+        new_acc, cross_commits = VanillaFS.prove(ck, pp, ro_acc_p, acc, tr)
+        if VanillaFS.verify(vp, bn256_g1, ro_nark_v, ro_acc_v, acc.U, tr.u, cross_commits) != new_acc.U:
+            raise AssertionError("prover/verifier accumulator mismatch")
+        acc = new_acc
+        digests.append(sangria_acc_digest(acc.U))
+    return digests, VanillaFS.is_sat(ck, S, acc, [tr.u.instances for tr in traces])

@@ -20,7 +20,13 @@ own `util/golden.py`, which needs only numpy and hashlib):
   `TrivialStepCircuit(1)` as the secondary, the same k on both curves, mock
   keys): the pp digest points, the (primary, secondary) accumulator
   digests and the whole state's `golden.sangria_ivc_digest` after
-  `IVC(...)` and after one `fold_step()`.
+  `IVC(...)` and after one `fold_step()`;
+- `dryrun_mc_folds`: the Sangria folds of `__graft_entry__.dryrun_multichip`
+  without a mesh (its `_XorLookupFixture(1, 2, 9)` and `(3, 5, 9)` at
+  k = 6, 3-round SPS on one shared transcript, key
+  `CommitmentKey.setup(BN256_G1, 9, b"dryrun-mc")`, both traces folded into
+  the zero relaxed accumulator): `golden.sangria_acc_digest` after each
+  fold.
 
 Not a test (pytest does not collect it).  Run from the repository root:
 
@@ -104,7 +110,45 @@ def sangria(step, z0, k=17):
     return out
 
 
+def dryrun_mc_folds():
+    from __graft_entry__ import _XorLookupFixture
+    from sirius_tpu.fields import gold
+    from sirius_tpu.fields.constants import bn256_fq, bn256_g1
+    from sirius_tpu.frontend.runner import CircuitRunner
+    from sirius_tpu.nifs.sangria import RelaxedPlonkInstance, RelaxedPlonkTrace, RelaxedPlonkWitness, VanillaFS
+    from sirius_tpu.ops.commitment import CommitmentKey
+    from sirius_tpu.ops.poseidon import PoseidonHash, poseidon_spec
+    from sirius_tpu.plonk.sps import run_sps_protocol
+
+    t0 = time.time()
+    k = 6
+    ro = lambda: PoseidonHash(poseidon_spec(bn256_fq, 3, 2, 4, 3))  # noqa: E731
+    c1, c2 = _XorLookupFixture(1, 2, 9), _XorLookupFixture(3, 5, 9)
+    inst1, inst2 = c1.instances(), c2.instances()
+    r1 = CircuitRunner(k, bn256_fr, c1, inst1)
+    ck = CommitmentKey.setup(BN256_G1, 9, b"dryrun-mc", use_cache=False, window_bits=4)
+    S = r1.collect_plonk_structure()
+    ro_gen = ro()
+    tr1 = run_sps_protocol(S, ck, inst1, r1.collect_witness(), ro_gen)
+    tr2 = run_sps_protocol(S, ck, inst2, CircuitRunner(k, bn256_fr, c2, inst2).collect_witness(), ro_gen)
+    pp, vp = VanillaFS.setup_params(gold.identity(bn256_g1), S)
+    f = S.field
+    acc = RelaxedPlonkTrace(U=RelaxedPlonkInstance.new(bn256_g1, S.num_challenges, len(S.round_sizes),
+                                                       len(S.num_io) - 1),
+                            W=RelaxedPlonkWitness([f.zeros((sz,)) for sz in S.round_sizes], f.zeros((S.n,))))
+    ro_nark_v, ro_acc_p, ro_acc_v = ro(), ro(), ro()
+    folds = []
+    for tr in (tr1, tr2):
+        new_acc, ct_commits = VanillaFS.prove(ck, pp, ro_acc_p, acc, tr)
+        assert VanillaFS.verify(vp, bn256_g1, ro_nark_v, ro_acc_v, acc.U, tr.u, ct_commits) == new_acc.U
+        acc = new_acc
+        folds.append(golden.sangria_acc_digest(acc.U))
+    return dict(folds=folds, seconds=round(time.time() - t0, 1))
+
+
 def main(which):
+    if which == "dryrun_mc_folds":
+        return dryrun_mc_folds()
     if which == "xor_lookup":
         from sirius_tpu.gadgets.xor_lookup_step_circuit import XorLookupStepCircuit
 

@@ -978,3 +978,128 @@ def test_cyclefold_next_on_the_card_replays_the_direct_witness(cuda_device, monk
     flat = [v for col in direct for v in col]
     assert torch.equal(ivc.primary_trace.w.W[0], FR.encode(flat, cuda_device))
     assert ivc.verify() == []
+
+
+# -- the multi-device path (parallel/, msm_sharded, fft_sharded) -------------------------------------------------
+
+CYCLEFOLD_DIGESTS = ("9f3739df", "13a63ce4")  # chip_smoke.py: the trivial Cyclefold after 2 next, z0 = [0x42]
+MESHES = ["virtual_4_on_cuda0", "every_card"]
+
+
+def _mesh(kind):
+    """A virtual mesh of four shards on cuda:0, or a mesh of every card (a
+    host with one card skips it)."""
+    from sirius_tpu_torch.parallel import make_mesh
+
+    if kind == "virtual_4_on_cuda0":
+        return make_mesh(devices=["cuda:0"] * 4)
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    return make_mesh()
+
+
+@pytest.fixture(scope="module")
+def bench_keys():
+    """The chip_smoke keys' points: the bn256 2^20 prefix of b"bench-primary"
+    and the grumpkin 2^17 support key of b"bench-support", on cuda:0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA)")
+    return (CommitmentKey.setup(BN256_G1, 20, b"bench-primary", use_cache=False, device="cuda:0"),
+            CommitmentKey.setup(GRUMPKIN, 17, b"bench-support", use_cache=False, device="cuda:0"))
+
+
+def _canonical(rng, n, device):
+    w = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.int64)
+    w[:, 7] &= 0x0FFFFFFF  # 252-bit values: canonical Fr words, Montgomery or standard alike
+    return torch.from_numpy(w).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", MESHES)
+def test_sharded_commit_at_the_primary_w_equals_best_msm(bench_keys, kind):
+    from sirius_tpu_torch.ops import _build
+    from sirius_tpu_torch.parallel import mesh_context
+
+    mesh = _mesh(kind)
+    ck = bench_keys[0]
+    n = 7 << 17  # the trivial Cyclefold's primary W: 917,504 scalars
+    W = _canonical(np.random.default_rng(17), n, "cuda:0")
+    want = best_msm(BN256_G1, FR.from_mont(W), Points(*(c[:n] for c in ck.points)))
+    before = dict(_build.device_launches)
+    with mesh_context(mesh):
+        assert ck.commit_device(W) == want
+    ran = {d: k - before.get((e, d), 0) for (e, d), k in _build.device_launches.items() if e == "msm_accumulate"}
+    assert {d: k for d, k in ran.items() if k} == {str(d): mesh.devices.count(d) for d in mesh.distinct}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", MESHES)
+def test_fft_sharded_k20_equals_fft(kind):
+    from sirius_tpu_torch.parallel import Mesh, gather_rows, shard_rows
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA)")
+    mesh = _mesh(kind)
+    if 1024 % mesh.size:  # the four-step across a mesh takes a power-of-two count of cards
+        mesh = Mesh(mesh.devices[: 1 << (mesh.size.bit_length() - 1)])
+    ctx = NTT(FR, 20, "cuda:0")
+    a = _canonical(np.random.default_rng(20), 1 << 20, "cuda:0")
+    for inverse in (False, True):
+        blocks = ctx.fft_sharded(shard_rows(mesh, a), mesh, inverse)
+        assert [b.device for b in blocks] == list(mesh.devices)
+        assert torch.equal(gather_rows(mesh, blocks), ctx.fft(a, inverse))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", MESHES)
+def test_trivial_cyclefold_under_a_mesh_equals_the_frozen_digests(bench_keys, kind):
+    from sirius_tpu_torch.ivc.cyclefold_ivc import CyclefoldIVC, CyclefoldPublicParams
+    from sirius_tpu_torch.ivc.step_circuit import TrivialStepCircuit
+    from sirius_tpu_torch.nifs.protogalaxy import AccumulatorInstance
+    from sirius_tpu_torch.parallel import mesh_context
+    from sirius_tpu_torch.util.golden import pg_acc_digest, sangria_acc_digest
+
+    mesh = _mesh(kind)
+    ck1, ck2 = bench_keys
+    pp = CyclefoldPublicParams(TrivialStepCircuit(arity=1), 17, ck1, ck2)
+    plans = dict(bucket_plan.shapes)
+    with mesh_context(mesh):
+        ivc = CyclefoldIVC(pp, [0x42])
+        ivc.next()
+        ivc.next()
+        assert ivc.verify() == []
+    digests = (pg_acc_digest(AccumulatorInstance.from_acc(ivc.self_acc)), sangria_acc_digest(ivc.support_acc.U))
+    assert [d[:8] for d in digests] == list(CYCLEFOLD_DIGESTS)
+    new_plans = {m for m, k in bucket_plan.shapes.items() if k > plans.get(m, 0)}
+    assert max(new_plans) <= -(-(7 << 17) // mesh.size)  # every commit went by shards
+
+
+@pytest.mark.gpu
+def test_a_wrapper_launches_on_its_operands_card_while_another_is_current():
+    """cuda:1 tensors with cuda:0 current: the launch runs under cuda:1 with
+    cuda:1's stream (before the `_build.launch` helper it ran on the current
+    device and failed with an invalid resource handle): mul_rows, B4 above
+    48 KB of dynamic shared memory (its attribute set on cuda:1 too) and
+    best_msm's B2/B3 give their plain twins' words."""
+    from sirius_tpu_torch.ops import _build
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    one = torch.device("cuda:1")
+    rng = np.random.default_rng(1)
+    a, b = _canonical(rng, 4096, one), _canonical(rng, 4096, one)
+    ctx = NTT(FR, 21, one)  # pass-1 columns of 2048: 64 KB of shared memory
+    col = FR.random((ctx.n1, 8), rng, one)
+    ck = CommitmentKey.setup(BN256_G1, 10, b"torch-gpu-test", use_cache=False, device=one)
+    S = _canonical(rng, 1024, one)
+    with torch.cuda.device(0):
+        before = dict(_build.device_launches)
+        got = fk.mul_rows(FR, a, b)
+        assert got.device == one and torch.equal(got, fk.mul_rows_plain(FR, a, b))
+        got = ntt_kernels.col_ntt(FR, col, ctx.rev_n1, ctx.inner[False])
+        assert torch.equal(got, ntt_kernels.col_ntt_plain(FR, col, ctx.rev_n1, ctx.inner[False]))
+        want = best_msm(BN256_G1, S.cpu(), Points(*(c.cpu() for c in ck.points)))
+        assert best_msm(BN256_G1, S, ck.points) == want
+        assert torch.cuda.current_device() == 0
+    ran = {e for (e, d), k in _build.device_launches.items() if d == "cuda:1" and k > before.get((e, d), 0)}
+    assert {"mul_rows", "col_ntt", "msm_bucket_count", "msm_accumulate", "msm_reduce", "msm_horner"} <= ran

@@ -118,3 +118,15 @@ def test_tape_modules_are_the_ports_own(module):
     switches = re.compile(r"SIRIUS_TPU_(TAPE|NATIVE)")
     assert [p for p in PKG.rglob("*.py") if switches.search(p.read_text())] == []
     assert (PKG / "native" / "witness_tape.cpp").exists()
+
+
+@pytest.mark.parametrize("module", ["sirius_tpu_torch.parallel", "sirius_tpu_torch.parallel.mesh",
+                                    "sirius_tpu_torch.parallel.context"])
+def test_parallel_modules_are_the_ports_own(module):
+    """The multi-device layer is the port's own (covered by the jax-free
+    import above): explicit row blocks and an active mesh, and none of the
+    JAX package's GSPMD sharding helpers."""
+    assert module in set(_modules())
+    mod = importlib.import_module(module)
+    for gspmd in ("row_sharding", "replicated_sharding", "replicated", "NamedSharding"):
+        assert not hasattr(mod, gspmd), (module, gspmd)
