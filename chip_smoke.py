@@ -199,8 +199,16 @@
    `NTT.fft_sharded` at 2^20 equals `fft` word for word, forward and
    inverse; the trivial Cyclefold (k = 17, real keys) runs new, two next
    and verify() == [] inside `mesh_context` with the digests 9f3739df /
-   13a63ce4, every bucket plan at a shard's size; the seconds of each
-   beside one card's (best_msm, fft); then the mesh path's kernels at its
+   13a63ce4, every bucket plan at a shard's size, its W rounds, E and the
+   support trace asserted row blocks (`parallel/rows.py`: the sharded
+   route, not the whole-round fallback), the sweeps block by block; next's
+   seconds and spans beside the main path's next without a mesh (the
+   phase's own baseline under `--mesh-only`), the per-block sweeps by
+   device and the peak device memory by card (`--mesh-only` also traces a
+   third next: its device kernel events by card); phase 9's Sangria IVC
+   (k = 16, mock keys) under the mesh with its frozen digests, and the
+   JAX package's dry-run folds (`DRYRUN_MC_FOLDS`, m_count on the first
+   card); the seconds of each beside one card's (best_msm, fft); then the mesh path's kernels at its
    shapes against their plain twins (B2's sort and accumulate and B3's
    first reduce level on a 229,376-scalar shard, B3's combine over the 4
    shards' buckets in one launch, B4 at a device's (1024, 256) columns,
@@ -208,7 +216,9 @@
    and their launches on the mesh path by device.  (b) On a host with two
    or more cards, the same checks on a mesh of every card (the NTT on the
    largest power-of-two count), their seconds beside (a)'s and one card's,
-   B2 and B3 launched on every card.  Every line names its mesh.
+   B2, B3 and the W conversion's mul_rows launched on every card, and one
+   SHA-256 Cyclefold next (k = 18) under that mesh with its peak device
+   memory by card.  Every line names its mesh.
    `python3 chip_smoke.py --mesh-only` runs this phase alone, after the
    keys it needs and the Cyclefold public parameters.
 
@@ -294,7 +304,9 @@ from sirius_tpu_torch.ops.msm import msm_many
 from sirius_tpu_torch.ops.msm import reduce_segments, split_segments
 from sirius_tpu_torch.ops.ntt import NTT
 from sirius_tpu_torch.ops.ntt_kernels import col_ntt, col_ntt_plain
-from sirius_tpu_torch.parallel import Mesh, gather_rows, make_mesh, mesh_context, shard_rows
+from sirius_tpu_torch.parallel import Mesh, RowBlocks, gather_rows, make_mesh, mesh_context, shard_rows
+from sirius_tpu_torch.parallel import rows as rows_mod
+from sirius_tpu_torch.parallel.rows import gathered
 from sirius_tpu_torch.ops.poseidon import PoseidonHash, poseidon_spec
 from sirius_tpu_torch.plonk import satisfy
 from sirius_tpu_torch.ops.lookup_kernels import m_count_plain
@@ -305,7 +317,7 @@ from sirius_tpu_torch.util.golden import pg_acc_digest, sangria_acc_digest
 from sirius_tpu_torch.util.interop import limbs_to_words
 from sirius_tpu_torch.util.profiling import profiler
 from sirius_tpu_torch.util.testing import (FiboXorLookupCircuit, MockCommitmentKey, RangeCircuit, VectorRangeCircuit,
-                                           reference_msm)
+                                           dryrun_sangria_folds, reference_msm)
 
 from msm_turns import gpu_ms, graph_ms, kernel_ms
 
@@ -568,7 +580,7 @@ def profiled(label: str, fn) -> str:
 def cf_digests(ivc) -> tuple[str, str, str]:
     """`golden.cyclefold_digests` of a Cyclefold IVC: its ProtoGalaxy and
     support accumulators and its pending trace, every W round's words."""
-    return golden.cyclefold_digests(ivc, [w.cpu().numpy() for w in ivc.primary_trace.w.W])
+    return golden.cyclefold_digests(ivc, [gathered(w).cpu().numpy() for w in ivc.primary_trace.w.W])
 
 
 def ckpt_bytes(path: str) -> int:
@@ -715,16 +727,21 @@ class MeshLaunches:
         return {d: k for (e, d), k in sorted(self.counts.items()) if e == entry}
 
 
-def mesh_checks(mesh, keys, pp, rng, card: str) -> tuple[dict, MeshLaunches]:
+def mesh_checks(mesh, keys, pp, rng, card: str, base: dict, trace: bool) -> tuple[dict, MeshLaunches]:
     """The mesh phase's checks on `mesh`, each line naming it: the sharded
     commits of MESH_COMMITS scalars (`commit_device` under `mesh_context`;
     W made on the key's card) equal best_msm's point on one card; the 2^20
     NTT by `fft_sharded` equals `fft` word for word, both directions; the
     trivial Cyclefold (k = 17, the real keys) under `mesh_context`: new, two
     next and verify() == [], its digests CYCLEFOLD_DIGESTS, every commit of
-    both curves through the key's shards.  Returns the seconds ({what:
-    (on the mesh, warm on the mesh, on one card)}) and the mesh path's
-    launches."""
+    both curves through the key's shards, W, E and the support trace as row
+    blocks, the sweeps block by block on every device, next's seconds and
+    spans beside `base` (the same run without a mesh), the peak device memory
+    by card and (`trace`) a traced third next's device events by card;
+    then phase 9's
+    Sangria IVC (k = 16) and the dry-run folds under the mesh.  Returns the
+    seconds ({what: (on the mesh, warm on the mesh, on one card)}) and the
+    mesh path's launches."""
     ck1_full, ck1, ck2 = keys
     name, run, secs = mesh.describe(), MeshLaunches(), {}
     for ck, n in ((ck1, MESH_COMMITS[0]), (ck1_full, MESH_COMMITS[1])):
@@ -782,17 +799,28 @@ def mesh_checks(mesh, keys, pp, rng, card: str) -> tuple[dict, MeshLaunches]:
         f"warm forward {(t1 - t0) / reps:.6f} s (mean of {reps}), fft on {ctx.device} {(t2 - t1) / reps:.6f} s  "
         f"[{card}]")
     plans = dict(bucket_plan.shapes)
+    sweeps_before = Counter(rows_mod.sweeps)
+    reset_peaks()
     with mesh_context(mesh):
         t0 = synced_all()
         ivc = run(lambda: CyclefoldIVC(pp, IVC_Z0))
         t1 = synced_all()
-        steps = []
+        span_seconds()
+        steps, spans = [], []
         for _ in range(IVC_STEPS):
             run(ivc.next)
             steps.append(synced_all())
+            spans.append(span_seconds())
+        digests = cf_digests(ivc)[:2]
+        check_row_blocks(mesh, [*ivc.primary_trace.w.W, *ivc.self_acc.trace.w.W, *ivc.support_acc.W.W,
+                                ivc.support_acc.W.E], f"the Cyclefold IVC's W rounds and E on {name}")
+        peaks = card_peaks()
+        if trace:  # a third next, traced (~40 s with the profiler's processing: `--mesh-only` only)
+            events = device_events(lambda: run(ivc.next))
+        t2 = synced_all()
         errors = run(ivc.verify)
         t3 = synced_all()
-    digests = (pg_acc_digest(AccumulatorInstance.from_acc(ivc.self_acc)), sangria_acc_digest(ivc.support_acc.U))
+    sweeps = dict(Counter(rows_mod.sweeps) - sweeps_before)
     check(errors == [], f"the Cyclefold IVC on {name}: verify reported {errors}")
     check(all(d.startswith(w) for d, w in zip(digests, CYCLEFOLD_DIGESTS)),
           f"the Cyclefold digests on {name} moved: {digests}, not {CYCLEFOLD_DIGESTS}...")
@@ -800,13 +828,163 @@ def mesh_checks(mesh, keys, pp, rng, card: str) -> tuple[dict, MeshLaunches]:
     shard_n = [-(-n // D) for n in (PRIMARY_W_N, W_COMMIT_N)]  # the first (longest) shard of each W commit
     check(all(plans.get(m) for m in shard_n) and max(plans) <= shard_n[0],
           f"the Cyclefold commits on {name} did not all go through the shards: bucket plans by size {plans}")
+    check(set(sweeps) == {str(d) for d in mesh.distinct} and sum(sweeps.values()) % D == 0,
+          f"the sweeps on {name} did not run block by block on every device: {sweeps}")
     nexts = [b - a for a, b in zip([t1, *steps], steps)]
-    secs["next"] = (nexts[0], nexts[-1], None)
-    log(f"Cyclefold IVC k={IVC_K} under mesh_context on {name}: new {t1 - t0:.4f} s, next "
-        + " / ".join(f"{x:.4f}" for x in nexts) + f" s, verify() == [] in {t3 - steps[-1]:.4f} s; digests "
+    secs["next"] = (nexts[0], nexts[-1], base["next"])
+    log(f"Cyclefold IVC k={IVC_K} under mesh_context on {name}, W, E and the support trace as row blocks: new "
+        f"{t1 - t0:.4f} s, next " + " / ".join(f"{x:.4f}" for x in nexts) + f" s (without a mesh, the same run: "
+        + " / ".join(f"{x:.4f}" for x in base["nexts"]) + f" s), verify() == [] in {t3 - t2:.4f} s; digests "
         f"{digests[0][:8]} / {digests[1][:8]} (as without a mesh); bucket plans by size {plans}  [{card}]")
+    for i, (sp, bp) in enumerate(zip(spans, base["spans"])):
+        log(f"  next {i + 1} spans on {name}: " + ", ".join(f"{k} {v:.4f} s" for k, v in sp.items())
+            + "; without a mesh: " + ", ".join(f"{k} {v:.4f} s" for k, v in bp.items()))
+    log(f"  per-block sweeps by device over new, {IVC_STEPS + trace} next and verify on {name}: {sweeps}; "
+        + (f"the traced third next: {events}; " if trace else "") + f"peak device memory by card over new and {IVC_STEPS} next: {peaks} (without a mesh "
+        f"{base['peaks']})  [{card}]")
+    secs["sangria k16"] = mesh_sangria(mesh, run, card)
+    secs["dry-run folds"] = mesh_dryrun(mesh, run, card)
     log(f"launches on the mesh path on {name} by (C entry, device): {dict(sorted(run.counts.items()))}")
     return secs, run
+
+
+def check_row_blocks(mesh, rounds, what: str) -> None:
+    """Every round is row blocks (`parallel/rows.py`) of `mesh`, block d on
+    its device d: the sharded route, never the whole-round fallback."""
+    for w in rounds:
+        check(isinstance(w, RowBlocks) and w.mesh == mesh and w.devices == list(mesh.devices),
+              f"{what}: {w!r} is not row blocks on {mesh.describe()}")
+
+
+def reset_peaks() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+        torch.cuda.reset_peak_memory_stats(i)
+
+
+def card_peaks() -> dict[str, str]:
+    """Peak device memory by card since `reset_peaks`, in GB (the keys' included)."""
+    out = {}
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+        out[f"cuda:{i}"] = f"{torch.cuda.max_memory_allocated(i) / 1e9:.3f} GB"
+    return out
+
+
+def device_events(fn) -> str:
+    """One traced call of fn: its wall seconds (closed by every card's
+    synchronize) and the device kernels it launched by card, with their busy
+    seconds (the profiler's raw events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = synced_all() - t0
+    by_card, busy = Counter(), Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            by_card[f"cuda:{e.device_index()}"] += 1
+            busy[f"cuda:{e.device_index()}"] += e.duration_ns() / 1e9
+    return (f"wall {wall:.4f} s (profiler on), device events by card {dict(by_card)}, busy by card "
+            + ", ".join(f"{c} {b:.4f} s = {100 * b / wall:.1f}%" for c, b in busy.items()))
+
+
+def mesh_sangria(mesh, run, card: str) -> tuple:
+    """Phase 9's Sangria IVC (trivial step both sides, k = 16, the mock keys
+    on cuda:0) under `mesh`: both accumulators' digests after new and one
+    fold_step equal the JAX package's frozen ones, verify() == [], both
+    sides' W rounds and E row blocks.  Returns (new + fold_step s, fold_step
+    s, None)."""
+    dev = torch.device(DEVICE)
+    mpp = SangriaPublicParams(TrivialStepCircuit(arity=1), TrivialStepCircuit(arity=1), SANGRIA_GOLDEN_K,
+                              SANGRIA_GOLDEN_K, MockCommitmentKey(BN256_G1, dev), MockCommitmentKey(GRUMPKIN, dev))
+    accs = lambda v: (sangria_acc_digest(v.primary_relaxed.U), sangria_acc_digest(v.secondary_relaxed.U))  # noqa: E731
+    with mesh_context(mesh):
+        t0 = synced_all()
+        mivc = run(lambda: SangriaIVC(mpp, *SANGRIA_Z0))
+        got_new = accs(mivc)
+        t1 = synced_all()
+        run(mivc.fold_step)
+        t2 = synced_all()
+        errors = run(mivc.verify)
+    check(got_new == golden.SANGRIA_IVC_K16_NEW and accs(mivc) == golden.SANGRIA_IVC_K16_STEP and errors == [],
+          f"Sangria k = {SANGRIA_GOLDEN_K} on {mesh.describe()}: {got_new} {accs(mivc)} {errors}")
+    check_row_blocks(mesh, [w for acc in (mivc.primary_relaxed, mivc.secondary_relaxed) for w in [*acc.W.W, acc.W.E]]
+                     + list(mivc.secondary_trace.w.W), f"the Sangria IVC's rounds on {mesh.describe()}")
+    log(f"Sangria IVC k={SANGRIA_GOLDEN_K} (mock keys) under mesh_context on {mesh.describe()}, W and E as row "
+        f"blocks: both accumulators' digests after new and one fold_step equal the JAX package's frozen ones, "
+        f"verify() == []; new {t1 - t0:.4f} s, fold_step {t2 - t1:.4f} s  [{card}]")
+    return (t2 - t0, t2 - t1, None)
+
+
+def mesh_dryrun(mesh, run, card: str) -> tuple:
+    """The JAX package's multi-device dry run's Sangria folds (a 3-round SPS
+    with a vector lookup, `util/testing.dryrun_sangria_folds`) on its real
+    key on cuda:0 under `mesh`: `golden.DRYRUN_MC_FOLDS`, is_sat clean, W
+    and E row blocks, m_count launched on the first card only."""
+    t0 = time.perf_counter()
+    ck = CommitmentKey.setup(BN256_G1, 9, b"dryrun-mc", use_cache=False, device=DEVICE)
+    setup = synced_all() - t0
+    before = Counter(_build.device_launches)
+    with mesh_context(mesh):
+        t0 = synced_all()
+        digests, errors, acc = run(lambda: dryrun_sangria_folds(ck))
+        dt = synced_all() - t0
+    counts = {d: k for (e, d), k in (Counter(_build.device_launches) - before).items() if e == "lookup_probe"}
+    check(errors == [] and tuple(digests) == golden.DRYRUN_MC_FOLDS,
+          f"the dry-run folds on {mesh.describe()}: {digests}, errors {errors}")
+    check_row_blocks(mesh, [*acc.W.W, acc.W.E], f"the dry-run folds' rounds on {mesh.describe()}")
+    check(set(counts) == {str(mesh.first)}, f"m_count ran off the mesh's first card: {counts}")
+    log(f"dry-run Sangria folds (k = 6, 3-round SPS with a vector lookup) under mesh_context on {mesh.describe()}: "
+        f"DRYRUN_MC_FOLDS, is_sat clean, W and E row blocks, m_count on {mesh.first} ({counts}); {dt:.4f} s (the "
+        f"key's host setup before it {setup:.4f} s)  [{card}]")
+    return (dt, dt, None)
+
+
+def mesh_baseline(pp, card: str) -> dict:
+    """The trivial Cyclefold without a mesh in the mesh phase's own run: next
+    seconds, spans and peak device memory by card, beside which the mesh's
+    are printed."""
+    reset_peaks()
+    ivc = CyclefoldIVC(pp, IVC_Z0)
+    span_seconds()
+    nexts, spans = [], []
+    for _ in range(IVC_STEPS):
+        t0 = synced_all()
+        ivc.next()
+        nexts.append(synced_all() - t0)
+        spans.append(span_seconds())
+    peaks = card_peaks()
+    log(f"Cyclefold IVC k={IVC_K} without a mesh (the mesh phase's baseline): next "
+        + " / ".join(f"{x:.4f}" for x in nexts) + f" s; peak device memory by card {peaks}  [{card}]")
+    return {"next": nexts[-1], "nexts": nexts, "spans": spans, "peaks": peaks}
+
+
+def mesh_sha256(mesh, keys, card: str) -> None:
+    """One SHA-256 Cyclefold next (H = 16, 64 rounds, k = 18, the bn256 2^22
+    key) under a mesh of every card: W's 16 x 2^18 advice round, the lookup
+    rounds and the support trace as row blocks, verify() == [], the peak
+    device memory by card beside one card's (PERF.md: 19.58 GB)."""
+    ck1_full, _, ck2 = keys
+    t0 = synced_all()
+    spp = CyclefoldPublicParams(SpreadSha256StepCircuit(bn256_fr, half_bits=SHA_HALF_BITS, rounds=SHA_ROUNDS),
+                                SHA_K, ck1_full, ck2)
+    t1 = synced_all()
+    reset_peaks()
+    with mesh_context(mesh):
+        ivc = CyclefoldIVC(spp, SHA_Z0)
+        t2 = synced_all()
+        ivc.next()
+        t3 = synced_all()
+        peaks = card_peaks()
+        check_row_blocks(mesh, [*ivc.primary_trace.w.W, *ivc.self_acc.trace.w.W, ivc.support_acc.W.E],
+                         f"the SHA-256 Cyclefold's rounds on {mesh.describe()}")
+        errors = ivc.verify()
+    check(errors == [], f"the SHA-256 Cyclefold on {mesh.describe()}: verify reported {errors}")
+    log(f"SHA-256 Cyclefold k={SHA_K} under mesh_context on {mesh.describe()}: public parameters {t1 - t0:.4f} s, "
+        f"new {t2 - t1:.4f} s, next {t3 - t2:.4f} s, verify() == []; peak device memory by card over new and next "
+        f"{peaks} (one card: 19.58 GB, PERF.md)  [{card}]")
 
 
 def mesh_stage_entries(mesh, ck1, rng, record, card: str) -> None:
@@ -871,15 +1049,20 @@ def mesh_stage_entries(mesh, ck1, rng, record, card: str) -> None:
         f"({n1 * c2} rows): every one agrees; the shards add up to best_msm's point  [{card}]")
 
 
-def mesh_phase(record, kernels, card: str, keys, pp, rng) -> None:
+def mesh_phase(record, kernels, card: str, keys, pp, rng, base: dict | None = None, trace: bool = False) -> None:
     """(a) always: the mesh checks on a virtual mesh of MESH_SHARDS shards on
     cuda:0 (one card's work, so its seconds are no multi-card figure), the
     kernels-line entries of the mesh path with its launches by device; (b)
     on a host with two or more cards: the same checks on a mesh of every
-    card, beside (a)'s and the one-card figures."""
+    card, beside (a)'s and the one-card figures, and one SHA-256 Cyclefold
+    next under that mesh.  `base`: the trivial Cyclefold's next without a
+    mesh earlier in the run (`mesh_baseline` when None); `trace`: trace a
+    third next under each mesh."""
     t0 = time.perf_counter()
+    profiler.enable()
+    base = base or mesh_baseline(pp, card)
     virtual = make_mesh(devices=[DEVICE] * MESH_SHARDS)
-    secs, run = mesh_checks(virtual, keys, pp, rng, card)
+    secs, run = mesh_checks(virtual, keys, pp, rng, card, base, trace)
     mesh_stage_entries(virtual, keys[1], rng, record, card)
     for name, entry in MESH_ENTRIES.items():
         by_dev = run.by_device(entry)
@@ -889,9 +1072,10 @@ def mesh_phase(record, kernels, card: str, keys, pp, rng) -> None:
     count = torch.cuda.device_count()
     if count < 2:
         log(f"mesh phase (b): {count} card visible, no mesh of every card to run")
+        profiler.enabled = False
         return
     every = make_mesh()
-    secs_b, run_b = mesh_checks(every, keys, pp, rng, card)
+    secs_b, run_b = mesh_checks(every, keys, pp, rng, card, base, trace)
     for name, entry in MESH_ENTRIES.items():
         kernels[name]["launches_every_card"] = run_b.by_device(entry)
     for what, (first, warm, one) in secs_b.items():
@@ -908,6 +1092,10 @@ def mesh_phase(record, kernels, card: str, keys, pp, rng) -> None:
         check(set(run_b.by_device(entry)) == cards,
               f"{entry} did not launch on every card of {every.describe()}: {run_b.by_device(entry)}")
     check(len(run_b.by_device("col_ntt")) >= 2, f"col_ntt ran on one card only: {run_b.by_device('col_ntt')}")
+    check(set(run_b.by_device("mul_rows")) == cards,
+          f"the W conversion did not run on every card of {every.describe()}: {run_b.by_device('mul_rows')}")
+    mesh_sha256(every if SHA_ROUND_SIZES[0] % every.size == 0 else virtual, keys, card)
+    profiler.enabled = False
 
 
 def recorder(kernels: dict, imad_rate: float):
@@ -967,7 +1155,8 @@ def mesh_only() -> int:
     t0 = synced()
     pp = CyclefoldPublicParams(TrivialStepCircuit(arity=1), IVC_K, ck1, ck2)
     log(f"Cyclefold public parameters k={IVC_K}: {synced() - t0:.4f} s")
-    mesh_phase(recorder(kernels, imad_rate), kernels, card, (ck1_full, ck1, ck2), pp, np.random.default_rng(SEED))
+    mesh_phase(recorder(kernels, imad_rate), kernels, card, (ck1_full, ck1, ck2), pp, np.random.default_rng(SEED),
+               trace=True)
     log(f"chip_smoke --mesh-only: {time.perf_counter() - started:.1f} s in all, the build included")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
@@ -1494,8 +1683,11 @@ def main() -> int:
     t0 = time.perf_counter()
     pp = cf_pp = CyclefoldPublicParams(TrivialStepCircuit(arity=1), IVC_K, ck1, ck2)  # cf_pp: the mesh phase's too
     t1 = synced()
+    reset_peaks()  # the mesh phase's baseline: this path's next seconds, spans and peak device memory
     ivc = CyclefoldIVC(pp, IVC_Z0)
     t2 = synced()
+    span_seconds()
+    cf_base = {"nexts": [], "spans": []}
     log(f"IVC k={IVC_K}: public parameters {t1 - t0:.4f} s (primary {pp.S_primary.num_advice_columns} advice "
         f"columns, {len(pp.S_primary.gates)} gate, W round {pp.S_primary.round_sizes[0]}; SFC tape "
         f"{tape_sizes(pp.sfc_taped)}; support tape {tape_sizes(pp.support_taped)}), new {t2 - t1:.4f} s  [{card}]")
@@ -1504,8 +1696,11 @@ def main() -> int:
             t0 = synced()
             ivc.next()
             dt = synced() - t0
+            cf_base["nexts"].append(dt)
+            cf_base["spans"].append(span_seconds())
             log(f"IVC next {i + 1} (step {ivc.step - 1} -> {ivc.step}): {dt:.4f} s; spans: "
-                + ", ".join(f"{k} {v:.4f} s" for k, v in span_seconds().items()) + f"  [{card}]")
+                + ", ".join(f"{k} {v:.4f} s" for k, v in cf_base["spans"][-1].items()) + f"  [{card}]")
+    cf_base.update(next=cf_base["nexts"][-1], peaks=card_peaks())
     t0 = synced()
     errors = ivc.verify()
     dt = synced() - t0
@@ -2235,7 +2430,7 @@ def main() -> int:
     del rivc, rpp
 
     # ---- the mesh phase: the multi-device path on a virtual mesh of cuda:0 and, on a multi-card host, every card -----
-    mesh_phase(record, kernels, card, (ck1_full, ck1, ck2), cf_pp, rng)
+    mesh_phase(record, kernels, card, (ck1_full, ck1, ck2), cf_pp, rng, base=cf_base)
 
     # ---- entry points (b): the Merkle example at the reference's size, and the CLI as a user runs it ----------------
     # the SFC over the Merkle step commits 14 advice columns x 2^17 = 1,835,008 scalars: more than a 2^20 key holds

@@ -395,7 +395,9 @@ class CyclefoldPublicParams:
 
 class CyclefoldIVC:
     """Reference `ivc/cyclefold/incrementally_verifiable_computation` (new /
-    next / verify).  Tensors live on the primary key's device."""
+    next / verify).  Tensors live on the primary key's device; under an
+    active mesh that divides the rows, every W round as row blocks
+    (`parallel/rows.py`), the support chain's W and E too."""
 
     def __init__(self, pp: CyclefoldPublicParams, z_0: Sequence[int]):
         f1 = pp.f1
@@ -404,7 +406,8 @@ class CyclefoldIVC:
         self.z_0 = [v % f1.modulus for v in z_0]
         # the initial PG accumulator from the all-zero dry trace
         dry_trace = PlonkTrace(pp._default_primary_incoming(),
-                               PlonkWitness.zeros(pp.S_primary.field, pp.S_primary.round_sizes, pp.ck1.device))
+                               PlonkWitness.zeros(pp.S_primary.field, pp.S_primary.round_sizes, pp.ck1.device,
+                                                  n=pp.S_primary.n))
         self.self_acc = pg.ProtoGalaxy.new_accumulator(pp.pg_pp, _ro(), dry_trace, bn256_g1)
         self.support = SupportFoldChain(pp.ck2, pp.S_support, pp.support_taped, pp_digest=pp.digest)
 

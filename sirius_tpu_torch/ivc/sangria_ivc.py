@@ -21,7 +21,10 @@ of the *other* side's instances:
   5. expose X0 and X1 = RO(pp, step+1, z_0, z_{i+1}, U') as the two public
      consistency markers
 
-Tensors live on the keys' device.  `fold_step` runs in the spans
+Tensors live on the keys' device; under an active mesh that divides a
+side's rows, that side's W rounds and E as row blocks (`parallel/rows.py`:
+the SPS places them, `RelaxedPlonkWitness.from_regular` places the
+relaxed pre-round trace).  `fold_step` runs in the spans
 `prove_secondary`, `sfc_witness_primary`, `sps_primary`, `prove_primary`,
 `sfc_witness_secondary` and `sps_secondary` (`util/profiling`); each prove
 holds `sangria_cross_terms`, `sangria_challenge` and `sangria_fold`.

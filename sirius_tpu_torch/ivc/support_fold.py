@@ -11,7 +11,9 @@ circuit's witness is a native replay of the support tape, which
 (`frontend/taped.py`); `SupportFoldChain.witness_direct` is its plain
 version.  The public-parameter digest is supplied by the caller
 (`ivc/cyclefold_ivc.py` passes its pp digest; the identity when none is
-given).
+given).  Under an active mesh that divides its 2^k rows the chain's
+traces, W and E are row blocks (`parallel/rows.py`), as the JAX package's
+process-wide mesh shards the support fold too.
 """
 
 from __future__ import annotations
@@ -80,10 +82,9 @@ class SupportFoldChain:
         self.taped = taped
         self.k = k
         self.pp, self.vp = VanillaFS.setup_params(pp_digest or gold.identity(grumpkin), S)
-        f, dev = S.field, ck.device
         self.acc = RelaxedPlonkTrace(
             U=RelaxedPlonkInstance.new(grumpkin, 0, 1, 0, markers_len=SUPPORT_IO),
-            W=RelaxedPlonkWitness([f.zeros((sz,), dev) for sz in S.round_sizes], f.zeros((S.n,), dev)),
+            W=RelaxedPlonkWitness.zeros(S.field, S.round_sizes, S.n, ck.device),
         )
         self.initial_U = self.acc.U
         self.incoming = []  # PlonkInstance per fold

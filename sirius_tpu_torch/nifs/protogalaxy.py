@@ -19,6 +19,15 @@ element-major (the JAX package's limb-first layout was for the TPU's lanes):
 The K interpolation runs on the host (`gold.coset_ifft`), as in the JAX
 package.
 
+Under row blocks (`parallel/rows.py`, D blocks of n / D rows) the leaves of
+gate g on block d are leaves [g n + d n / D, g n + (d + 1) n / D): an
+aligned subtree of height log2(n / D).  Each block reduces its subtrees
+with the first log2(n / D) betas and deltas, the (gates x D) partial
+polynomials go to the mesh's first device in leaf order, followed by the
+all-zero subtrees of the padding, and the upper levels finish there
+(`gate_pow_coeffs`): the same tree, so the same coefficients word for
+word.  The witness folds run block by block.
+
 The reference's leaf indexer collapses every leaf to row 0 (`plonk/mod.rs:714`,
 `index & total_row`); like the JAX package this uses `index % total_row`
 (PARITY.md).  Nothing here is cached across structures: the permutation
@@ -36,6 +45,7 @@ from ..fields import gold
 from ..fields.constants import CurveSpec
 from ..fields.jfield import WORDS, Field
 from ..ops.poseidon import PoseidonHash
+from ..parallel.rows import RowBlocks, blockwise, home, leading
 from ..plonk.eval import PlonkEvalDomain
 from ..plonk.permutation import device_perm_mismatches, perm_index_vector
 from ..plonk.sps import sps_verify
@@ -202,16 +212,22 @@ def gate_leaves(S: PlonkStructure, challenges: Sequence[torch.Tensor], W: Sequen
 
 
 def pow_poly_coeffs(f: Field, leaves: torch.Tensor, betas: torch.Tensor,
-                    deltas: torch.Tensor | None = None) -> torch.Tensor:
+                    deltas: torch.Tensor | None = None, level0: int = 0, levels: int | None = None) -> torch.Tensor:
     """The coefficients of sum_i prod_h (betas[h] + X deltas[h])^bit_h(i)
     leaves[i] in X, low first: (m + 1, 8) for N = 2^m leaves; without deltas
     the one value sum_i pow_i(betas) leaves[i], (1, 8).  Level h joins
     sibling nodes (polynomials of degree h) as left + (beta_h + X delta_h)
     right: two products a coefficient of the right node, ~4 a leaf in all
     (one a leaf without deltas).  Field sums do not depend on the order, so
-    this is the reference's weighted binary-tree reduce, word for word."""
-    P = leaves[:, None, :]  # (N, 1, 8): one constant polynomial a leaf
-    for h in range(leaves.shape[0].bit_length() - 1):
+    this is the reference's weighted binary-tree reduce, word for word.
+
+    `leaves` may instead be the N nodes of level `level0`, (N, h0 + 1, 8)
+    polynomials (one coefficient without deltas), which the tree then joins
+    from level h0 on; `levels` stops it after that many levels and returns
+    the (N / 2^levels, ., 8) nodes reached."""
+    P = leaves[:, None, :] if leaves.dim() == 2 else leaves  # (N, 1, 8): one constant polynomial a leaf
+    top = leaves.shape[0].bit_length() - 1 if levels is None else levels
+    for h in range(level0, level0 + top):
         left, right = P[0::2], P[1::2]
         if deltas is None:
             P = f.add(left, f.mul(right, betas[h]))
@@ -219,7 +235,35 @@ def pow_poly_coeffs(f: Field, leaves: torch.Tensor, betas: torch.Tensor,
         zero = f.zeros((left.shape[0], 1), leaves.device)
         scaled = f.add(torch.cat([f.mul(right, betas[h]), zero], 1), torch.cat([zero, f.mul(right, deltas[h])], 1))
         P = f.add(torch.cat([left, zero], 1), scaled)
-    return P[0]
+    return P[0] if levels is None else P
+
+
+def gate_pow_coeffs(S: PlonkStructure, challenges: Sequence[torch.Tensor], W: Sequence,
+                    betas: torch.Tensor, deltas: torch.Tensor | None = None) -> torch.Tensor:
+    """`pow_poly_coeffs` of `gate_leaves(S, challenges, W)` on the first
+    device.  Under row blocks each block reduces its aligned subtrees of
+    height h0 = log2(n / D) on its device with the first h0 betas (and
+    deltas); the (gates x D) partial polynomials are gathered in leaf order
+    (leaf g n + r: gate g, block r // (n / D)), the padding's subtrees
+    follow as zeros, and the tree finishes from level h0 (the module
+    docstring)."""
+    f = S.field
+    if not isinstance(W[0], RowBlocks):
+        return pow_poly_coeffs(f, gate_leaves(S, challenges, W), betas, deltas)
+    mesh = W[0].mesh
+    nb = S.n // mesh.size
+    h0 = nb.bit_length() - 1
+    outs = PlonkEvalDomain(S, list(challenges), list(W), []).evaluate(list(S.gates))
+    parts = []
+    for d, dev in enumerate(mesh.devices):
+        leaves = torch.cat([o.blocks[d] for o in outs])  # gate-major: (gates x n / D, 8)
+        parts.append(pow_poly_coeffs(f, leaves, betas[:h0].to(dev), None if deltas is None else deltas[:h0].to(dev),
+                                     levels=h0).to(mesh.first))
+    nodes = torch.stack(parts, 1).reshape(len(S.gates) * mesh.size, -1, WORDS)
+    pad = count_of_evaluation_with_padding(S) // nb - nodes.shape[0]
+    if pad:
+        nodes = torch.cat([nodes, f.zeros((pad, nodes.shape[1]), mesh.first)])
+    return pow_poly_coeffs(f, nodes, betas, deltas, level0=h0)
 
 
 def _weights(f: Field, weight_ints: Sequence[Sequence[int]], device) -> torch.Tensor:
@@ -237,9 +281,9 @@ def evaluate_e_from_trace(S: PlonkStructure, trace: PlonkTrace, betas: Sequence[
     if count_of_evaluation(S) == 0:
         return 0
     f = S.field
-    dev = trace.w.W[0].device
-    leaves = gate_leaves(S, _challenges(f, trace.u.challenges, dev), trace.w.W)
-    return f.decode_one(pow_poly_coeffs(f, leaves, _weights(f, [list(betas)], dev)[0]))
+    dev = home(trace.w.W[0])
+    return f.decode_one(gate_pow_coeffs(S, _challenges(f, trace.u.challenges, dev), trace.w.W,
+                                        _weights(f, [list(betas)], dev)[0]))
 
 
 def compute_F(ctx: PolyContext, betas: Sequence[int], delta: int, trace: PlonkTrace) -> UnivariatePoly:
@@ -253,33 +297,37 @@ def compute_F(ctx: PolyContext, betas: Sequence[int], delta: int, trace: PlonkTr
     if count_of_evaluation(S) == 0:
         return UnivariatePoly(spec, [])
     f = S.field
-    dev = trace.w.W[0].device
+    dev = home(trace.w.W[0])
     t = ctx.fft_points_count_F
     m = ctx.betas_count
     deltas, d = [], delta % p
     for _ in range(m):
         deltas.append(d)
         d = d * d % p
-    leaves = gate_leaves(S, _challenges(f, trace.u.challenges, dev), trace.w.W)
     w = _weights(f, [list(betas[:m]), deltas], dev)
-    coeffs = f.decode(pow_poly_coeffs(f, leaves, w[0], w[1]))
+    coeffs = f.decode(gate_pow_coeffs(S, _challenges(f, trace.u.challenges, dev), trace.w.W, w[0], w[1]))
     return UnivariatePoly(spec, coeffs + [0] * (t - len(coeffs)))
 
 
 def fold_witness(f: Field, witnesses: Sequence[PlonkWitness], ls: Sequence[int]) -> PlonkWitness:
     """sum_j ls[j] w_j, round by round, for Lagrange values ls (they sum to
     1): w_0 + sum_{j>0} ls[j] (w_j - w_0), one product per incoming witness
-    and none where ls[j] is 0 or 1."""
+    and none where ls[j] is 0 or 1; block by block for row blocks."""
     if sum(ls) % f.p != 1:
         raise ProtoGalaxyError("fold weights must be Lagrange values, summing to 1")
-    dev = witnesses[0].W[0].device
-    out = list(witnesses[0].W)
-    for l, w in zip(ls[1:], witnesses[1:]):
+    return PlonkWitness([blockwise(lambda *rs: _fold_round(f, rs, ls), *rnds)
+                         for rnds in zip(*(wit.W for wit in witnesses))])
+
+
+def _fold_round(f: Field, rounds: Sequence[torch.Tensor], ls: Sequence[int]) -> torch.Tensor:
+    """`fold_witness` of one round on one device."""
+    out = rounds[0]
+    for l, w in zip(ls[1:], rounds[1:]):
         l %= f.p
         if l:
-            d = [f.sub(wr, br) for wr, br in zip(w.W, witnesses[0].W)]
-            out = [f.add(o, dr if l == 1 else f.mul(dr, f.encode(l, dev))) for o, dr in zip(out, d)]
-    return PlonkWitness(out)
+            dr = f.sub(w, rounds[0])
+            out = f.add(out, dr if l == 1 else f.mul(dr, f.encode(l, dr.device)))
+    return out
 
 
 def compute_G(ctx: PolyContext, betas_stroke: Sequence[int], accumulator: PlonkTrace,
@@ -292,7 +340,7 @@ def compute_G(ctx: PolyContext, betas_stroke: Sequence[int], accumulator: PlonkT
     spec = S.spec
     p = spec.modulus
     f = S.field
-    dev = accumulator.w.W[0].device
+    dev = home(accumulator.w.W[0])
     weights = _weights(f, [list(betas_stroke)], dev)[0]
     all_traces = [accumulator, *traces]
     pts = []
@@ -303,7 +351,7 @@ def compute_G(ctx: PolyContext, betas_stroke: Sequence[int], accumulator: PlonkT
             for ci in range(S.num_challenges)
         ]
         folded = fold_witness(f, [t.w for t in all_traces], ls)
-        pts.append(pow_poly_coeffs(f, gate_leaves(S, _challenges(f, ch, dev), folded.W), weights)[0])
+        pts.append(gate_pow_coeffs(S, _challenges(f, ch, dev), folded.W, weights)[0])
     points = f.decode(torch.stack(pts))
     return UnivariatePoly(spec, gold.fft(points, spec, inverse=True))
 
@@ -465,7 +513,7 @@ class ProtoGalaxy:
         idx = S.cache.get(key)
         if idx is None:
             idx = S.cache[key] = perm_index_vector(S.permutation_matrix(), total)
-        mism = device_perm_mismatches(S.field, idx, head, acc.trace.w.W[0][: S.n * S.num_advice_columns])
+        mism = device_perm_mismatches(S.field, idx, head, leading(acc.trace.w.W[0], S.num_advice_columns, S.n))
         if mism:
             raise VerifyError(f"permutation mismatch on {mism} entries")
 

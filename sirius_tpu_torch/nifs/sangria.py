@@ -5,6 +5,14 @@ evaluating the homogeneous gate at X = 0..D on W1 + X*W2 and interpolating
 with the inverse Vandermonde matrix; witness folds are device axpys;
 commitment folds are host scalar muls; the transcript RO runs on the host
 between the device phases.
+
+Under row blocks (`parallel/rows.py`) W, E and the cross terms are row
+blocks: the cross terms' evaluations and their Vandermonde combinations
+run per block, both folds block by block with no copy between devices, and
+only the cross terms' commitment gathers them to the key's device (as the
+JAX package commits them there).  The accumulation check counts
+mismatches per block; the permutation check gathers W0's advice columns to
+the first device (the JAX package replicates them).
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ import torch
 from ..fields import gold
 from ..fields.constants import CurveSpec
 from ..ops.poseidon import PoseidonHash, poseidon_spec
+from ..parallel.rows import blockwise, blocks_of, expanded, gathered, home, leading, place, row_mesh, zero_round
 from ..plonk.eval import PlonkEvalDomain
 from ..plonk.permutation import device_perm_mismatches, perm_index_vector
 from ..plonk.satisfy import is_sat_log_derivative
@@ -54,7 +63,12 @@ def _vandermonde_inv(p: int, D: int) -> tuple[tuple[int, ...], ...]:
 def fold_witness(f, weights: Sequence[int], Ws: Sequence[torch.Tensor]) -> torch.Tensor:
     """sum_j weights[j] * Ws[j] (the witness axpy of
     `sirius_tpu/nifs/protogalaxy.py:_fold_w_fn`); a vector of weight 1 is
-    added without a product."""
+    added without a product.  Block by block for row blocks."""
+    return blockwise(lambda *ws: _axpy(f, weights, ws), *Ws)
+
+
+def _axpy(f, weights: Sequence[int], Ws: Sequence[torch.Tensor]) -> torch.Tensor:
+    """`fold_witness` on one device."""
     dev = Ws[0].device
     parts = [w for x, w in zip(weights, Ws) if x % f.p == 1]
     scaled = [(x % f.p, w) for x, w in zip(weights, Ws) if x % f.p != 1]
@@ -165,8 +179,19 @@ class RelaxedPlonkWitness:
 
     @staticmethod
     def from_regular(w: PlonkWitness, k: int, field) -> "RelaxedPlonkWitness":
-        """W's rounds and E = 0 over 2^k rows, on W's device."""
-        return RelaxedPlonkWitness(list(w.W), field.zeros((1 << k,), w.W[0].device))
+        """W's rounds and E = 0 over 2^k rows, on W's device; under the row
+        mesh of 2^k (`parallel/rows.row_mesh`) W and E as row blocks."""
+        n = 1 << k
+        if row_mesh(n) is None:
+            return RelaxedPlonkWitness(list(w.W), field.zeros((n,), w.W[0].device))
+        return RelaxedPlonkWitness([place(x, n) for x in w.W], zero_round(field, n, n, None))
+
+    @staticmethod
+    def zeros(field, round_sizes, n: int, device) -> "RelaxedPlonkWitness":
+        """The zero accumulator's rounds and E over n rows on `device`, row
+        blocks under the row mesh of n."""
+        return RelaxedPlonkWitness([zero_round(field, sz, n, device) for sz in round_sizes],
+                                   zero_round(field, n, n, device))
 
     def fold(self, f, W2: PlonkWitness, cross_terms: Sequence[torch.Tensor], r: int) -> "RelaxedPlonkWitness":
         """W += r W2; E += sum_k r^k T_k."""
@@ -227,17 +252,17 @@ class VanillaFS:
         ch2 = [*U2.challenges, 1]
         if len(ch1) != len(ch2):
             raise SangriaError(f"challenge count mismatch: {len(ch1)} != {len(ch2)}")
-        dev = W1.E.device
+        dev = home(W1.E)
         evals = []
         WX = list(W1.W)
         for X in range(D + 1):
             if X:  # W1 + X W2, one add a point
-                WX = [f.add(a, b) for a, b in zip(WX, W2.W)]
+                WX = [blockwise(f.add, a, b) for a, b in zip(WX, W2.W)]
             chX = [f.encode((a + X * b) % p, dev) for a, b in zip(ch1, ch2)]
-            evals.append(PlonkEvalDomain(S, chX, WX, []).evaluate([expr])[0].expand_as(W1.E))
+            evals.append(expanded(PlonkEvalDomain(S, chX, WX, []).evaluate([expr])[0], S.n))
         vinv = _vandermonde_inv(p, D)
         cross_terms = [fold_witness(f, vinv[k], evals) for k in range(1, D + 1)]
-        return cross_terms, ck.commit_device_many(torch.stack(cross_terms))
+        return cross_terms, ck.commit_device_many(torch.stack([gathered(t, ck.device) for t in cross_terms]))
 
     @staticmethod
     def generate_challenge(pp_digest, ro_acc: PoseidonHash, U1: RelaxedPlonkInstance, U2: PlonkInstance,
@@ -285,11 +310,11 @@ class VanillaFS:
     @staticmethod
     def is_sat_accumulation(S: PlonkStructure, acc: RelaxedPlonkTrace) -> None:
         f = S.field
-        dev = acc.W.E.device
+        dev = home(acc.W.E)
         challenges = [f.encode(c % f.p, dev) for c in [*acc.U.challenges, acc.U.u]]
         out = PlonkEvalDomain(S, challenges, list(acc.W.W), []).evaluate(
             [S.custom_gates_lookup_compressed.homogeneous])[0]
-        count = int((~f.eq(out, acc.W.E)).sum())
+        count = sum(int(m.sum()) for m in blocks_of(blockwise(lambda o, e: ~f.eq(o, e), out, acc.W.E)))
         if count:
             raise VerifyError(f"accumulation gate mismatch on {count}/{S.n} rows")
         if not is_sat_log_derivative(S, PlonkWitness(acc.W.W)):
@@ -311,7 +336,7 @@ class VanillaFS:
             cut = S.permutation_data.rm_copy_constraints(range(1, len(S.num_io)))
             idx = perm_index_vector(cut.matrix(S.k, S.num_io, S.num_advice_columns), total)
             S.cache[key] = idx
-        mismatch = device_perm_mismatches(f, idx, head, acc.W.W[0][: n * S.num_advice_columns])
+        mismatch = device_perm_mismatches(f, idx, head, leading(acc.W.W[0], S.num_advice_columns, n))
         if mismatch:
             raise VerifyError(f"permutation mismatch on {mismatch} entries")
 

@@ -5,7 +5,10 @@ generators from a Shake256 XOF over the label through SVDW hash-to-curve
 (on the device in chunks of `DEVICE_SETUP_CHUNK` points);
 commits are MSMs over the first len(v) generators (`ops/msm.py`); under an
 active mesh of more than one entry (`parallel/context.py`) `commit_device`
-cuts them by rows over the mesh (`msm_sharded`).  Keys
+cuts them by rows over the mesh (`msm_sharded`).  A round held as row
+blocks (`parallel/rows.py`) commits block by block: block d's scalars,
+converted from Montgomery form on its device, pair with the key points of
+its table rows in every column (`row_shards`).  Keys
 cache as `CACHE_DIR/<curve>-<label>-<k>.npz` with the JAX package's packed
 format ((n, 8) uint32 Montgomery words `xw`, `yw`; z = 1 implied), so a key
 written by either package loads in the other.  A legacy cache of the JAX
@@ -30,6 +33,7 @@ from ..fields import gold
 from ..fields.jfield import field_for, ints_to_words
 from ..parallel.context import get_mesh
 from ..parallel.mesh import Mesh
+from ..parallel.rows import RowBlocks
 from ..util.device import resolve
 from ..util.ro import NUM_CHALLENGE_BITS
 from .poseidon import PoseidonHash, poseidon_spec
@@ -87,7 +91,8 @@ class CommitmentKey:
     points: Points
     label: bytes
     k: int
-    # the row shards of the first n points on each mesh entry's device, by (mesh, n)
+    # the row shards of the first n points on each mesh entry's device, by (mesh, n), and the points
+    # of a round's row blocks of cols > 1 columns of n rows, by (mesh, (n, cols))
     shard_cache: dict = field(default_factory=dict, repr=False, compare=False)
 
     def __len__(self):
@@ -137,11 +142,33 @@ class CommitmentKey:
             self.shard_cache[(mesh, n)] = msm_ops.shard_points(mesh, self._prefix(n))
         return self.shard_cache[(mesh, n)]
 
-    def commit_device(self, w_mont: torch.Tensor) -> gold.AffinePoint:
+    def row_shards(self, mesh: Mesh, n: int, cols: int) -> list[Points]:
+        """The key points that pair with the row blocks of a round of `cols`
+        columns of n table rows: block d's are points {c n + r : c < cols,
+        r in its rows}, column-major, on its device; gathered once per
+        (mesh, n, cols) and kept (one column: `shards`)."""
+        if cols == 1:
+            return self.shards(mesh, n)
+        key = (mesh, (n, cols))
+        if key not in self.shard_cache:
+            pts, nb = self._prefix(cols * n), n // mesh.size
+            col0 = torch.arange(cols, device=self.device)[:, None] * n
+            self.shard_cache[key] = [
+                Points(*(c[(col0 + torch.arange(d * nb, (d + 1) * nb, device=self.device)).reshape(-1)].to(dev)
+                         for c in pts))
+                for d, dev in enumerate(mesh.devices)]
+        return self.shard_cache[key]
+
+    def commit_device(self, w_mont) -> gold.AffinePoint:
         """Commit to a (size, 8) Montgomery tensor.  The conversion to
         standard form runs on W's device; under an active mesh of more than
         one entry the standard words and the key go by rows to the mesh's
-        devices (`msm_sharded`)."""
+        devices (`msm_sharded`).  Row blocks commit block by block on their
+        own mesh (`row_shards`)."""
+        if isinstance(w_mont, RowBlocks):
+            scalars = [self.curve.fs.from_mont(b) for b in w_mont.blocks]
+            return msm_ops.msm_sharded(self.curve, scalars, self.row_shards(w_mont.mesh, w_mont.n, w_mont.cols),
+                                       w_mont.mesh)
         n = w_mont.shape[0]
         pts = self._prefix(n)
         if n == 0:
@@ -178,18 +205,40 @@ class CommitmentKey:
             ro.absorb_field(y % fs.p)
         rhos = [ro.squeeze(NUM_CHALLENGE_BITS) % fs.p for _ in pairs]
 
-        max_n = max(int(W.shape[0]) for W, _ in pairs)
-        dev = pairs[0][0].device
-        acc = fs.zeros((max_n,), dev)
-        for rho, (W, _) in zip(rhos, pairs):
-            term = fs.mul(W, fs.encode(rho, dev))
-            acc = torch.cat([fs.add(acc[: W.shape[0]], term), acc[W.shape[0] :]])
+        blocked = [W for W, _ in pairs if isinstance(W, RowBlocks)]
+        if blocked:
+            acc = self._rlc_blocks(fs, rhos, [W for W, _ in pairs], max(blocked, key=lambda W: W.cols))
+        else:
+            max_n = max(int(W.shape[0]) for W, _ in pairs)
+            dev = pairs[0][0].device
+            acc = fs.zeros((max_n,), dev)
+            for rho, (W, _) in zip(rhos, pairs):
+                term = fs.mul(W, fs.encode(rho, dev))
+                acc = torch.cat([fs.add(acc[: W.shape[0]], term), acc[W.shape[0] :]])
         expected = gold.identity(self.curve.spec)
         for rho, (_, C) in zip(rhos, pairs):
             expected = expected.add(C.mul(rho))
         if self.commit_device(acc) == expected:
             return []
         return [i for i, (W, C) in enumerate(pairs) if self.commit_device(W) != C]
+
+    @staticmethod
+    def _rlc_blocks(fs, rhos, Ws, widest: RowBlocks) -> RowBlocks:
+        """sum rho_i W_i of rounds of different column counts, block by block
+        in the layout of the round with the most columns: a round of c
+        columns is the first c columns of every block, as it is the first
+        c n rows of the unsharded sum."""
+        mesh, n, nb = widest.mesh, widest.n, widest.nb
+        Ws = [W if isinstance(W, RowBlocks) else RowBlocks.shard(mesh, W, n) for W in Ws]
+        blocks = []
+        for d, dev in enumerate(mesh.devices):
+            acc = fs.zeros((widest.cols * nb,), dev)
+            for rho, W in zip(rhos, Ws):
+                part = W.blocks[d]
+                term = fs.mul(part, fs.encode(rho, dev))
+                acc = torch.cat([fs.add(acc[: part.shape[0]], term), acc[part.shape[0] :]])
+            blocks.append(acc)
+        return RowBlocks(mesh, n, widest.cols, blocks)
 
     def commit(self, v) -> gold.AffinePoint:
         """Commit to host ints or an (n, 8) standard-form word tensor."""

@@ -186,11 +186,14 @@ def shard_points(mesh: Mesh, points: Points) -> list[Points]:
     return [Points(*cs) for cs in zip(*(shard_rows(mesh, c) for c in points))]
 
 
-def msm_sharded(curve: Curve, scalars_std: torch.Tensor, points: Points | list[Points],
+def msm_sharded(curve: Curve, scalars_std: torch.Tensor | list[torch.Tensor], points: Points | list[Points],
                 mesh: Mesh) -> gold.AffinePoint:
     """sum_i s_i * P_i with scalars and points cut by rows over `mesh`
     (`sirius_tpu/ops/msm.py:msm_sharded`): `points` is the (>= n) key
-    prefix, or its shards already placed (`CommitmentKey.shards`).  Every
+    prefix, or its shards already placed (`CommitmentKey.shards`).  The
+    scalars may come as their shards already placed, one a mesh entry
+    (a round's row blocks), with the points' shards that pair with them
+    (`CommitmentKey.row_shards`).  Every
     shard runs best_msm's pipeline on its own device, in one window width
     (that of the longest shard) so that a device's shards stack into one
     `msm_combine` launch; the per-shard points are added on the host (EC
@@ -200,13 +203,18 @@ def msm_sharded(curve: Curve, scalars_std: torch.Tensor, points: Points | list[P
     nothing.  The stages run across the devices in turn (every plan, every
     accumulate, every reduce, every combine), so the accumulates of real
     cards overlap while the host reads the plans and reduce levels of each."""
-    n = scalars_std.shape[0]
-    if isinstance(points, Points):
-        points = shard_points(mesh, Points(*(c[:n] for c in points)))
-    if len(points) != mesh.size:
-        raise ValueError(f"{len(points)} point shards for a mesh of {mesh.size}")
+    if isinstance(scalars_std, torch.Tensor):
+        n = scalars_std.shape[0]
+        scalar_shards = shard_rows(mesh, scalars_std)
+        if isinstance(points, Points):
+            points = shard_points(mesh, Points(*(c[:n] for c in points)))
+    else:
+        scalar_shards = scalars_std
+        n = sum(S.shape[0] for S in scalar_shards)
+    if len(points) != mesh.size or len(scalar_shards) != mesh.size:
+        raise ValueError(f"{len(scalar_shards)} scalar and {len(points)} point shards for a mesh of {mesh.size}")
     c = signed_window_bits(-(-n // mesh.size))
-    live = [(S, P) for S, P in zip(shard_rows(mesh, scalars_std), points) if S.shape[0]]
+    live = [(S, P) for S, P in zip(scalar_shards, points) if S.shape[0]]
     for S, P in live:
         if P.x.shape[0] != S.shape[0] or P.x.device != S.device:
             raise ValueError(f"a shard of {S.shape[0]} scalars on {S.device} against {P.x.shape[0]} points on "

@@ -1,22 +1,34 @@
 """The active mesh: opt-in multi-device execution of the protocol paths.
 
 Counterpart of `sirius_tpu/parallel/context.py`.  A process-wide active
-mesh switches the commitments to their sharded variant without threading
-a mesh argument through every protocol call: under a mesh of more than one
-entry, `CommitmentKey.commit_device` (and `batched_commit_check` through
-it) goes through `ops/msm.msm_sharded`, each device running the MSM kernels
-on its row block of scalars and key points.
+mesh switches the protocol paths to their sharded variant without
+threading a mesh argument through every protocol call.  Under a mesh of D
+entries, where D > 1 divides a circuit's n = 2^k rows:
 
-The JAX package also places the SPS witness row-sharded and gives the
-Sangria fold and the permutation check explicit GSPMD shardings
-(`row_sharding`, `replicated_sharding` there), so that XLA spreads the gate
-sweeps and inserts the halo exchanges for rotations.  The port has no GSPMD
-and no such functions: what takes their place is explicit row blocks
-(`mesh.shard_rows`) where a kernel runs per shard, and the mesh's first
-device for everything else.  The sweeps (plain torch) stay on the device
-that holds W; sharding them with halo rows for rotations waits for them to
-become device programs.  The Poseidon transcript always stays on the host,
-so absorb and squeeze order do not depend on the device count.
+- sharded, as row blocks (`rows.RowBlocks`: block d holds rows
+  [d n / D, (d + 1) n / D) of every column, on `mesh.devices[d]`): every
+  SPS round (a replayed witness uploaded and converted block by block),
+  the lookup rounds, E and the cross terms; the gate and lookup sweeps
+  (each block with the halo rows of its rotations); the ProtoGalaxy pow
+  reduce up to each block's subtrees; both folds; the commitments of a
+  round (`msm_sharded`, block d's scalars against the key points of its
+  rows); the gate and accumulation checks (counts added) and the
+  log-derivative sums (block sums added);
+- gathered to the mesh's first device: the ProtoGalaxy partial
+  polynomials (the tree's upper levels finish there), l and t for one
+  `m_count` (m goes back as row blocks), W0's advice columns for the
+  permutation checks, the cross terms for their commitment on the key's
+  device, and every round a checkpoint or a digest reads.
+
+Where D does not divide n, the rounds stay whole on the key's device
+(`rows.WHOLE_ROUND_FALLBACK`, logged once) and only the commitments shard
+(`CommitmentKey.commit_device` through `ops/msm.msm_sharded`), as the JAX
+package keeps an array whole when its rows do not divide.  The JAX package
+places rounds as contiguous chunks of the flat array and lets GSPMD spread
+the jitted sweeps (halo exchanges for rotations, psums for reductions);
+the port has no GSPMD, so its row blocks and their halos are explicit.
+The Poseidon transcript always stays on the host, so absorb and squeeze
+order do not depend on the device count.
 """
 
 from __future__ import annotations

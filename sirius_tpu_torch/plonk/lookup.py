@@ -16,7 +16,10 @@ constraints to the gates.  The prover passes (`evaluate_coefficient_1`,
 (n, 8) Montgomery tensor on the witness's device: l and t through the gate
 evaluator, m through `ops/lookup_kernels.m_count` (the hash-table kernel on
 a CUDA tensor, its plain version `m_count_plain` beside it on a CPU one), h
-and g by batch inversion.
+and g by batch inversion.  Under row blocks (`parallel/rows.py`) l and t
+come out of the evaluator as row blocks; m counts over the whole of l and
+t, so those are gathered to the mesh's first device for one `m_count` there
+and m goes back as row blocks; h and g run block by block.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 
 from ..fields.jfield import WORDS
 from ..ops.lookup_kernels import m_count, m_count_plain  # noqa: F401 (m's plain version, importable here)
+from ..parallel.rows import RowBlocks, blockwise, expanded, gathered, home
 from ..poly.expression import Challenge, Constant, Expression, Poly, Query, compress_expression
 from ..util.profiling import span
 
@@ -83,16 +87,18 @@ class LookupArguments:
 
         f, n = S.field, S.n
         with span("lookup_l_t"):
-            outs = PlonkEvalDomain(S, [f.encode(r % f.p, advice.device)], [advice], []).evaluate(
+            outs = PlonkEvalDomain(S, [f.encode(r % f.p, home(advice))], [advice], []).evaluate(
                 self.lookup_polys + self.table_polys)
-            outs = [o.expand(n, WORDS).contiguous() for o in outs]
+            outs = [blockwise(torch.Tensor.contiguous, expanded(o, n)) for o in outs]
         ls, ts = outs[: self.num_lookups()], outs[self.num_lookups() :]
         with span("lookup_m"):
             ms = []
             for l, t in zip(ls, ts):
-                words = torch.zeros((n, WORDS), dtype=torch.int64, device=t.device)
-                words[:, 0] = m_count(l, t)
-                ms.append(f.to_mont(words))
+                lg, tg = gathered(l), gathered(t)
+                words = torch.zeros((n, WORDS), dtype=torch.int64, device=tg.device)
+                words[:, 0] = m_count(lg, tg)
+                m = f.to_mont(words)
+                ms.append(RowBlocks.shard(t.mesh, m, n) if isinstance(t, RowBlocks) else m)
         return ArgumentCoefficient1(S, ls, ts, ms)
 
 
@@ -110,11 +116,17 @@ class ArgumentCoefficient1:
         (reference `evaluate_h_g`)."""
         f = self.S.field
         hs, gs = [], []
+        rr: dict = {}
+
+        def inv_shifted(x):  # 1 / (x + r), r encoded once a device
+            if x.device not in rr:
+                rr[x.device] = f.encode(r % f.p, x.device)
+            return f.batch_inv(f.add(x, rr[x.device]))
+
         with span("lookup_h_g"):
             for l, t, m in zip(self.ls, self.ts, self.ms):
-                rr = f.encode(r % f.p, l.device)
-                hs.append(f.batch_inv(f.add(l, rr)))
-                gs.append(f.mul(m, f.batch_inv(f.add(t, rr))))
+                hs.append(blockwise(inv_shifted, l))
+                gs.append(blockwise(lambda mb, tb: f.mul(mb, inv_shifted(tb)), m, t))
         return ArgumentCoefficient2(hs, gs)
 
 

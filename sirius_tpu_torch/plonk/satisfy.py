@@ -5,7 +5,9 @@ Counterpart of `sirius_tpu/plonk/satisfy.py` (reference
 `PlonkStructure::is_sat*`, `src/plonk/mod.rs:304-396`): `is_sat` of a plain
 trace (SPS challenges re-derived, the compressed gate on every row, the
 log-derivative sums, the commitments) and the log-derivative check that
-Sangria's `is_sat` shares.
+Sangria's `is_sat` shares.  Under row blocks (`parallel/rows.py`) the gate
+check counts mismatches per block and adds the counts, and the
+log-derivative sums add per-block sums on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Sequence
 import torch
 
 from ..ops.poseidon import PoseidonHash
+from ..parallel.rows import RowBlocks, blocks_of, expanded, home
 from .eval import PlonkEvalDomain
 from .sps import sps_verify
 from .structure import PlonkInstance, PlonkStructure, PlonkWitness
@@ -39,13 +42,14 @@ class CommitmentMismatch(IsSatError):
     pass
 
 
-def eval_gate_mismatches(S: PlonkStructure, challenges: Sequence[int], W: PlonkWitness) -> torch.Tensor:
-    """The compressed gate on every row: bool (n,) mask of violated rows."""
+def eval_gate_mismatches(S: PlonkStructure, challenges: Sequence[int], W: PlonkWitness) -> list[torch.Tensor]:
+    """The compressed gate on every row: bool masks of violated rows, one
+    (n,) mask, or one (n / D,) mask a block of row blocks."""
     f = S.field
-    dev = W.W[0].device
+    dev = home(W.W[0])
     out = PlonkEvalDomain(S, [f.encode(c % f.p, dev) for c in challenges], list(W.W), []).evaluate(
         [S.custom_gates_lookup_compressed.compressed])[0]
-    return ~f.is_zero(out.expand(S.n, out.shape[-1]))
+    return [~f.is_zero(b) for b in blocks_of(expanded(out, S.n))]
 
 
 def is_sat(S: PlonkStructure, ck, ro_nark: PoseidonHash, U: PlonkInstance, W: PlonkWitness,
@@ -54,10 +58,11 @@ def is_sat(S: PlonkStructure, ck, ro_nark: PoseidonHash, U: PlonkInstance, W: Pl
     leaves the commitment openings to the caller (to batch them with others
     in one RLC MSM, `CommitmentKey.batched_commit_check`)."""
     sps_verify(U, ro_nark)
-    mism = eval_gate_mismatches(S, U.challenges, W)
-    count = int(mism.sum())
+    masks = eval_gate_mismatches(S, U.challenges, W)
+    count = sum(int(m.sum()) for m in masks)
     if count:
-        raise EvaluationMismatch(count, S.n, torch.nonzero(mism).flatten()[:8].tolist())
+        rows = [d * m.shape[0] + r for d, m in enumerate(masks) for r in torch.nonzero(m).flatten()[:8].tolist()]
+        raise EvaluationMismatch(count, S.n, rows[:8])
     if not is_sat_log_derivative(S, W):
         raise LogDerivativeNotSat()
     if check_commit:
@@ -76,8 +81,12 @@ def is_sat_log_derivative(S: PlonkStructure, W: PlonkWitness) -> bool:
         return True
     hg = W.W[2] if S.has_vector_lookup() else W.W[1]
     for li in range(nl):
-        h = hg[2 * li * n : (2 * li + 1) * n]
-        g = hg[(2 * li + 1) * n : (2 * li + 2) * n]
+        if isinstance(hg, RowBlocks):
+            first = hg.mesh.first
+            h, g = (torch.stack([f.sum_reduce(b).to(first) for b in hg.column(c)]) for c in (2 * li, 2 * li + 1))
+        else:
+            h = hg[2 * li * n : (2 * li + 1) * n]
+            g = hg[(2 * li + 1) * n : (2 * li + 2) * n]
         if not bool(f.eq(f.sum_reduce(h), f.sum_reduce(g))):
             return False
     return True

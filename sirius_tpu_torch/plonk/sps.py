@@ -13,7 +13,11 @@ and `src/sps.rs`).  Round count = num_challenges (0..3):
                                  W3 = (h, g) at r2, [C3] ]r3[
 
 The transcript runs on the host between device commits; the lookup vectors
-stay on the key's device (`plonk/lookup.py`).  One lookup argument at most:
+stay on the key's device (`plonk/lookup.py`).  Under the row mesh of n
+(`parallel/rows.row_mesh`) every round is row blocks: a replayed witness
+uploads each block's rows of every column to its device and converts them
+there, direct synthesis encodes and then cuts by table rows, and the
+lookup rounds come out of their passes as row blocks.  One lookup argument at most:
 with several, the JAX package writes them one after another (l0, l1, ..,
 t0, ..) while its witness index map and log-derivative check read them
 interleaved (l0, t0, m0, l1, ..); the port raises rather than inherit that.
@@ -29,6 +33,8 @@ import torch
 from ..fields.jfield import Field
 from ..frontend.taped import ReplayedWitness
 from ..ops.poseidon import PoseidonHash
+from ..parallel.mesh import Mesh
+from ..parallel.rows import RowBlocks, cat, row_mesh
 from ..util.ro import NUM_CHALLENGE_BITS
 from .structure import PlonkInstance, PlonkStructure, PlonkTrace, PlonkWitness
 
@@ -48,13 +54,25 @@ def _absorb_instances(ro: PoseidonHash, instances: Sequence[Sequence[int]]):
             ro.absorb_field(v)
 
 
-def concat_with_padding(f: Field, cols: Sequence[Sequence[int]], n: int, device) -> torch.Tensor:
+def concat_with_padding(f: Field, cols: Sequence[Sequence[int]], n: int, device, mesh: Mesh | None = None):
     """Column-major concatenation, each column padded to n rows, as a
     (len(cols) * n, 8) Montgomery tensor.  A tape replay's columns
     (`ReplayedWitness`: (n, 8) u32 standard-form words) are concatenated on
     the host, uploaded as 32 bytes a value and converted to Montgomery form
     on the device (`Field.to_mont_words`); int columns (direct synthesis)
-    are encoded on the host."""
+    are encoded on the host.  Given a mesh, the round as its row blocks: a
+    replay's block rows of every column go straight to the block's device
+    and convert there (one `mul_rows` a block)."""
+    if mesh is not None and isinstance(cols, ReplayedWitness):
+        nb = n // mesh.size
+        if any(c.shape[0] != n for c in cols.cols):
+            raise SpsError(f"replayed witness columns of {[c.shape[0] for c in cols.cols]} rows, expected {n}")
+        return RowBlocks(mesh, n, len(cols), [
+            f.to_mont_words(torch.from_numpy(np.concatenate([c[d * nb : (d + 1) * nb] for c in cols.cols])
+                                             .view(np.int32)).to(dev))
+            for d, dev in enumerate(mesh.devices)])
+    if mesh is not None:
+        return RowBlocks.shard(mesh, concat_with_padding(f, cols, n, device), n)
     if isinstance(cols, ReplayedWitness):
         arr = np.concatenate(cols.cols, axis=0)
         if arr.shape[0] != len(cols) * n:
@@ -67,14 +85,15 @@ def concat_with_padding(f: Field, cols: Sequence[Sequence[int]], n: int, device)
     return f.encode(flat, device)
 
 
-def _commit_and_squeeze(ck, ro_nark: PoseidonHash, W: torch.Tensor) -> tuple:
+def _commit_and_squeeze(ck, ro_nark: PoseidonHash, W) -> tuple:
     C = ck.commit_device(W)
     ro_nark.absorb_point(C)
     return C, ro_nark.squeeze(NUM_CHALLENGE_BITS)
 
 
 def run_sps_protocol(S: PlonkStructure, ck, instances, advice, ro_nark: PoseidonHash) -> PlonkTrace:
-    """PlonkTrace of a synthesized witness; tensors live on the key's device."""
+    """PlonkTrace of a synthesized witness; tensors live on the key's device,
+    or as row blocks on the row mesh of n."""
     f = S.field
     nc = S.num_challenges
     if nc > 3:
@@ -84,7 +103,7 @@ def run_sps_protocol(S: PlonkStructure, ck, instances, advice, ro_nark: Poseidon
         raise SpsError("lookup arguments required for >=2 challenges")
     if nc >= 2 and la.num_lookups() > 1:
         raise SpsError(f"{la.num_lookups()} lookup arguments: the rounds hold one (see the module docstring)")
-    adv = concat_with_padding(f, advice, S.n, ck.device)
+    adv = concat_with_padding(f, advice, S.n, ck.device, row_mesh(S.n))
     insts = [list(i) for i in instances]
     if nc == 0:
         return PlonkTrace(PlonkInstance([ck.commit_device(adv)], insts, []), PlonkWitness([adv]))
@@ -94,20 +113,20 @@ def run_sps_protocol(S: PlonkStructure, ck, instances, advice, ro_nark: Poseidon
         return PlonkTrace(PlonkInstance([C1], insts, [r1]), PlonkWitness([adv]))
     if nc == 2:
         c1 = la.evaluate_coefficient_1(S, adv, 0)
-        W1 = torch.cat([adv, *c1.ls, *c1.ts, *c1.ms])
+        W1 = cat([adv, *c1.ls, *c1.ts, *c1.ms])
         _absorb_instances(ro_nark, instances)
         C1, r1 = _commit_and_squeeze(ck, ro_nark, W1)
         c2 = c1.evaluate_coefficient_2(r1)
-        W2 = torch.cat([*c2.hs, *c2.gs])
+        W2 = cat([*c2.hs, *c2.gs])
         C2, r2 = _commit_and_squeeze(ck, ro_nark, W2)
         return PlonkTrace(PlonkInstance([C1, C2], insts, [r1, r2]), PlonkWitness([W1, W2]))
     _absorb_instances(ro_nark, instances)
     C1, r1 = _commit_and_squeeze(ck, ro_nark, adv)
     c1 = la.evaluate_coefficient_1(S, adv, r1)
-    W2 = torch.cat([*c1.ls, *c1.ts, *c1.ms])
+    W2 = cat([*c1.ls, *c1.ts, *c1.ms])
     C2, r2 = _commit_and_squeeze(ck, ro_nark, W2)
     c2 = c1.evaluate_coefficient_2(r2)
-    W3 = torch.cat([*c2.hs, *c2.gs])
+    W3 = cat([*c2.hs, *c2.gs])
     C3, r3 = _commit_and_squeeze(ck, ro_nark, W3)
     return PlonkTrace(PlonkInstance([C1, C2, C3], insts, [r1, r2, r3]), PlonkWitness([adv, W2, W3]))
 

@@ -2,7 +2,9 @@
 
 Counterpart of `sirius_tpu/plonk/structure.py`.  Host metadata holds Python
 ints; the selector and fixed columns are mirrored on a device as (., n, 8)
-Montgomery word tensors, built on first use and cached per device.
+Montgomery word tensors, built on first use and cached per device, and
+under row blocks (`parallel/rows.py`) per mesh and block, with the halo rows
+that the structure's rotations reach.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import torch
 
 from ..fields.constants import FieldSpec
 from ..fields.jfield import WORDS, Field, field_for, ints_to_words
-from ..poly.expression import Expression, QueryIndexContext, compress_expression
+from ..parallel.mesh import Mesh
+from ..poly.expression import Expression, Neg, Poly, Product, QueryIndexContext, Scaled, Sum, compress_expression
 from ..poly.grouped import GroupedPoly
 from .lookup import LookupArguments
 from .permutation import PermutationData
@@ -117,6 +120,45 @@ class PlonkStructure:
             self.cache[key] = torch.from_numpy(arr).to(device)
         return self.cache[key]
 
+    def halo(self) -> tuple[int, int]:
+        """(lo, hi): the most rows any query of the structure reaches before
+        (rotation -lo) and after (rotation +hi) its own, over the gates, the
+        compressed gate and the lookup expressions."""
+        if "halo" not in self.cache:
+            exprs = [*self.gates, self.custom_gates_lookup_compressed.compressed,
+                     self.custom_gates_lookup_compressed.homogeneous]
+            if self.lookup_arguments is not None:
+                exprs += [*self.lookup_arguments.lookup_polys, *self.lookup_arguments.table_polys]
+            lo = hi = 0
+            seen, stack = set(), list(exprs)
+            while stack:
+                e = stack.pop()
+                if id(e) in seen:
+                    continue
+                seen.add(id(e))
+                if isinstance(e, Poly):
+                    lo, hi = max(lo, -e.query.rotation), max(hi, e.query.rotation)
+                elif isinstance(e, (Neg, Scaled)):
+                    stack.append(e.arg)
+                elif isinstance(e, (Sum, Product)):
+                    stack += [e.lhs, e.rhs]
+            self.cache["halo"] = (lo, hi)
+        return self.cache["halo"]
+
+    def columns_block(self, mesh: Mesh, d: int, lo: int, hi: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The selector and fixed columns on row block d of `mesh` with `lo`
+        and `hi` halo rows, cyclic: (num_selectors, lo + n / D + hi, 8) and
+        (num_fixed, .., 8) Montgomery words on the block's device, cut from
+        the host mirrors (`selectors_on`, `fixed_on`) once per (mesh, block,
+        halo)."""
+        key = ("columns_block", mesh, d, lo, hi)
+        if key not in self.cache:
+            nb = self.n // mesh.size
+            rows = torch.arange(d * nb - lo, (d + 1) * nb + hi) % self.n
+            dev = mesh.devices[d]
+            self.cache[key] = (self.selectors_on("cpu")[:, rows].to(dev), self.fixed_on("cpu")[:, rows].to(dev))
+        return self.cache[key]
+
 
 @dataclass
 class PlonkInstance:
@@ -136,8 +178,14 @@ class PlonkWitness:
     W: list[torch.Tensor]
 
     @staticmethod
-    def zeros(f: Field, round_sizes: Sequence[int], device=None) -> "PlonkWitness":
-        return PlonkWitness([f.zeros((sz,), device) for sz in round_sizes])
+    def zeros(f: Field, round_sizes: Sequence[int], device=None, n: Optional[int] = None) -> "PlonkWitness":
+        """Zero rounds on `device`; given the table rows n, as row blocks under
+        the row mesh of n (`parallel/rows.zero_round`)."""
+        if n is None:
+            return PlonkWitness([f.zeros((sz,), device) for sz in round_sizes])
+        from ..parallel.rows import zero_round
+
+        return PlonkWitness([zero_round(f, sz, n, device) for sz in round_sizes])
 
 
 @dataclass

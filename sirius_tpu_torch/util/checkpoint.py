@@ -12,7 +12,9 @@ digest raises ValueError, so a resume cannot mix incompatible set-ups.
 
 The loaders put the witness tensors on `device`, the CUDA device when none is
 given (`util/device.resolve`: a machine without one raises unless the caller
-passes device="cpu").
+passes device="cpu").  Row-block rounds (`parallel/rows.py`) are written
+gathered, the same bytes as a single device's, and a load under an active
+mesh that divides the rows cuts them into row blocks again.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 from ..fields import gold
 from ..fields.constants import CURVES, CurveSpec, bn256_g1, grumpkin
 from ..nifs.sangria import RelaxedPlonkInstance, RelaxedPlonkTrace, RelaxedPlonkWitness
+from ..parallel.rows import gathered, place
 from ..plonk.structure import PlonkInstance, PlonkTrace, PlonkWitness
 from .device import resolve
 from .interop import limbs_to_words, words_to_limbs
@@ -49,9 +52,10 @@ def _ints(hexes) -> list[int]:
     return [int(v, 16) for v in hexes]
 
 
-def _words(data, name: str, device) -> torch.Tensor:
-    """A (n, 16) limb array of the npz -> an (n, 8) word tensor on `device`."""
-    return torch.from_numpy(limbs_to_words(data[name])).to(device)
+def _words(data, name: str, device, n: int):
+    """A (size, 16) limb array of the npz -> a (size, 8) word tensor on
+    `device`, or its row blocks under the row mesh of n table rows."""
+    return place(torch.from_numpy(limbs_to_words(data[name])).to(device), n)
 
 
 def _relaxed_to_json(U: RelaxedPlonkInstance) -> dict:
@@ -101,7 +105,7 @@ def _write(path: str, meta: dict, arrays: dict) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path + ".json", "w") as f:
         json.dump(meta, f)
-    np.savez(path + ".npz", **{name: words_to_limbs(t) for name, t in arrays.items()})
+    np.savez(path + ".npz", **{name: words_to_limbs(gathered(t)) for name, t in arrays.items()})
 
 
 def save_sangria_accumulator(path: str, curve: CurveSpec, acc: RelaxedPlonkTrace, pp_digest_hex: str, step: int):
@@ -118,8 +122,9 @@ def load_sangria_accumulator(path: str, pp_digest_hex: str, device=None) -> tupl
     device = resolve(device)
     U = _relaxed_from_json(CURVES[meta["curve"]], meta)
     with np.load(path + ".npz") as data:
-        W = RelaxedPlonkWitness([_words(data, f"W{i}", device) for i in range(len(U.W_commitments))],
-                                _words(data, "E", device))
+        n = data["E"].shape[0]
+        W = RelaxedPlonkWitness([_words(data, f"W{i}", device, n) for i in range(len(U.W_commitments))],
+                                _words(data, "E", device, n))
     return RelaxedPlonkTrace(U, W), meta["step"]
 
 
@@ -173,11 +178,12 @@ def load_cyclefold_state(path: str, pp, pp_digest_hex: str, device=None):
     pg_u = _instance_from_json(bn256_g1, meta["pg_u"])
     pri_u = _instance_from_json(bn256_g1, meta["primary_u"])
     sup_U = _relaxed_from_json(grumpkin, meta["support_U"])
+    n, sup_n = pp.S_primary.n, pp.S_support.n
     with np.load(path + ".npz") as data:
-        pg_w = PlonkWitness([_words(data, f"pgW{i}", device) for i in range(len(pg_u.W_commitments))])
-        pri_w = PlonkWitness([_words(data, f"priW{i}", device) for i in range(len(pri_u.W_commitments))])
-        sup_W = RelaxedPlonkWitness([_words(data, f"supW{i}", device) for i in range(len(sup_U.W_commitments))],
-                                    _words(data, "supE", device))
+        pg_w = PlonkWitness([_words(data, f"pgW{i}", device, n) for i in range(len(pg_u.W_commitments))])
+        pri_w = PlonkWitness([_words(data, f"priW{i}", device, n) for i in range(len(pri_u.W_commitments))])
+        sup_W = RelaxedPlonkWitness([_words(data, f"supW{i}", device, sup_n)
+                                     for i in range(len(sup_U.W_commitments))], _words(data, "supE", device, sup_n))
     ivc.self_acc = Accumulator(PlonkTrace(pg_u, pg_w), _ints(meta["pg_betas"]), int(meta["pg_e"], 16))
     ivc.primary_trace = PlonkTrace(pri_u, pri_w)
     ivc.support = SupportFoldChain(pp.ck2, pp.S_support, pp.support_taped, pp_digest=pp.digest)

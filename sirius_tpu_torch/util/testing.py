@@ -32,6 +32,7 @@ import torch
 
 from ..curves.jpoint import Curve
 from ..fields import gold
+from ..parallel.rows import RowBlocks
 from .device import resolve
 
 
@@ -48,8 +49,12 @@ class MockCommitmentKey:
         return self.max_len
 
     def commit_device(self, w_mont):
+        """sum(w) G; row blocks (`parallel/rows.py`) sum block by block."""
         f = self.curve.fs
-        s = f.decode_one(f.sum_reduce(w_mont)) if w_mont.shape[0] else 0
+        if isinstance(w_mont, RowBlocks):
+            s = sum(f.decode_one(f.sum_reduce(b)) for b in w_mont.blocks) % f.p
+        else:
+            s = f.decode_one(f.sum_reduce(w_mont)) if w_mont.shape[0] else 0
         return gold.generator(self.curve.spec).mul(s)
 
     def commit_device_many(self, w_monts):
@@ -188,14 +193,15 @@ class FiboXorLookupCircuit:
         return [[self._seq()[-1][2], 0]]
 
 
-def dryrun_sangria_folds(ck) -> tuple[list[str], list[str]]:
+def dryrun_sangria_folds(ck) -> tuple[list[str], list, object]:
     """`__graft_entry__.py:dryrun_multichip`'s Sangria folds on the key `ck`
     (there `CommitmentKey.setup(BN256_G1, 9, b"dryrun-mc")`) and its
     device: the XOR chains FiboXorLookupCircuit(1, 2, 9) and (3, 5, 9) at
     3-bit XOR and k = 6 (a 3-round SPS), both traces on one transcript,
     folded one after the other into the zero relaxed accumulator with the
     verifier replaying each fold.  Returns `golden.sangria_acc_digest` after
-    each fold and is_sat's errors on the final accumulator."""
+    each fold, is_sat's errors on the final accumulator and that
+    accumulator (row blocks under the row mesh of k, `parallel/rows.py`)."""
     from ..fields.constants import bn256_fq, bn256_fr, bn256_g1
     from ..frontend.runner import CircuitRunner
     from ..nifs.sangria import RelaxedPlonkInstance, RelaxedPlonkTrace, RelaxedPlonkWitness, VanillaFS
@@ -212,10 +218,9 @@ def dryrun_sangria_folds(ck) -> tuple[list[str], list[str]]:
     traces = [run_sps_protocol(S, ck, c.instances(), r.collect_witness(), ro_gen)
               for c, r in zip(circuits, runners)]
     pp, vp = VanillaFS.setup_params(gold.identity(bn256_g1), S)
-    f = S.field
     acc = RelaxedPlonkTrace(
         U=RelaxedPlonkInstance.new(bn256_g1, S.num_challenges, len(S.round_sizes), len(S.num_io) - 1),
-        W=RelaxedPlonkWitness([f.zeros((sz,), dev) for sz in S.round_sizes], f.zeros((S.n,), dev)))
+        W=RelaxedPlonkWitness.zeros(S.field, S.round_sizes, S.n, dev))
     ro_nark_v, ro_acc_p, ro_acc_v = ro(), ro(), ro()
     digests = []
     for tr in traces:
@@ -224,4 +229,4 @@ def dryrun_sangria_folds(ck) -> tuple[list[str], list[str]]:
             raise AssertionError("prover/verifier accumulator mismatch")
         acc = new_acc
         digests.append(sangria_acc_digest(acc.U))
-    return digests, VanillaFS.is_sat(ck, S, acc, [tr.u.instances for tr in traces])
+    return digests, VanillaFS.is_sat(ck, S, acc, [tr.u.instances for tr in traces]), acc

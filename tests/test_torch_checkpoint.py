@@ -10,6 +10,8 @@
   in `util/golden.py` (`CYCLEFOLD_TRIVIAL_K17_*`, `tests/freeze_ivc_digests.py
   cyclefold_trivial_k17`), verify() clean, a foreign pp digest refused, and
   the JAX package's loader reading the port's checkpoint.
+- A checkpoint written from row blocks under a mesh and loaded without one,
+  and the other way round.
 """
 
 import json
@@ -40,6 +42,7 @@ from sirius_tpu_torch.ivc.step_circuit import TrivialStepCircuit
 from sirius_tpu_torch.nifs.sangria import RelaxedPlonkInstance, RelaxedPlonkTrace, RelaxedPlonkWitness, VanillaFS
 from sirius_tpu_torch.ops.commitment import CommitmentKey
 from sirius_tpu_torch.ops.poseidon import PoseidonHash, poseidon_spec
+from sirius_tpu_torch.parallel import RowBlocks, make_mesh, mesh_context
 from sirius_tpu_torch.plonk.sps import run_sps_protocol
 from sirius_tpu_torch.util import golden
 from sirius_tpu_torch.util.checkpoint import (load_cyclefold_state, load_sangria_accumulator,
@@ -189,6 +192,31 @@ def test_jax_loader_reads_the_ports_cyclefold_checkpoint(cyclefold):
     assert (jivc.step, jivc.z_i) == (1, CF_Z0)
     carried = cyclefold_ivc_from(pp, jivc, "cpu")
     assert _digests(carried) == golden.CYCLEFOLD_TRIVIAL_K17_NEW == cyclefold["new"]
+
+
+@pytest.mark.parametrize("written", ["under_a_mesh", "without_a_mesh"])
+def test_sangria_checkpoint_crosses_between_a_mesh_and_none(square, tmp_path, written):
+    """A checkpoint written from row blocks (`parallel/rows.py`, a 4-shard CPU
+    mesh) holds the same bytes as one written from whole tensors; it loads
+    without a mesh as tensors, and under the mesh as row blocks, with equal
+    words and digests either way."""
+    acc = square["acc"]
+    mesh = make_mesh(devices=["cpu"] * 4)
+    plain, blocked = str(tmp_path / "plain"), str(tmp_path / "blocked")
+    save_sangria_accumulator(plain, bn256_g1, acc, "digest-1", step=1)
+    with mesh_context(mesh):
+        loaded, _ = load_sangria_accumulator(plain, "digest-1", device="cpu")
+        assert all(isinstance(w, RowBlocks) and w.devices == list(mesh.devices) for w in [*loaded.W.W, loaded.W.E])
+        if written == "under_a_mesh":
+            save_sangria_accumulator(blocked, bn256_g1, loaded, "digest-1", step=1)
+    if written == "under_a_mesh":
+        with np.load(plain + ".npz") as a, np.load(blocked + ".npz") as b:
+            assert sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+        loaded, _ = load_sangria_accumulator(blocked, "digest-1", device="cpu")
+        assert all(isinstance(w, torch.Tensor) for w in [*loaded.W.W, loaded.W.E])
+    words = [w.gather() if isinstance(w, RowBlocks) else w for w in [*loaded.W.W, loaded.W.E]]
+    assert all(np.array_equal(_words(a), b) for a, b in zip(words, _acc_words(acc)))
+    assert golden.sangria_acc_digest(loaded.U) == golden.sangria_acc_digest(acc.U)
 
 
 @pytest.mark.parametrize("which", ["sangria", "cyclefold"])

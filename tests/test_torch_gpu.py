@@ -1072,6 +1072,66 @@ def test_trivial_cyclefold_under_a_mesh_equals_the_frozen_digests(bench_keys, ki
     assert [d[:8] for d in digests] == list(CYCLEFOLD_DIGESTS)
     new_plans = {m for m, k in bucket_plan.shapes.items() if k > plans.get(m, 0)}
     assert max(new_plans) <= -(-(7 << 17) // mesh.size)  # every commit went by shards
+    _assert_row_blocks(mesh, [*ivc.primary_trace.w.W, *ivc.self_acc.trace.w.W, *ivc.support_acc.W.W,
+                              ivc.support_acc.W.E])
+
+
+def _assert_row_blocks(mesh, rounds):
+    """Every round is row blocks (`parallel/rows.py`) on the mesh's devices."""
+    from sirius_tpu_torch.parallel import RowBlocks
+
+    for w in rounds:
+        assert isinstance(w, RowBlocks) and w.mesh == mesh and w.devices == list(mesh.devices), w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", MESHES)
+def test_sangria_ivc_k16_under_a_mesh_equals_the_frozen_jax_digests(kind):
+    """`test_sangria_ivc_k16_on_the_card_equals_the_frozen_jax_digests` with
+    both sides' W rounds and E as row blocks of the mesh."""
+    from sirius_tpu_torch.ivc.sangria_ivc import IVC, PublicParams
+    from sirius_tpu_torch.ivc.step_circuit import TrivialStepCircuit
+    from sirius_tpu_torch.parallel import mesh_context
+    from sirius_tpu_torch.util import golden
+    from sirius_tpu_torch.util.golden import sangria_acc_digest
+    from sirius_tpu_torch.util.testing import MockCommitmentKey
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA)")
+    mesh = _mesh(kind)
+    pp = PublicParams(TrivialStepCircuit(1), TrivialStepCircuit(1), 16, 16, MockCommitmentKey(BN256_G1, "cuda:0"),
+                      MockCommitmentKey(GRUMPKIN, "cuda:0"))
+    with mesh_context(mesh):
+        ivc = IVC(pp, [0x11], [0x22])
+        accs = lambda: (sangria_acc_digest(ivc.primary_relaxed.U), sangria_acc_digest(ivc.secondary_relaxed.U))  # noqa: E731
+        assert accs() == golden.SANGRIA_IVC_K16_NEW
+        ivc.fold_step()
+        assert ivc.verify() == []
+    assert (pp.digest_coords(1), pp.digest_coords(2)) == (golden.SANGRIA_IVC_K16_PP_DIGEST_1,
+                                                          golden.SANGRIA_IVC_K16_PP_DIGEST_2)
+    assert accs() == golden.SANGRIA_IVC_K16_STEP
+    _assert_row_blocks(mesh, [w for acc in (ivc.primary_relaxed, ivc.secondary_relaxed) for w in [*acc.W.W, acc.W.E]]
+                       + list(ivc.secondary_trace.w.W))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", MESHES)
+def test_dryrun_folds_under_a_mesh_on_the_card_equal_the_jax_package(kind):
+    """The dry run's two Sangria folds (a 3-round SPS with a vector lookup:
+    `m_count` on the first card) on its real key on cuda:0, under the mesh:
+    `golden.DRYRUN_MC_FOLDS`, is_sat clean, W and E row blocks."""
+    from sirius_tpu_torch.parallel import mesh_context
+    from sirius_tpu_torch.util import golden
+    from sirius_tpu_torch.util.testing import dryrun_sangria_folds
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA)")
+    mesh = _mesh(kind)
+    ck = CommitmentKey.setup(BN256_G1, 9, b"dryrun-mc", use_cache=False, device="cuda:0")
+    with mesh_context(mesh):
+        digests, errors, acc = dryrun_sangria_folds(ck)
+    assert errors == [] and tuple(digests) == golden.DRYRUN_MC_FOLDS
+    _assert_row_blocks(mesh, [*acc.W.W, acc.W.E])
 
 
 @pytest.mark.gpu

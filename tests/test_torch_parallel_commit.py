@@ -58,6 +58,6 @@ def test_commit_device_and_batched_commit_check_under_a_mesh_equal_their_results
 
 
 def test_dryrun_folds_without_a_mesh_equal_the_jax_package(ck):
-    digests, errors = dryrun_sangria_folds(ck)
+    digests, errors, _ = dryrun_sangria_folds(ck)
     assert errors == []
     assert tuple(digests) == golden.DRYRUN_MC_FOLDS
