@@ -72,7 +72,7 @@
    witness cell; every kernel must have launched on this path.  The
    support tape's sizes and the seconds of the dry synthesis that traces
    it; one witness by native replay and by direct synthesis, equal word
-   for word, both timed.  Then one
+   for word, both timed (each fold's phases from its spans).  Then one
    more fold runs under torch.profiler: its device events and the device's
    busy share of its wall time.
 7. The main path, `bench.py:166-210`'s headline: `CyclefoldIVC` on the
@@ -280,6 +280,7 @@ import torch
 from sirius_tpu_torch.curves.hash_to_curve import hash_bytes_to_point
 from sirius_tpu_torch.curves.jpoint import BN256_G1, GRUMPKIN, Points
 from sirius_tpu_torch.examples import merkle_tree
+from sirius_tpu_torch.examples._drive import span_totals as span_seconds
 from sirius_tpu_torch.fields import gold
 from sirius_tpu_torch.fields.constants import bn256_fq, bn256_fr, bn256_g1
 from sirius_tpu_torch.fields.jfield import FQ, FR, ints_to_words
@@ -610,20 +611,6 @@ def sass_opcodes() -> dict[str, Counter] | None:
 def synced() -> float:
     torch.cuda.synchronize()
     return time.perf_counter()
-
-
-def span_seconds() -> dict[str, float]:
-    """Host seconds per span name over the profiler's tree (then cleared)."""
-    out: dict[str, float] = {}
-
-    def walk(spans):
-        for s in spans:
-            out[s.name] = out.get(s.name, 0.0) + s.elapsed
-            walk(s.children)
-
-    walk(profiler.roots)
-    profiler.roots.clear()
-    return out
 
 
 @contextmanager
@@ -1631,12 +1618,18 @@ def main() -> int:
     for fn in (*counters, madd_mod.madd_batch):
         fn.launches = 0
     chain = SupportFoldChain(ck2, S_sup, sup_taped)
-    totals = {"witness": 0.0, "sps": 0.0, "prove": 0.0}
-    for i in range(FOLDS):
-        secs = chain.fold(random_input(rng))
+    phases = {"witness": "support_witness", "sps": "support_sps", "prove": "support_sangria_prove"}
+    totals = dict.fromkeys(phases, 0.0)
+    profiler.enable()
+    span_seconds()
+    for i in range(FOLDS):  # each phase's host seconds from its span (no synchronize closes them)
+        chain.fold(random_input(rng))
+        spans = span_seconds()
+        secs = {k: spans.get(name, 0.0) for k, name in phases.items()}
         for k, v in secs.items():
             totals[k] += v
         log(f"fold {i}: " + ", ".join(f"{k} {v:.4f} s" for k, v in secs.items()) + f"  [{card}]")
+    profiler.enabled = False
     t0 = time.perf_counter()
     check(chain.verify() == chain.acc.U, "verify does not replay the prover's accumulator")
     t1 = time.perf_counter()

@@ -35,19 +35,12 @@ def peak_bytes(device) -> int | None:
 
 def span_totals() -> dict[str, float]:
     """Host seconds per `util/profiling` span name since the last call (the
-    span tree is then cleared); empty unless the profiler is on
+    records are then drained); empty unless the profiler is on
     (SIRIUS_TPU_PROFILE=1, or the CLI's --profile-json)."""
     from ..util.profiling import profiler
 
-    out: dict[str, float] = {}
-
-    def walk(spans):
-        for s in spans:
-            out[s.name] = out.get(s.name, 0.0) + s.elapsed
-            walk(s.children)
-
-    walk(profiler.roots)
-    profiler.roots.clear()
+    out = profiler.totals()
+    profiler.drain()
     return out
 
 

@@ -11,7 +11,8 @@ driver, which is Cyclefold, and `--primary-k` reaches only
 `sangria-trivial` and `sangria-poseidon`.  `bench-msm` times the port's
 MSM (`bench_msm.py`), on the CPU when given `--cpu` (the JAX CLI hands
 `bench.py` no flag).  `--profile-json` turns the
-`util/profiling` spans on and appends each span to FILE as a JSON line.
+`util/profiling` spans on and, at the end of the run, appends each span to
+FILE as a JSON line.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--repeat-count", type=int, default=1)
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--profile-json", type=str, default=None,
-                    help="append span JSON lines to this file (reference tracing-json analogue)")
+                    help="append span JSON lines to this file at the end of the run (reference tracing-json analogue)")
     return ap
 
 
@@ -60,13 +61,17 @@ def dispatch(args) -> tuple[str, list[str]]:
 
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
-    if args.profile_json:
-        from ..util.profiling import profiler
+    from ..util.profiling import profiler
 
+    if args.profile_json:
         profiler.enable()
-        profiler.json_stream = args.profile_json
+        profiler.json_path = args.profile_json
     name, example_argv = dispatch(args)
-    return importlib.import_module(f"{__package__}.{name}").main(example_argv)
+    try:
+        return importlib.import_module(f"{__package__}.{name}").main(example_argv)
+    finally:
+        if args.profile_json:
+            profiler.write_json()
 
 
 if __name__ == "__main__":

@@ -301,6 +301,7 @@ class CyclefoldPublicParams:
     simplified form): the support and primary structures, the pp digest and
     the two folding schemes' parameters."""
 
+    @span("public_params")
     def __init__(self, step_circuit: StepCircuit, k: int, ck_primary, ck_support):
         self.sc = step_circuit
         self.k = k
@@ -399,6 +400,7 @@ class CyclefoldIVC:
     active mesh that divides the rows, every W round as row blocks
     (`parallel/rows.py`), the support chain's W and E too."""
 
+    @span("ivc_new")
     def __init__(self, pp: CyclefoldPublicParams, z_0: Sequence[int]):
         f1 = pp.f1
         self.pp = pp
@@ -464,65 +466,67 @@ class CyclefoldIVC:
         return W
 
     def next(self):
-        """One Cyclefold step (reference `next`, mod.rs:210-324)."""
-        pp = self.pp
-        f1 = pp.f1
-        q = f1.modulus
-        prev_acc_ins = pg.AccumulatorInstance.from_acc(self.self_acc)
-        prev_trace = self.primary_trace
-        prev_support_U = self.support_acc.U
+        """One Cyclefold step (reference `next`, mod.rs:210-324), in a root
+        span `next` that gives its spans the step number."""
+        with span("next", step=self.step):
+            pp = self.pp
+            f1 = pp.f1
+            q = f1.modulus
+            prev_acc_ins = pg.AccumulatorInstance.from_acc(self.self_acc)
+            prev_trace = self.primary_trace
+            prev_support_U = self.support_acc.U
 
-        with span("pg_prove"):
-            new_acc, proof = pg.ProtoGalaxy.prove(pp.ck1, pp.pg_pp, _ro(), self.self_acc, [prev_trace])
+            with span("pg_prove"):
+                new_acc, proof = pg.ProtoGalaxy.prove(pp.ck1, pp.pg_pp, _ro(), self.self_acc, [prev_trace])
 
-        # re-derive gamma verifier-style to evaluate L0, L1
-        ro2 = _ro()
-        pp.pg_pp.absorb_into(ro2, q)
-        prev_acc_ins.absorb_into(ro2, q)
-        pg.absorb_instance(ro2, prev_trace.u, q)
-        ro2.squeeze(MAX_BITS)  # delta
-        for c in proof.poly_F.coeffs:
-            ro2.absorb_field(c % q)
-        ro2.squeeze(MAX_BITS)  # alpha
-        for c in proof.poly_K.coeffs:
-            ro2.absorb_field(c % q)
-        gamma = ro2.squeeze(MAX_BITS) % q
-        l0, l1 = list(lagrange.iter_eval_lagrange_poly_for_cyclic_group(f1, gamma, 1))[:2]
+            # re-derive gamma verifier-style to evaluate L0, L1
+            ro2 = _ro()
+            pp.pg_pp.absorb_into(ro2, q)
+            prev_acc_ins.absorb_into(ro2, q)
+            pg.absorb_instance(ro2, prev_trace.u, q)
+            ro2.squeeze(MAX_BITS)  # delta
+            for c in proof.poly_F.coeffs:
+                ro2.absorb_field(c % q)
+            ro2.squeeze(MAX_BITS)  # alpha
+            for c in proof.poly_K.coeffs:
+                ro2.absorb_field(c % q)
+            gamma = ro2.squeeze(MAX_BITS) % q
+            l0, l1 = list(lagrange.iter_eval_lagrange_poly_for_cyclic_group(f1, gamma, 1))[:2]
 
-        # support-circuit delegation, one fold per W-commitment pair:
-        # W_new[i] = l0 W_acc[i] + l1 W_inc[i], Sangria-chained
-        support_incoming, support_cross = [], []
-        with span("support_folds"):
-            for i, (W_a, W_i) in enumerate(zip(prev_acc_ins.ins.W_commitments, prev_trace.u.W_commitments)):
-                sup_input = InstanceInput(W_a, W_i, l0, l1)
-                if sup_input.p_out() != new_acc.trace.u.W_commitments[i]:
-                    raise CyclefoldError(f"support delegation #{i} disagrees with the PG-folded W commitment")
-                self.support.fold(sup_input)
-                support_incoming.append(self.support.incoming[-1])
-                support_cross.append(self.support.cross[-1])
+            # support-circuit delegation, one fold per W-commitment pair:
+            # W_new[i] = l0 W_acc[i] + l1 W_inc[i], Sangria-chained
+            support_incoming, support_cross = [], []
+            with span("support_folds"):
+                for i, (W_a, W_i) in enumerate(zip(prev_acc_ins.ins.W_commitments, prev_trace.u.W_commitments)):
+                    sup_input = InstanceInput(W_a, W_i, l0, l1)
+                    if sup_input.p_out() != new_acc.trace.u.W_commitments[i]:
+                        raise CyclefoldError(f"support delegation #{i} disagrees with the PG-folded W commitment")
+                    self.support.fold(sup_input)
+                    support_incoming.append(self.support.incoming[-1])
+                    support_cross.append(self.support.cross[-1])
 
-        inputs = CyclefoldStepInputs(
-            step=self.step,
-            pp_digest=pp.digest_coords(),
-            z_0=list(self.z_0),
-            z_i=list(self.z_i),
-            self_acc=prev_acc_ins,
-            self_incoming=prev_trace.u,
-            proof=proof,
-            support_acc=prev_support_U,
-            support_incoming=support_incoming,
-            support_cross_commits=support_cross,
-        )
-        x0 = prev_trace.u.instances[0][1]
-        with span("sfc_witness"):
-            W, z_next, x1 = self._sfc_witness(inputs, lambda z: cyclefold_marker(
-                f1, pp.digest_coords(), self.step + 1, self.z_0, z, pg.AccumulatorInstance.from_acc(new_acc),
-                self.support_acc.U))
-        with span("sps_primary"):
-            self.primary_trace = run_sps_protocol(pp.S_primary, pp.ck1, [[x0, x1]], W, _ro())
-        self.self_acc = new_acc
-        self.z_i = z_next
-        self.step += 1
+            inputs = CyclefoldStepInputs(
+                step=self.step,
+                pp_digest=pp.digest_coords(),
+                z_0=list(self.z_0),
+                z_i=list(self.z_i),
+                self_acc=prev_acc_ins,
+                self_incoming=prev_trace.u,
+                proof=proof,
+                support_acc=prev_support_U,
+                support_incoming=support_incoming,
+                support_cross_commits=support_cross,
+            )
+            x0 = prev_trace.u.instances[0][1]
+            with span("sfc_witness"):
+                W, z_next, x1 = self._sfc_witness(inputs, lambda z: cyclefold_marker(
+                    f1, pp.digest_coords(), self.step + 1, self.z_0, z, pg.AccumulatorInstance.from_acc(new_acc),
+                    self.support_acc.U))
+            with span("sps_primary"):
+                self.primary_trace = run_sps_protocol(pp.S_primary, pp.ck1, [[x0, x1]], W, _ro())
+            self.self_acc = new_acc
+            self.z_i = z_next
+            self.step += 1
 
     def checkpoint(self, path: str):
         """Write the whole IVC state to `path`.json / `path`.npz, keyed by the

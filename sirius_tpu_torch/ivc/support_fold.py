@@ -18,10 +18,7 @@ process-wide mesh shards the support fold too.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
-import torch
 
 from ..fields import gold
 from ..fields.constants import bn256_fq, bn256_fr, bn256_g1, grumpkin
@@ -103,25 +100,18 @@ class SupportFoldChain:
         circuit = SupportCircuit(inp, num_bits=bn256_fr.num_bits)
         return instances, CircuitRunner(self.k, bn256_fq, circuit, instances).collect_witness()
 
-    def fold(self, inp: InstanceInput) -> dict[str, float]:
-        """Fold one support circuit; returns seconds per phase (witness,
-        sps, prove), each closed by a device synchronize."""
-        secs = {}
-        t0 = time.perf_counter()
+    def fold(self, inp: InstanceInput) -> None:
+        """Fold one support circuit, in spans `support_witness`,
+        `support_sps` and `support_sangria_prove`."""
         with span("support_witness"):
             instances, advice = self.witness(inp)
-        t1 = time.perf_counter()
         with span("support_sps"):
             trace = run_sps_protocol(self.S, self.ck, instances, advice, support_ro())
-        t2 = _synced(self.ck.device)
         with span("support_sangria_prove"):
             self.acc, cross = VanillaFS.prove(self.ck, self.pp, support_ro(), self.acc, trace)
-        t3 = _synced(self.ck.device)
         self.incoming.append(trace.u)
         self.cross.append(cross)
         self.pub_instances.append(trace.u.instances)
-        secs["witness"], secs["sps"], secs["prove"] = t1 - t0, t2 - t1, t3 - t2
-        return secs
 
     def verify(self) -> RelaxedPlonkInstance:
         """Replay every fold on the instance side; returns the verifier's
@@ -134,9 +124,3 @@ class SupportFoldChain:
     def is_sat(self, acc: RelaxedPlonkTrace | None = None) -> list:
         """Errors of the accumulator (or of `acc`, e.g. a corrupted copy)."""
         return VanillaFS.is_sat(self.ck, self.S, acc or self.acc, self.pub_instances)
-
-
-def _synced(device) -> float:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-    return time.perf_counter()

@@ -14,11 +14,14 @@ format ((n, 8) uint32 Montgomery words `xw`, `yw`; z = 1 implied), so a key
 written by either package loads in the other.  A legacy cache of the JAX
 package ((n, 16) 16-bit limb arrays `x`, `y`, `z`) loads too: the limbs pack
 into the same Montgomery words (R = 2^256 at both widths), and points with
-z != 1 are normalized to affine on the device.
+z != 1 are normalized to affine on the device.  With the profiler on
+(`util/profiling`), `setup` runs in a `commitment_key` span and each
+outermost commit in a `commit` span that counts what it reads and writes.
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import os
 from dataclasses import dataclass, field
@@ -35,6 +38,7 @@ from ..parallel.context import get_mesh
 from ..parallel.mesh import Mesh
 from ..parallel.rows import RowBlocks
 from ..util.device import resolve
+from ..util.profiling import profiler, span
 from ..util.ro import NUM_CHALLENGE_BITS
 from .poseidon import PoseidonHash, poseidon_spec
 
@@ -56,6 +60,33 @@ class CommitmentError(Exception):
 class TooLongInput(CommitmentError):
     def __init__(self, input_len, limit):
         super().__init__(f"input len {input_len} > key size {limit}")
+
+
+def _rows(w) -> int:
+    """Scalars of a round: a (size, 8) tensor's rows or row blocks' n x cols."""
+    return w.n * w.cols if isinstance(w, RowBlocks) else int(w.shape[0])
+
+
+def _commit_span(size):
+    """Decorate a commit entry point: an outermost call (no `commit` span
+    open on its thread) runs in a `commit` span counting the (scalars read,
+    key points read, points written) that `size` gives of its argument.
+    Nothing is counted while the profiler is off."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def traced(key, arg):
+            if not profiler.enabled or profiler.is_open("commit"):
+                return fn(key, arg)
+            if not isinstance(arg, (torch.Tensor, RowBlocks)):
+                arg = list(arg)  # the batched check's pairs may be an iterator
+            counts = dict(zip(("scalars", "points", "results"), size(arg)))
+            with span("commit", counts=counts):
+                return fn(key, arg)
+
+        return traced
+
+    return wrap
 
 
 def _limb_words(limbs: np.ndarray) -> torch.Tensor:
@@ -107,26 +138,31 @@ class CommitmentKey:
         return os.path.join(CACHE_DIR, f"{curve.spec.name}-{label.decode(errors='ignore')}-{k}.npz")
 
     @staticmethod
+    @span("commitment_key")
     def setup(curve: Curve, k: int, label: bytes, use_cache: bool = True, device=None) -> "CommitmentKey":
+        """The key of 2^k points from the cache (span `ck_load`), else derived
+        from the label by hash-to-curve and cached (span `ck_derive`)."""
         n = 1 << k
         device = resolve(device)
         path = CommitmentKey.cache_file(curve, k, label)
         if use_cache and os.path.exists(path):
-            return CommitmentKey(curve, _load_cached(curve, path, device), label, k)
+            with span("ck_load"):
+                return CommitmentKey(curve, _load_cached(curve, path, device), label, k)
 
-        stream = hashlib.shake_256(label).digest(64 * n)
-        if n >= DEVICE_SETUP_MIN:
-            step = DEVICE_SETUP_CHUNK
-            parts = [hash_bytes_to_points_device(curve, stream[64 * i : 64 * (i + step)], device)
-                     for i in range(0, n, step)]
-            pts = Points(*(torch.cat(coords) for coords in zip(*parts)))
-        else:
-            affine = [hash_bytes_to_point(curve.spec, stream[64 * i : 64 * (i + 1)]) for i in range(n)]
-            pts = curve.encode(affine, device)
-        if use_cache:
-            os.makedirs(CACHE_DIR, exist_ok=True)
-            np.savez(path, xw=pts.x.cpu().numpy().astype(np.uint32),
-                     yw=pts.y.cpu().numpy().astype(np.uint32))
+        with span("ck_derive"):
+            stream = hashlib.shake_256(label).digest(64 * n)
+            if n >= DEVICE_SETUP_MIN:
+                step = DEVICE_SETUP_CHUNK
+                parts = [hash_bytes_to_points_device(curve, stream[64 * i : 64 * (i + step)], device)
+                         for i in range(0, n, step)]
+                pts = Points(*(torch.cat(coords) for coords in zip(*parts)))
+            else:
+                affine = [hash_bytes_to_point(curve.spec, stream[64 * i : 64 * (i + 1)]) for i in range(n)]
+                pts = curve.encode(affine, device)
+            if use_cache:
+                os.makedirs(CACHE_DIR, exist_ok=True)
+                np.savez(path, xw=pts.x.cpu().numpy().astype(np.uint32),
+                         yw=pts.y.cpu().numpy().astype(np.uint32))
         return CommitmentKey(curve, pts, label, k)
 
     def _prefix(self, n: int) -> Points:
@@ -159,6 +195,7 @@ class CommitmentKey:
                 for d, dev in enumerate(mesh.devices)]
         return self.shard_cache[key]
 
+    @_commit_span(lambda w: (_rows(w), _rows(w), 1))
     def commit_device(self, w_mont) -> gold.AffinePoint:
         """Commit to a (size, 8) Montgomery tensor.  The conversion to
         standard form runs on W's device; under an active mesh of more than
@@ -179,12 +216,14 @@ class CommitmentKey:
             return msm_ops.msm_sharded(self.curve, scalars, self.shards(mesh, n), mesh)
         return msm_ops.best_msm(self.curve, scalars, pts)
 
+    @_commit_span(lambda ws: (int(ws.shape[0]) * int(ws.shape[1]), int(ws.shape[1]), int(ws.shape[0])))
     def commit_device_many(self, w_monts: torch.Tensor) -> list:
         """Commit to a (t, size, 8) batch over the shared key prefix, on the
         key's device under a mesh too (as the JAX package's)."""
         pts = self._prefix(w_monts.shape[1])
         return msm_ops.msm_many(self.curve, self.curve.fs.from_mont(w_monts), pts)
 
+    @_commit_span(lambda pairs: (sum(_rows(W) for W, _ in pairs), max((_rows(W) for W, _ in pairs), default=0), 1))
     def batched_commit_check(self, pairs) -> list[int]:
         """Check commit(W_i) == C_i for all pairs with one MSM: Fiat-Shamir
         rho_i from a Poseidon transcript over the claimed commitments, then
