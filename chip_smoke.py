@@ -221,6 +221,23 @@
    memory by card.  Every line names its mesh.
    `python3 chip_smoke.py --mesh-only` runs this phase alone, after the
    keys it needs and the Cyclefold public parameters.
+14. The ring ops' kernels: `addsub_rows` (add and sub) and `mul_rows` at
+   K = 1, nb = n on each of the port's five products, at the main path's
+   shapes (FIELD_OP_ROWS: the support W's 2^17, the trivial primary W's
+   917,504 and the SHA-256 advice round's 4,194,304 rows) against their
+   plain twins word for word, each timed from a CUDA graph beside its bound
+   (three canonical elements an element at HBM bandwidth; int64 words move
+   twice that) and its twin; then, for each configuration of the benchmark
+   (port_bench/configs/: its step circuit, k, keys and a z_0 from SEED),
+   pp, new, one next, and one more next under torch.profiler: its kernel
+   events (the benchmark's `launches_per_step` counts the same: not Memcpy
+   or Memset) beside the ring ops in it by broadcast form (`ring_form`) and
+   their launches (`ring_op.launches`, and `_build.device_launches` by entry
+   and card, the ring ops under "ring_op"), one a ring op.
+   `python3 chip_smoke.py --field-ops` runs this phase alone, after the
+   benchmark's keys (loaded from the key cache where `SIRIUS_TPU_CACHE`
+   holds them, the benchmark's `port_bench/.cache/keys` after a benchmark
+   run, and derived into it otherwise).
 
 Ends with a JSON line of kernel results (time, plain twin's time, bound
 and what sets it, launches on the path that runs the kernel: B1's bucket
@@ -264,6 +281,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -389,6 +407,8 @@ MERKLE_BATCHES = (1, 5)  # BASELINE.md:18-20: the reference's Merkle-update rows
 CLI_ARGV = ["sangria-instances", "--fold-steps", "1"]  # examples/instances.py: its own 2^19 keys, k = 16
 MESH_SHARDS = 4  # the virtual mesh: four shards on cuda:0, the counterpart of the JAX tests' virtual devices
 MESH_COMMITS = (PRIMARY_W_N, SHA_ROUND_SIZES[0])  # the primary W (2^20 key) and the SHA-256 path's largest W round
+FIELD_OP_ROWS = (1 << 17, 7 << 17, 1 << 22)  # the support W, the trivial primary W, the SHA-256 advice round
+FIELD_OP_BYTES = 3 * FE  # a ring op's element: a, b and out, 32 canonical bytes each (int64 words move twice that)
 MESH_ENTRIES = {"bucket_sort_mesh": "msm_bucket_scatter", "msm_accumulate_mesh": "msm_accumulate",
                 "msm_reduce_mesh": "msm_reduce", "msm_combine_mesh": "msm_horner", "col_ntt_mesh": "col_ntt",
                 "mul_rows_mesh": "mul_rows"}  # kernels-line entry: the C entry its launches are counted by
@@ -1145,6 +1165,174 @@ def mesh_only() -> int:
     mesh_phase(recorder(kernels, imad_rate), kernels, card, (ck1_full, ck1, ck2), pp, np.random.default_rng(SEED),
                trace=True)
     log(f"chip_smoke --mesh-only: {time.perf_counter() - started:.1f} s in all, the build included")
+    print(json.dumps({"kernels": list(kernels.values())}))
+    print(smi)
+    print(device_json())
+    return 0
+
+
+def field_op_kernels(record, kernels: dict, card: str, rng) -> None:
+    """Phase 14's kernels: addsub_rows and mul_rows (K = 1, nb = n, every
+    product) at FIELD_OP_ROWS against their twins, timed from CUDA graphs."""
+    dev = torch.device(DEVICE)
+    src = "sirius_tpu_torch/csrc/field_ops.cu"
+    for n in FIELD_OP_ROWS:
+        a, b = FR.random((n,), rng, "cpu").to(dev), FR.random((n,), rng, "cpu").to(dev)
+        parts = []
+        for op in ("add", "sub"):
+            got = fk.addsub_rows(FR, a, b, op)
+            err = word_err([got], [fk.addsub_rows_plain(FR, a, b, op)])
+            check(err == 0, f"addsub_rows {op} at {n} rows disagrees with its plain twin")
+            ms, _ = graph_ms(lambda: fk.addsub_rows(FR, a, b, op), launches=50)
+            plain = gpu_ms(lambda: fk.addsub_rows_plain(FR, a, b, op), reps=3)
+            record(f"addsub_rows_{op}_{n}", src, "none: XLA's fusion of the jitted field ops", err, ms, plain, 0,
+                   FIELD_OP_BYTES * n, per_mul=1)
+            parts.append(f"{op} {ms:.6f} ms (plain {plain:.4f} ms)")
+        for product in fk.PRODUCTS:
+            got = fk.mul_rows(FR, a, b, 1, product=product)
+            err = word_err([got], [fk.mul_rows_plain(FR, a, b, 1)])
+            check(err == 0, f"mul_rows K = 1 ({product}) at {n} rows disagrees with its plain twin")
+            ms, _ = graph_ms(lambda: fk.mul_rows(FR, a, b, 1, product=product), launches=50)
+            plain = gpu_ms(lambda: fk.mul_rows_plain(FR, a, b, 1), reps=3)
+            record(f"mul_rows_k1_{product}_{n}", src, "scripts/tpu_microbench.py:74", err, ms, plain, n,
+                   FIELD_OP_BYTES * n)
+            parts.append(f"mul {product} {ms:.6f} ms (plain {plain:.4f} ms)")
+        e, m = kernels[f"addsub_rows_add_{n}"], kernels[f"mul_rows_k1_unrolled_{n}"]
+        log(f"ring-op kernels at {n} rows, bit-exact against their twins; bound {e['bound_ms']:.6f} ms "
+            f"({e['bound_by']}, {FIELD_OP_BYTES} canonical B an element, twice that in int64 words), mul's "
+            f"{m['bound_ms']:.6f} ms ({m['bound_by']}): " + "; ".join(parts) + f"  [{card}]")
+
+
+def bench_configs() -> dict:
+    """The benchmark's configurations by name (port_bench/configs/)."""
+    return {p.stem: json.loads(p.read_text()) for p in sorted((ROOT / "port_bench" / "configs").glob("*.json"))}
+
+
+def ring_form(a: torch.Tensor, b: torch.Tensor) -> tuple[str, bool, bool]:
+    """A ring op's broadcast form ("rows": both operands of the result's
+    shape; "scalar": one a single element; "scalar x scalar"; "empty"; or
+    "other"), whether an operand of the result's shape is not contiguous,
+    and whether every such operand's rows still lie one row stride apart."""
+    shape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
+    full = [t for t in (a, b) if t.shape[:-1] == shape]
+    if math.prod(shape) == 0:
+        form = "empty"
+    elif not shape:
+        form = "scalar x scalar"
+    elif len(full) == 2:
+        form = "rows"
+    elif min(math.prod(a.shape[:-1]), math.prod(b.shape[:-1])) == 1:
+        form = "scalar"
+    else:
+        form = "other"
+    strided = [t for t in full if not t.is_contiguous()]
+
+    def one_stride(t):
+        try:
+            return t.view(-1, t.shape[-1]).stride(1) == 1
+        except RuntimeError:
+            return False
+
+    return form, bool(strided), bool(strided) and all(one_stride(t) for t in strided)
+
+
+@contextmanager
+def ring_op_forms():
+    """Tallies the ring ops made inside by `ring_form`: {(form, strided,
+    at one row stride): count}, and the batch shapes of the "other" ones."""
+    forms, others, ring_op = Counter(), Counter(), fk.ring_op
+
+    def tallied(field, op, a, b):
+        form = ring_form(a, b)
+        forms[form] += 1
+        if form[0] == "other":
+            others[(tuple(a.shape[:-1]), tuple(b.shape[:-1]))] += 1
+        return ring_op(field, op, a, b)
+
+    fk.ring_op = tallied
+    try:
+        yield forms, others
+    finally:
+        fk.ring_op = ring_op
+
+
+def field_op_launches(name: str, cfg: dict, keys, card: str) -> dict:
+    """Phase 14's path: the benchmark configuration `name` on its keys; pp,
+    new, one next, then one next under torch.profiler: its kernel events
+    beside the ring ops' launches in it and their forms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from port_bench.harness import step_circuit, z0_of
+
+    pp = CyclefoldPublicParams(step_circuit(cfg, "sirius_tpu_torch"), cfg["k"], *keys)
+    ivc = CyclefoldIVC(pp, z0_of(cfg, SEED, bn256_fr.modulus))
+    t0 = synced()
+    ivc.next()
+    warm = synced() - t0
+    before = (Counter(fk.ring_op.launches), Counter(_build.device_launches))
+    with ring_op_forms() as (forms, others), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ivc.next()
+        wall = synced() - t0
+    events = [e for e in prof.profiler.kineto_results.events() if e.device_type() == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in events if not e.name().startswith(("Memcpy", "Memset"))]
+    busy = sum(e.duration_ns() for e in events) / 1e9
+    ring = Counter(fk.ring_op.launches) - before[0]
+    entries = dict(sorted((Counter(_build.device_launches) - before[1]).items()))
+    by_name = Counter(e.name()[:60] for e in kernels)
+    ops = sum(forms.values())
+    tally = "; ".join(f"{form}{', strided' if strided else ''}{' (one row stride)' if one else ''} {k}"
+                      for (form, strided, one), k in sorted(forms.items(), key=lambda kv: -kv[1]))
+    log(f"{name}: next {warm:.4f} s; one traced next: wall {wall:.4f} s (profiler on), {len(kernels)} kernel events "
+        f"(launches_per_step's count), device busy {busy:.4f} s = {100 * busy / wall:.1f}%; ring ops {ops} by form: "
+        f"{tally}; other broadcasts by (a, b) batch shape: {dict(others)}; ring-op launches addsub_rows "
+        f"{ring['addsub_rows']} + mul_rows {ring['mul_rows']} = {sum(ring.values())} "
+        f"({100 * sum(ring.values()) / max(len(kernels), 1):.1f}% of the kernels); the library's launches by (entry, "
+        f"card): {entries}; the most launched kernels: "
+        + ", ".join(f"{k} {v}" for k, v in by_name.most_common(8)) + f"  [{card}]")
+    check(sum(ring.values()) == ops - forms[("empty", False, False)],
+          f"{name}: {sum(ring.values())} ring-op launches for {ops} ring ops")
+    return {"kernels": len(kernels), "ring_ops": ops, **ring}
+
+
+def field_ops_phase(record, kernels: dict, card: str, rng, keys: dict) -> None:
+    """Phase 14: the ring ops' kernels, then each benchmark configuration's
+    traced next on `keys` ({(curve name, log2 size): key}), and the kernels'
+    launches on those nexts."""
+    field_op_kernels(record, kernels, card, rng)
+    launches = {}
+    for name, cfg in bench_configs().items():
+        ck1, ck2 = (keys[(c["curve"], c["log2_size"])] for c in (cfg["primary_key"], cfg["support_key"]))
+        launches[name] = field_op_launches(name, cfg, (ck1, ck2), card)
+    for name, e in kernels.items():  # the traced nexts' launches, every shape: mul's on Field.mul's product only
+        if name.startswith("addsub_rows_"):
+            e["launches"] = sum(v["addsub_rows"] for v in launches.values())
+        elif name.startswith(f"mul_rows_k1_{fk.FIELD_PRODUCT}_"):
+            e["launches"] = sum(v["mul_rows"] for v in launches.values())
+    log(f"phase 14, the ring ops on the benchmark's traced nexts: {launches}  [{card}]")
+
+
+def field_ops_only() -> int:
+    """`python3 chip_smoke.py --field-ops`: the card lines, the build, the
+    benchmark's keys (from the key cache where `SIRIUS_TPU_CACHE` holds
+    them) and phase 14 alone, then its kernels-line entries, the nvidia-smi
+    line and the device JSON."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available; the port's smoke run needs an NVIDIA GPU")
+    started = time.perf_counter()
+    dev = torch.device(DEVICE)
+    smi, card, imad_rate, clock_mhz = card_lines()
+    kernels, keys = {}, {}
+    for cfg in bench_configs().values():
+        for c in (cfg["primary_key"], cfg["support_key"]):
+            if (c["curve"], c["log2_size"]) not in keys:
+                t0 = synced()
+                curve = {"bn256": BN256_G1, "grumpkin": GRUMPKIN}[c["curve"]]
+                keys[(c["curve"], c["log2_size"])] = CommitmentKey.setup(curve, c["log2_size"], c["label"].encode(),
+                                                                         device=dev)
+                log(f"key {c['curve']} 2^{c['log2_size']} {c['label']!r}: {synced() - t0:.2f} s")
+    field_ops_phase(recorder(kernels, imad_rate), kernels, card, np.random.default_rng(SEED), keys)
+    log(f"chip_smoke --field-ops: {time.perf_counter() - started:.1f} s in all, the build included")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
     print(device_json())
@@ -2425,6 +2613,11 @@ def main() -> int:
     # ---- the mesh phase: the multi-device path on a virtual mesh of cuda:0 and, on a multi-card host, every card -----
     mesh_phase(record, kernels, card, (ck1_full, ck1, ck2), cf_pp, rng, base=cf_base)
 
+    # ---- phase 14: the ring ops' kernels, and their launches on the benchmark configurations' traced nexts ----------
+    field_ops_phase(record, kernels, card, rng, {("bn256", PRIMARY_LOG): ck1, ("bn256", PRIMARY_KEY_LOG): ck1_full,
+                                                 ("grumpkin", SUPPORT_KEY_LOG): CommitmentKey(GRUMPKIN, sup, ck2.label,
+                                                                                              SUPPORT_KEY_LOG)})
+
     # ---- entry points (b): the Merkle example at the reference's size, and the CLI as a user runs it ----------------
     # the SFC over the Merkle step commits 14 advice columns x 2^17 = 1,835,008 scalars: more than a 2^20 key holds
     # (the JAX example's k + 3; its real-key run raises TooLongInput), so the bn256 key is the 2^22 one
@@ -2518,4 +2711,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(mesh_only() if sys.argv[1:] == ["--mesh-only"] else main())
+    modes = {"--mesh-only": mesh_only, "--field-ops": field_ops_only}
+    sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] else main())

@@ -18,8 +18,12 @@ accumulator: round i adds b's limbs times a's limb i (products < 2^32) and
 then m_i * p, for 16 Montgomery rounds.  A column collects
 at most 32 products plus carries (< 2^38), so no carry is rippled inside
 the rounds; one signed 8-word ripple picks the canonical result at the end.
-The same arithmetic runs on CPU and CUDA tensors (the hand-written kernels
-in `csrc/` implement it with 8x32-bit words).
+
+That limb arithmetic is the ring ops' CPU path.  On CUDA tensors each ring
+op (add, sub, neg, double, mul, square) is one launch of a hand-written
+kernel over 8x32-bit words (`ops/field_kernels.ring_op`: `addsub_rows`,
+`mul_rows`), the same words; `Field.limbs` runs the limb arithmetic on any
+device, for the kernels' plain twins.
 """
 
 from __future__ import annotations
@@ -109,6 +113,8 @@ class Field:
                 t = torch.tensor(_words_of(1), dtype=torch.int64)
             elif name == "one_mont":
                 t = torch.tensor(self.one_mont_words, dtype=torch.int64)
+            elif name == "zero":
+                t = torch.zeros(WORDS, dtype=torch.int64)
             else:
                 raise KeyError(name)
             t = t.to(device)
@@ -153,20 +159,44 @@ class Field:
         return torch.where((c[0] >= 0).unsqueeze(-1), out[0], out[1])
 
     def add(self, a, b):
-        s = a + b
-        return self._canon(s - self._c("p", s.device), s)
+        if a.is_cuda or b.is_cuda:
+            return _ring_op(self, "add", a, b)
+        return self.add_limbs(a, b)
 
     def sub(self, a, b):
-        d = a - b
-        return self._canon(d, d + self._c("p", d.device))
+        if a.is_cuda or b.is_cuda:
+            return _ring_op(self, "sub", a, b)
+        return self.sub_limbs(a, b)
 
     def neg(self, a):
+        if a.is_cuda:
+            return _ring_op(self, "sub", self._c("zero", a.device), a)
         return self.sub(torch.zeros_like(a), a)
 
     def double(self, a):
         return self.add(a, a)
 
     def mul(self, a, b):
+        """Montgomery product a*b*R^-1 mod p."""
+        if a.is_cuda or b.is_cuda:
+            return _ring_op(self, "mul", a, b)
+        return self.mul_limbs(a, b)
+
+    @property
+    def limbs(self) -> Field:
+        """This field with every ring op on the limb arithmetic, on any device:
+        what the kernels' plain twins run."""
+        return _limb_field(self.spec)
+
+    def add_limbs(self, a, b):
+        s = a + b
+        return self._canon(s - self._c("p", s.device), s)
+
+    def sub_limbs(self, a, b):
+        d = a - b
+        return self._canon(d, d + self._c("p", d.device))
+
+    def mul_limbs(self, a, b):
         """Montgomery product a*b*R^-1 mod p (CIOS, lazy carries).  On the CPU
         in chunks of CPU_MUL_CHUNK elements, whose accumulator stays in cache
         (2-3x faster at 2^17 elements than one pass)."""
@@ -310,6 +340,26 @@ class Field:
         return self.encode([v % self.p for v in vals], device).reshape(tuple(shape) + (WORDS,))
 
 
+class LimbField(Field):
+    """A field whose ring ops run the limb arithmetic on every device
+    (`Field.limbs`)."""
+
+    add, sub, mul = Field.add_limbs, Field.sub_limbs, Field.mul_limbs
+
+    def neg(self, a):
+        return self.sub(torch.zeros_like(a), a)
+
+    @property
+    def limbs(self) -> Field:
+        return self
+
+
+def _ring_op(field: Field, op: str, a, b):
+    from ..ops.field_kernels import ring_op
+
+    return ring_op(field, op, a, b)
+
+
 from .constants import bn256_fq, bn256_fr, pasta_fp, pasta_fq  # noqa: E402
 
 FQ = Field(bn256_fq)
@@ -318,6 +368,11 @@ PASTA_FP = Field(pasta_fp)
 PASTA_FQ = Field(pasta_fq)
 
 _FIELDS = {f.spec.name: f for f in (FQ, FR, PASTA_FP, PASTA_FQ)}
+_LIMB_FIELDS = {name: LimbField(f.spec) for name, f in _FIELDS.items()}
+
+
+def _limb_field(spec: FieldSpec) -> LimbField:
+    return _LIMB_FIELDS[spec.name]
 
 
 def field_for(spec: FieldSpec) -> Field:

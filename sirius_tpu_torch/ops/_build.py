@@ -56,7 +56,8 @@ _SIGNATURES = {
     "sirius_msm_attrs": [I, P],
     "sirius_col_ntt": [P] * 6 + [LL, LL, LL, P],
     "sirius_col_ntt_attrs": [I, P],
-    "sirius_mul_rows": [P] * 4 + [LL, LL, LL, I, I, P],
+    "sirius_mul_rows": [P] * 4 + [LL] * 5 + [I, I, P],
+    "sirius_addsub_rows": [P] * 4 + [LL] * 4 + [I, P],
     "sirius_mul_rows_attrs": [I, P],
     "sirius_raw_u32": [P] * 2 + [LL, I, I, P],
     "sirius_add_one": [P] * 2 + [LL, P],
@@ -125,8 +126,10 @@ def built_here() -> bool:
     return _BUILT_HERE
 
 
+@lru_cache(maxsize=None)
 def field_consts(field) -> ctypes.Array:
-    """The 17-word constant block of a port `Field` (host memory)."""
+    """The 17-word constant block of a port `Field` (host memory; one a field,
+    since every ring op on the card passes it)."""
     words = [*field.p_words, *field.one_mont_words, field.n0inv32]
     return (ctypes.c_uint32 * 17)(*words)
 
@@ -140,18 +143,20 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
 
 
-def launch(name: str, like: torch.Tensor, *args) -> None:
+def launch(name: str, like: torch.Tensor, *args, counted_as: str | None = None) -> None:
     """Call the C entry `sirius_<name>` with `args` and the current stream of
     `like`'s device, with that device current; raise on a failed launch and
-    count it in `device_launches`."""
+    count it in `device_launches` (under `counted_as` where a caller keeps
+    its launches apart from the entry's)."""
     with torch.cuda.device(like.device):
         err = getattr(library(), f"sirius_{name}")(*args, stream_of(like))
     check(err, name)
-    device_launches[(name, str(like.device))] += 1
+    device_launches[(counted_as or name, str(like.device))] += 1
 
 
-def require_cuda(*tensors: torch.Tensor, dtype: torch.dtype = torch.int64) -> None:
-    """Validate kernel operands: one CUDA device, `dtype`, contiguous."""
+def require_cuda(*tensors: torch.Tensor, dtype: torch.dtype = torch.int64, contiguous: bool = True) -> None:
+    """Validate kernel operands: one CUDA device, `dtype`, contiguous (unless
+    the kernel reads them at a row stride)."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
@@ -160,7 +165,7 @@ def require_cuda(*tensors: torch.Tensor, dtype: torch.dtype = torch.int64) -> No
             raise ValueError(f"kernel operand on {t.device}, not a CUDA device")
         if t.dtype != dtype:
             raise TypeError(f"kernel operand dtype {t.dtype}, expected {dtype}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
 
 

@@ -45,7 +45,7 @@ def extract_digits(scalars_std: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def madd_plain(curve: Curve, P: Points, qx: torch.Tensor, qy: torch.Tensor) -> Points:
-    return k_madd_incomplete(curve, P, qx, qy)
+    return k_madd_incomplete(curve.limbs, P, qx, qy)
 
 
 def madd_buckets_plain(curve: Curve, scalars_std: torch.Tensor, px: torch.Tensor, py: torch.Tensor, G: int,
@@ -54,6 +54,7 @@ def madd_buckets_plain(curve: Curve, scalars_std: torch.Tensor, px: torch.Tensor
     `_bucket_totals_onehot_pallas`): per step, each lane's bucket selected by
     a one-hot multiply-and-sum over the (t, W, G, B) table, one batched madd,
     and a masked write-back; returned as (t, W, B, G, 8)."""
+    curve = curve.limbs
     t, n = scalars_std.shape[:2]
     dev = scalars_std.device
     B, g = (1 << c) - 1, n // G

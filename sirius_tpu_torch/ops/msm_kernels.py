@@ -87,6 +87,7 @@ def _check_rows(*tensors: torch.Tensor) -> None:
 
 
 def msm_accumulate_plain(curve: Curve, entries, chunk_start, chunk_len, px, py) -> Points:
+    curve = curve.limbs
     f = curve.fb
     n_chunks = chunk_start.shape[0]
     acc = curve.identity((n_chunks,), px.device)
@@ -104,6 +105,7 @@ def msm_accumulate_plain(curve: Curve, entries, chunk_start, chunk_len, px, py) 
 
 
 def msm_reduce_plain(curve: Curve, seg_off, partials: Points) -> Points:
+    curve = curve.limbs
     n_seg = seg_off.shape[0] - 1
     counts = seg_off[1:] - seg_off[:-1]
     width = int(counts.max()) if n_seg else 0
@@ -140,6 +142,7 @@ def msm_window_sums_plain(curve: Curve, buckets: Points, L: int) -> Points:
     (a power of two) buckets, the last ragged: segment s walks its buckets
     top-down for R_s and T_s = sum (v - sL) B_v; then sum_v v B_v =
     sum_s (T_s + L P_s), P_s = sum_{s' >= s} R_s' (P_0's term dropped)."""
+    curve = curve.limbs
     t, W, B = buckets.x.shape[:3]
     dev = buckets.x.device
     if L < 1 or L & (L - 1):
@@ -167,6 +170,7 @@ def msm_horner_plain(curve: Curve, totals: Points, c: int, K: int) -> Points:
     at its top with identities here), each by Horner, then Horner over the
     groups (c K doublings between groups, c r before the lowest).  K = 1 is
     the plain Horner over windows."""
+    curve = curve.limbs
     t, W = totals.x.shape[:2]
     G = -(-W // K)
     r = W - (G - 1) * K
@@ -187,7 +191,7 @@ def msm_horner_plain(curve: Curve, totals: Points, c: int, K: int) -> Points:
 def msm_combine_plain(curve: Curve, buckets: Points, c: int) -> Points:
     """sum_w 2^(c w) sum_v v B[:, w, v-1] for (t, W, B) buckets: the window
     sums by two log-depth suffix scans, then Horner over windows."""
-    return msm_horner_plain(curve, suffix_window_sums(curve, buckets), c, 1)
+    return msm_horner_plain(curve, suffix_window_sums(curve.limbs, buckets), c, 1)
 
 
 # -- kernel wrappers ---------------------------------------------------------------

@@ -51,6 +51,7 @@ def _check(a: torch.Tensor, rev: torch.Tensor, table: torch.Tensor, mid, rep: in
 
 def col_ntt_plain(field: Field, a: torch.Tensor, rev: torch.Tensor, table: torch.Tensor,
                   mid: torch.Tensor | None = None, rep: int = 1) -> torch.Tensor:
+    field = field.limbs
     size, R = a.shape[:2]
     a = a[rev]
     m = 1

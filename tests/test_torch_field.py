@@ -1,6 +1,8 @@
 """Port field arithmetic vs the JAX package's `Field` and Python ints
 (exact: integer results, canonical encodings compared word for word)."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -76,3 +78,56 @@ def test_ops_against_python_ints_with_broadcast():
     got = T.decode(T.mul(T.encode(xs, "cpu")[:, None], T.encode(ys, "cpu")[None, :]))
     assert got == [x * y % p for x in xs for y in ys]
     assert T.decode(T.sub(T.encode(xs, "cpu"), T.encode(xs[::-1], "cpu"))) == [(x - y) % p for x, y in zip(xs, xs[::-1])]
+
+
+def _strided_rows(t, k):
+    """t's rows at every k-th row of a wider table (a view, not contiguous)."""
+    wide = torch.zeros((t.shape[0] * k,) + tuple(t.shape[1:]), dtype=t.dtype)
+    wide[::k] = t
+    return wide[::k]
+
+
+# (a's batch shape, b's batch shape, whether ring_op expands an operand first: neither n rows nor one)
+RING_FORMS = {
+    "rows_rows": ((40,), (40,), False),
+    "rows_scalar": ((40,), (), False),
+    "scalar_rows": ((), (40,), False),
+    "nodes_scalar": ((20, 3), (), False),
+    "scalar_scalar": ((), (), False),
+    "table_wrapped": ((5, 4), (4,), True),
+    "table_repeated": ((5, 4), (5, 1), True),
+    "block_repeated_wrapped": ((2, 3, 4), (1, 3, 1), True),
+    "outer": ((6, 1), (1, 5), True),
+    "gapped": ((3, 4, 5), (3, 1, 5), True),
+    "empty": ((0,), (), False),
+}
+
+
+@pytest.mark.parametrize("op", ["add", "sub", "mul"])
+@pytest.mark.parametrize("form", RING_FORMS)
+def test_ring_op_broadcasts_equal_the_limb_arithmetic(form, op, monkeypatch):
+    """`field_kernels.ring_op`, the ring ops' route on CUDA tensors, run here
+    on CPU tensors (the kernels' plain twins), equals `Field.limbs` word for
+    word at every broadcast form, strided views of either operand included:
+    one kernel call with b of n rows or one row, the full operand first, and
+    the operand expanded first for any other broadcast."""
+    from sirius_tpu_torch.ops import field_kernels as fk
+
+    T = tf.FR
+    a_shape, b_shape, expands = RING_FORMS[form]
+    rng = np.random.default_rng(len(form))
+    a, b = T.random(a_shape, rng, "cpu"), T.random(b_shape, rng, "cpu")
+    calls = []
+    plain = fk.addsub_rows_plain if op != "mul" else fk.mul_rows_plain
+    monkeypatch.setattr(fk, plain.__name__, lambda f, x, y, *args: calls.append((x.shape[0], y.shape[0])) or
+                        plain(f, x, y, *args))
+    want = getattr(T.limbs, op)(a, b)
+    assert torch.equal(fk.ring_op(T, op, a, b), want)
+    n = math.prod(torch.broadcast_shapes(a_shape, b_shape))
+    assert calls == ([] if n == 0 else [(n, n if expands or b_shape == a_shape or n == 1 else 1)])
+    if a.dim() == 2 and a.shape[0]:
+        assert torch.equal(fk.ring_op(T, op, _strided_rows(a, 3), b), want)
+    if b.dim() == 2 and b.shape[0]:
+        assert torch.equal(fk.ring_op(T, op, a, _strided_rows(b, 2)), want)
+    if op == "sub":
+        assert torch.equal(fk.ring_op(T, "sub", T._c("zero", "cpu"), a), T.limbs.neg(a))

@@ -1,5 +1,6 @@
-"""Host rehearsal of the wide product `fe_mul_wide` (`csrc/field.cuh`) and of
-B1's batched madd kernel (`csrc/madd.cu`): the kernels' own code, built with
+"""Host rehearsal of the wide product `fe_mul_wide` (`csrc/field.cuh`), of the
+ring ops' add/sub kernel `addsub_rows` (`csrc/field_ops.cu`) and of B1's
+batched madd kernel (`csrc/madd.cu`): the kernels' own code, built with
 g++ and run on the CPU through ctypes (`host_kernels.py`).  Off the device
 each PTX op of the wide product is emulated with an explicit carry flag in
 the same order, so its carries, folds and role swaps run here; only the asm
@@ -31,9 +32,9 @@ extern "C" void host_mul_rows_wide(const uint32_t* consts, const long long* a, c
   const unsigned threads = 128, ept = mul_rows_ept(K), blocks = (unsigned)((n + threads * ept - 1) / (threads * ept));
   run_grid(blocks, threads, [=] {
     if (ept == 2)
-      mul_rows_kernel<2, false, false, 4>(fc, a, b, out, (unsigned)n, (unsigned)n, 1u, K);
+      mul_rows_kernel<2, false, false, 4>(fc, a, b, out, (unsigned)n, (unsigned)n, 1u, 1u, 1u, K);
     else
-      mul_rows_kernel<1, false, false, 4>(fc, a, b, out, (unsigned)n, (unsigned)n, 1u, K);
+      mul_rows_kernel<1, false, false, 4>(fc, a, b, out, (unsigned)n, (unsigned)n, 1u, 1u, 1u, K);
   });
 }
 
@@ -50,6 +51,27 @@ extern "C" void host_mul_wide3(const uint32_t* consts, const long long* a, const
     fe_mul_wide_n<3>(r, x, y, fc);
     for (int k = 0; k < 3; ++k) fe_store(out, i + k, r[k]);
   }
+}
+
+// addsub_rows_kernel as sirius_addsub_rows launches it (its instance by wrap and op).
+template <int OP>
+static void host_addsub_op(const FieldConst& fc, const long long* a, const long long* b, long long* out, unsigned n,
+                           unsigned nb, unsigned sa, unsigned sb) {
+  const unsigned threads = 128, blocks = (n + threads * 2 - 1) / (threads * 2);
+  run_grid(blocks, threads, [=] {
+    if (nb != n)
+      addsub_rows_kernel<true, OP>(fc, a, b, out, n, nb, sa, sb);
+    else
+      addsub_rows_kernel<false, OP>(fc, a, b, out, n, nb, sa, sb);
+  });
+}
+
+extern "C" void host_addsub_rows(const uint32_t* consts, const long long* a, const long long* b, long long* out,
+                                 long long n, long long nb, long long sa, long long sb, int op) {
+  const FieldConst fc = make_field_const(consts);
+  if (op == 0) host_addsub_op<0>(fc, a, b, out, n, nb, sa, sb);
+  if (op == 1) host_addsub_op<1>(fc, a, b, out, n, nb, sa, sb);
+  if (op == 2) host_addsub_op<2>(fc, a, b, out, n, nb, sa, sb);
 }
 
 // madd_kernel as sirius_madd launches it: a lane a thread, blocks of MADD_THREADS.
@@ -70,6 +92,7 @@ def host_lib(tmp_path_factory):
     lib.host_mul_rows_wide.argtypes = [P] * 4 + [LL, ctypes.c_int]
     lib.host_mul_wide3.argtypes = [P] * 4 + [LL]
     lib.host_madd.argtypes = [P] * 9 + [LL]
+    lib.host_addsub_rows.argtypes = [P] * 4 + [LL] * 4 + [ctypes.c_int]
     return lib
 
 
@@ -113,6 +136,46 @@ def test_wide_product_interleaved_on_the_host(host_lib, field):
     out = torch.empty_like(a)
     host_lib.host_mul_wide3(_build.field_consts(field), a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0])
     assert torch.equal(out, _gold_chain(field, a, b, 1))
+
+
+def _addsub_operands(field, n: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """n random canonical pairs (a ragged count), then the edges: every pair
+    of 0, 1 and p - 1, a + b = p, a = b, and b > a."""
+    rng = np.random.default_rng(seed)
+    p, x = field.p, int(rng.integers(1, 2**62)) << 190
+    edge = [0, 1, p - 1]
+    pairs = [(u, v) for u in edge for v in edge] + [(x, p - x), (p - x, x), (x, x), (5, p - 3), (x - 1, x)]
+    ea = torch.from_numpy(ints_to_words([u for u, _ in pairs]))
+    eb = torch.from_numpy(ints_to_words([v for _, v in pairs]))
+    return torch.cat([field.random((n,), rng, "cpu"), ea]), torch.cat([field.random((n,), rng, "cpu"), eb])
+
+
+@pytest.mark.parametrize("op", fk.ADDSUB_OPS)
+@pytest.mark.parametrize("field", [FR, FQ], ids=["bn256_fr", "bn256_fq"])
+def test_addsub_kernel_on_the_host_equals_the_limb_arithmetic(host_lib, field, op):
+    """addsub_rows_kernel on every instance its wrapper launches: b of n
+    rows, one row (a scalar) and 7 rows wrapped, over a ragged n (no
+    multiple of 256: the second block part idle), a read at row stride 2 and
+    b at 1 or 3; random words and every edge, word for word the limb
+    arithmetic of `Field` and the Python-int sum."""
+    a, b = _addsub_operands(field, 294, len(op))  # 294 + 14 = 308 rows
+    n, p = a.shape[0], field.p
+    wide = torch.zeros(2 * n, 8, dtype=torch.int64)
+    wide[0::2] = a
+    for nb, sb in ((n, 1), (1, 1), (7, 1), (7, 3)):
+        bb = b[: nb]
+        b_wide = torch.zeros(3 * nb, 8, dtype=torch.int64)
+        b_wide[0::sb][:nb] = bb
+        out = torch.empty_like(a)
+        host_lib.host_addsub_rows(_build.field_consts(field), wide.data_ptr(), b_wide.data_ptr(), out.data_ptr(), n,
+                                  nb, 2, sb, fk.ADDSUB_OPS.index(op))
+        y = fk._broadcast_rows(bb, n, 1)
+        f = field.limbs
+        want = f.add(a, y) if op == "add" else f.sub(a, y) if op == "sub" else f.sub(y, a)
+        assert torch.equal(out, want), (nb, sb)
+        sign = {"add": (1, 1), "sub": (1, -1), "rsub": (-1, 1)}[op]
+        gold = [(sign[0] * u + sign[1] * v) % p for u, v in zip(words_to_ints(a.numpy()), words_to_ints(y.numpy()))]
+        assert words_to_ints(out.numpy()) == gold, (nb, sb)
 
 
 def _madd_case(curve, n: int) -> tuple[Points, torch.Tensor, torch.Tensor]:

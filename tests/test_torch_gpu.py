@@ -550,6 +550,116 @@ def test_protogalaxy_prove_on_the_card_equals_the_cpu(cuda_device):
     assert all(torch.equal(a, b) for a, b in zip(card[3], cpu[3]))
 
 
+RING_OPS = ["add", "sub", "neg", "double", "mul", "square"]
+
+
+def _ring_operands(field, seed: int, device) -> dict:
+    """Operands on `device` of each broadcast form the ring ops' call sites
+    use, by name: (a, b), the same values for a seed on every device; b is
+    unused by the one-operand ops."""
+    rng = np.random.default_rng(seed)
+    rows, other = (field.random((4099,), rng, "cpu").to(device) for _ in range(2))  # ragged
+    s, t = (field.random((), rng, "cpu").to(device) for _ in range(2))  # (8,) scalars
+    nodes = field.random((2048, 3), rng, "cpu").to(device)  # a level of the pow tree: (N / 2, h + 1, 8) nodes
+    P = field.random((4096, 3), rng, "cpu").to(device)
+    return {"rows_rows": (rows, other), "rows_scalar": (rows, s), "scalar_rows": (s, rows),
+            "nodes_scalar": (nodes, s), "scalar_scalar": (s, t),
+            "strided_rows": (P[0::2, 0], P[1::2, 2]),  # a column of a wider table, every other row: row stride 6
+            "strided_nodes": (P[1::2], s),  # P[1::2] of the pow tree's nodes: no one row stride
+            "empty": (rows[:0], s)}
+
+
+def _kernels_launched(fn, *args):
+    """fn(*args) and the kernels it launched on the card (torch.profiler's
+    CUDA events, not copies to or from the host or fills)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn(*args)
+        torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    return out, [e.name() for e in events if e.device_type() == torch.autograd.DeviceType.CUDA
+                 and not e.name().startswith(("Memcpy", "Memset"))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", RING_OPS)
+@pytest.mark.parametrize("field", [FR, FQ], ids=["bn256_fr", "bn256_fq"])
+def test_field_ring_op_on_the_card_is_one_launch_equal_to_the_cpu(cuda_device, field, op):
+    """`Field.add`, `sub`, `neg`, `double`, `mul` and `square` on CUDA
+    tensors, at every broadcast form of the call sites (strided views and an
+    empty batch included), equal the same op on CPU copies word for word.
+    Each is one kernel on the card, counted by `ring_op.launches`, by the
+    library's count under "ring_op" (apart from the wrappers' own counts,
+    which do not move) and by the profiler: none for the empty batch, and a
+    copy before it only where an operand's rows have no one row stride."""
+    from sirius_tpu_torch.ops import _build
+
+    on_cpu = _ring_operands(field, len(op), "cpu")
+    for form, (a, b) in _ring_operands(field, len(op), cuda_device).items():
+        args = (a, b) if op in ("add", "sub", "mul") else (a,)
+        counts = lambda: (sum(fk.ring_op.launches.values()),  # noqa: E731
+                          _build.device_launches[("ring_op", str(a.device))], sum(_build.device_launches.values()),
+                          fk.addsub_rows.launches + fk.mul_rows.launches)
+        before = counts()
+        got, kernels = _kernels_launched(getattr(field, op), *args)
+        after = counts()
+        want = getattr(field, op)(*on_cpu[form][: len(args)])
+        assert got.is_cuda and torch.equal(got.cpu(), want), form
+        launches = 0 if form == "empty" else 1
+        assert after == (before[0] + launches, before[1] + launches, before[2] + launches, before[3]), form
+        ring = [k for k in kernels if "addsub_rows_kernel" in k or "mul_rows_kernel" in k]
+        assert len(ring) == launches, (form, kernels)
+        assert len(kernels) == launches + (form == "strided_nodes"), (form, kernels)
+
+
+@pytest.mark.gpu
+def test_compute_K_on_the_card_equals_the_cpu_one_launch_a_ring_op(cuda_device, monkeypatch):
+    """`compute_K` (the fold's G sweep, pow tree and witness fold) on fibo
+    traces at k = 10 with a real key: the card's K coefficients equal the
+    CPU run of the port, and every ring op it makes on the card is one
+    kernel launch."""
+    from sirius_tpu_torch.fields.constants import bn256_g1
+    from sirius_tpu_torch.frontend.runner import CircuitRunner
+    from sirius_tpu_torch.nifs import protogalaxy as pg
+    from sirius_tpu_torch.ops.poseidon import PoseidonHash, poseidon_spec
+    from sirius_tpu_torch.plonk.sps import run_sps_protocol
+
+    from fixtures import FiboCircuit
+
+    p, k = bn256_fr.modulus, 10
+    ring_ops = []
+    ring_op = fk.ring_op
+
+    def counted(field, op, a, b):
+        out = ring_op(field, op, a, b)
+        ring_ops.append(out.numel() > 0)
+        return out
+
+    monkeypatch.setattr(fk, "ring_op", counted)
+
+    def run(device):
+        ck = CommitmentKey.setup(BN256_G1, 11, b"pg-K-test", use_cache=False, device=device)
+        circuits = [FiboCircuit(1, 1, 900), FiboCircuit(2, 3, 900)]
+        S = CircuitRunner(k, bn256_fr, circuits[0], circuits[0].instances(p)).collect_plonk_structure()
+        ro = lambda: PoseidonHash(poseidon_spec(bn256_fr, 3, 2, 4, 3))  # noqa: E731
+        traces = [run_sps_protocol(S, ck, c.instances(p), CircuitRunner(k, bn256_fr, c, c.instances(p))
+                                   .collect_witness(), ro()) for c in circuits]
+        pp, _ = pg.ProtoGalaxy.setup_params(gold.identity(bn256_g1), S)
+        acc = pg.ProtoGalaxy.new_accumulator(pp, ro(), traces[0], bn256_g1)
+        ctx = pg.PolyContext(S, 1)
+        betas = pg.betas_stroke_of(acc.betas, 5, 7, p)
+        ring_ops.clear()
+        before = sum(ring_op.launches.values())
+        K = pg.compute_K(ctx, 11, betas, acc.trace, traces[1:]).coeffs
+        return K, sum(ring_op.launches.values()) - before, sum(ring_ops)
+
+    card, cpu = run(cuda_device), run("cpu")
+    assert card[0] == cpu[0]
+    assert card[2] > 0 and card[1] == card[2]  # one launch a ring op, none off the card
+    assert cpu[1] == 0
+
+
 @pytest.mark.gpu
 def test_ntt_k12_matches_gold(cuda_device):
     xs = [int(x) for x in np.random.default_rng(12).integers(0, 2**62, size=1 << 12)]

@@ -52,13 +52,13 @@ static void host_mul_rows_e(const FieldConst& fc, const long long* a, const long
   const bool wrap = (unsigned long long)nb * rep != n;
   run_grid(blocks, threads, [=] {
     if (rep > 1 && wrap)
-      mul_rows_kernel<EPT, true, true, P>(fc, a, b, out, n, nb, rep, K);
+      mul_rows_kernel<EPT, true, true, P>(fc, a, b, out, n, nb, rep, 1u, 1u, K);
     else if (rep > 1)
-      mul_rows_kernel<EPT, true, false, P>(fc, a, b, out, n, nb, rep, K);
+      mul_rows_kernel<EPT, true, false, P>(fc, a, b, out, n, nb, rep, 1u, 1u, K);
     else if (wrap)
-      mul_rows_kernel<EPT, false, true, P>(fc, a, b, out, n, nb, rep, K);
+      mul_rows_kernel<EPT, false, true, P>(fc, a, b, out, n, nb, rep, 1u, 1u, K);
     else
-      mul_rows_kernel<EPT, false, false, P>(fc, a, b, out, n, nb, rep, K);
+      mul_rows_kernel<EPT, false, false, P>(fc, a, b, out, n, nb, rep, 1u, 1u, K);
   });
 }
 
